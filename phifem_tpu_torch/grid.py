@@ -202,9 +202,10 @@ class Grid:
             axis=-1,
         ).astype(ft)
 
-    @cached_property
-    def cell_vertices_np(self) -> np.ndarray:
-        cells = np.arange(self.num_cells, dtype=np.int64)
+    def cell_vertices_of_np(self, cells) -> np.ndarray:
+        """(len(cells), nv) int64 vertex ids of the given cells, closed
+        form (the rows of ``cell_vertices_np``)."""
+        cells = np.asarray(cells, dtype=np.int64)
         ix, iy, which = self._block_ij_np(cells)
         v00 = self._vid(ix, iy)
         v10 = self._vid(ix + 1, iy)
@@ -213,8 +214,12 @@ class Grid:
         if self.is_simplex:
             lower = np.stack([v00, v10, v11], axis=-1)
             upper = np.stack([v00, v11, v01], axis=-1)
-            return np.where(which[:, None] == 0, lower, upper).astype(np.int32)
-        return np.stack([v00, v10, v01, v11], axis=-1).astype(np.int32)
+            return np.where(which[:, None] == 0, lower, upper)
+        return np.stack([v00, v10, v01, v11], axis=-1)
+
+    @cached_property
+    def cell_vertices_np(self) -> np.ndarray:
+        return self.cell_vertices_of_np(np.arange(self.num_cells)).astype(np.int32)
 
     @cached_property
     def cell_orientations_np(self) -> np.ndarray:
@@ -231,9 +236,10 @@ class Grid:
             axis=-1,
         ).astype(ft)
 
-    @cached_property
-    def c2f_np(self) -> np.ndarray:
-        cells = np.arange(self.num_cells, dtype=np.int64)
+    def c2f_of_np(self, cells) -> np.ndarray:
+        """(len(cells), nfpc) int64 facet ids of the given cells, closed
+        form (the rows of ``c2f_np``)."""
+        cells = np.asarray(cells, dtype=np.int64)
         ix, iy, which = self._block_ij_np(cells)
         if self.is_simplex:
             lower = np.stack(
@@ -242,44 +248,65 @@ class Grid:
             upper = np.stack(
                 [self._df(ix, iy), self._hf(ix, iy + 1), self._vf(ix, iy)], axis=-1
             )
-            return np.where(which[:, None] == 0, lower, upper).astype(np.int32)
+            return np.where(which[:, None] == 0, lower, upper)
         return np.stack(
             [self._vf(ix, iy), self._vf(ix + 1, iy), self._hf(ix, iy), self._hf(ix, iy + 1)],
             axis=-1,
-        ).astype(np.int32)
+        )
+
+    @cached_property
+    def c2f_np(self) -> np.ndarray:
+        return self.c2f_of_np(np.arange(self.num_cells)).astype(np.int32)
+
+    def f2c_of_np(self, facets) -> np.ndarray:
+        """(len(facets), 2) int64 ``(cell_minus, cell_plus)`` of the given
+        facets, closed form (the rows of ``f2c_np``; -1 = no neighbour)."""
+        f = np.asarray(facets, dtype=np.int64)
+        nx, ny, nvf, nhf = self.nx, self.ny, self.num_vfacets, self.num_hfacets
+        out = np.empty(f.shape + (2,), np.int64)
+
+        v = f < nvf  # vertical
+        ix, iy = f[v] % (nx + 1), f[v] // (nx + 1)
+        if self.is_simplex:
+            left = 2 * (iy * nx + (ix - 1))  # lower tri owns the right edge
+            right = 2 * (iy * nx + ix) + 1  # upper tri owns the left edge
+        else:
+            left = iy * nx + (ix - 1)
+            right = iy * nx + ix
+        out[v, 0] = np.where(ix > 0, left, -1)
+        out[v, 1] = np.where(ix < nx, right, -1)
+
+        h = (f >= nvf) & (f < nvf + nhf)  # horizontal
+        g = f[h] - nvf
+        ix, iy = g % nx, g // nx
+        if self.is_simplex:
+            below = 2 * ((iy - 1) * nx + ix) + 1  # upper tri owns the top edge
+            above = 2 * (iy * nx + ix)  # lower tri owns the bottom edge
+        else:
+            below = (iy - 1) * nx + ix
+            above = iy * nx + ix
+        out[h, 0] = np.where(iy > 0, below, -1)
+        out[h, 1] = np.where(iy < ny, above, -1)
+
+        d = f >= nvf + nhf  # diagonal (triangles only)
+        block = f[d] - nvf - nhf
+        out[d, 0] = 2 * block
+        out[d, 1] = 2 * block + 1
+        return out
 
     @cached_property
     def f2c_np(self) -> np.ndarray:
-        nvf, nhf = self.num_vfacets, self.num_hfacets
-        f = np.arange(nvf, dtype=np.int64)
-        ix, iy = f % (self.nx + 1), f // (self.nx + 1)
-        if self.is_simplex:
-            left = 2 * (iy * self.nx + (ix - 1))  # lower tri owns the right edge
-            right = 2 * (iy * self.nx + ix) + 1  # upper tri owns the left edge
-        else:
-            left = iy * self.nx + (ix - 1)
-            right = iy * self.nx + ix
-        vpairs = np.stack(
-            [np.where(ix > 0, left, -1), np.where(ix < self.nx, right, -1)], axis=-1
-        )
+        return self.f2c_of_np(np.arange(self.num_facets)).astype(np.int32)
 
-        f = np.arange(nhf, dtype=np.int64)
-        ix, iy = f % self.nx, f // self.nx
-        if self.is_simplex:
-            below = 2 * ((iy - 1) * self.nx + ix) + 1  # upper tri owns the top edge
-            above = 2 * (iy * self.nx + ix)  # lower tri owns the bottom edge
-        else:
-            below = (iy - 1) * self.nx + ix
-            above = iy * self.nx + ix
-        hpairs = np.stack(
-            [np.where(iy > 0, below, -1), np.where(iy < self.ny, above, -1)], axis=-1
-        )
-
-        pairs = [vpairs, hpairs]
-        if self.is_simplex:
-            block = np.arange(self.num_dfacets, dtype=np.int64)
-            pairs.append(np.stack([2 * block, 2 * block + 1], axis=-1))
-        return np.concatenate(pairs, axis=0).astype(np.int32)
+    def boundary_facets_np(self) -> np.ndarray:
+        """Ascending ids of the facets on the background box boundary,
+        closed form (``np.where(boundary_facet_mask_np)[0]``)."""
+        nx, ny = self.nx, self.ny
+        rows = np.arange(ny, dtype=np.int64) * (nx + 1)
+        vert = np.stack([rows, rows + nx], axis=-1).reshape(-1)
+        cols = np.arange(nx, dtype=np.int64)
+        horiz = self.num_vfacets + np.concatenate([cols, ny * nx + cols])
+        return np.concatenate([vert, horiz])
 
     @cached_property
     def facet_kind_np(self) -> np.ndarray:
@@ -353,7 +380,7 @@ class Grid:
     def local_facet_index_np(self, cells: np.ndarray, facets: np.ndarray) -> np.ndarray:
         """For pairs (cell, facet) return the local index k with
         ``c2f[cell, k] == facet``."""
-        rows = self.c2f_np[np.asarray(cells)]
+        rows = self.c2f_of_np(cells)
         return np.argmax(rows == np.asarray(facets)[:, None], axis=1).astype(np.int32)
 
     # ------------------------------------------------------- device tensors
@@ -410,6 +437,44 @@ class Grid:
         lower = torch.stack([v00, v10, v11], dim=1)
         upper = torch.stack([v00, v11, v01], dim=1)
         return torch.where((which == 0)[:, None, None], lower, upper)
+
+    def _facet_kind_of(self, facets: torch.Tensor):
+        """(facets int64 on the device, vertical mask, horizontal mask)."""
+        f = torch.as_tensor(facets, device=self.device).to(torch.int64)
+        nvf = self.num_vfacets
+        return f, f < nvf, (f >= nvf) & (f < nvf + self.num_hfacets)
+
+    def facet_base_normals_of(self, facets: torch.Tensor) -> torch.Tensor:
+        """(len(facets), 2) base unit normals, closed form (the rows of
+        ``facet_base_normals_np``)."""
+        f, v, h = self._facet_kind_of(facets)
+        c, l = self._scalar, self.diag_length
+        nx = torch.where(v, c(1.0), torch.where(h, c(0.0), c(-self.hy / l)))
+        ny = torch.where(v, c(0.0), torch.where(h, c(1.0), c(self.hx / l)))
+        return torch.stack([nx, ny], dim=-1)
+
+    def facet_lengths_of(self, facets: torch.Tensor) -> torch.Tensor:
+        """(len(facets),) facet lengths, closed form."""
+        f, v, h = self._facet_kind_of(facets)
+        c = self._scalar
+        return torch.where(v, c(self.hy), torch.where(h, c(self.hx), c(self.diag_length)))
+
+    def _scalar(self, val: float) -> torch.Tensor:
+        return torch.tensor(val, dtype=self.dtype, device=self.device)
+
+    def facet_endpoints_of(self, facets: torch.Tensor) -> torch.Tensor:
+        """(len(facets), 2, 2) start/end coordinates, closed form with the
+        arithmetic of ``facet_endpoints_np``."""
+        f, v, h = self._facet_kind_of(facets)
+        nx = self.nx
+        g = torch.where(v, f, torch.where(h, f - self.num_vfacets, f - self.num_vfacets - self.num_hfacets))
+        ix = torch.where(v, g % (nx + 1), g % nx)
+        iy = torch.where(v, g // (nx + 1), g // nx)
+        x = self.x0 + ix.to(self.dtype) * self.hx
+        y = self.y0 + iy.to(self.dtype) * self.hy
+        x1 = torch.where(v, x, x + self.hx)
+        y1 = torch.where(h, y, y + self.hy)
+        return torch.stack([torch.stack([x, y], -1), torch.stack([x1, y1], -1)], dim=1)
 
     def map_to_physical(self, cells: torch.Tensor, ref_pts) -> torch.Tensor:
         """Map reference-cell points ``(npts, 2)`` to physical space,

@@ -9,7 +9,8 @@ flags (an edit rebuilds it), and loaded with ``ctypes``.
 :func:`stencil_matvec` dispatches on the tensor's device: a CPU tensor goes
 to :func:`stencil_matvec_ref` (shifted slices), a CUDA tensor to the kernel,
 and anything else raises.  There is no fallback from the card to the plain
-version.  ``launches`` counts kernel launches.
+version.  ``launches`` counts kernel launches, ``masked_launches`` those
+of the masked body.
 """
 
 from __future__ import annotations
@@ -34,6 +35,8 @@ __all__ = ["stencil_matvec", "stencil_matvec_ref", "pack_matrices", "build"]
 
 #: number of kernel launches made by :func:`stencil_matvec`
 launches = 0
+#: of those, launches of the masked body (``masks`` given)
+masked_launches = 0
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "stencil_matvec.cu"
@@ -102,7 +105,7 @@ def stencil_matvec(
     takes float32 or float64, contiguous tensors on one card, and masks in
     the dtype of x.
     """
-    global launches
+    global launches, masked_launches
     if x.device.type == "cpu":
         return stencil_matvec_ref(grid, x, masks, mats, y)
     if x.device.type != "cuda":
@@ -133,6 +136,7 @@ def stencil_matvec(
         msg = lib.phifem_cuda_error_string(err).decode()
         raise RuntimeError(f"stencil_matvec kernel launch failed: CUDA error {err} ({msg})")
     launches += 1
+    masked_launches += masks is not None
     return y
 
 

@@ -103,6 +103,36 @@ class StencilCellBatch:
                     part += self.masks[o].to(D.dtype) * mats[o][i][i]
         return d
 
+    def restricted_entities(self, offsets: Dict[str, int], idx_of: np.ndarray):
+        """Compact local ids and element matrices of the cells of this term
+        (mask set) with a vertex among the selected DoFs (see
+        ``assembly.Batch.restricted_entities``): only the cells around the
+        selected vertices are visited, never the whole grid."""
+        g = self.grid
+        nx, ny = g.nx, g.ny
+        off = offsets[self.field]
+        selv = np.where(idx_of[off : off + g.num_vertices] >= 0)[0]
+        ix, iy = selv % (nx + 1), selv // (nx + 1)
+        blocks = []
+        for dx in (-1, 0):
+            for dy in (-1, 0):
+                bx, by = ix + dx, iy + dy
+                ok = (bx >= 0) & (bx < nx) & (by >= 0) & (by < ny)
+                blocks.append(by[ok] * nx + bx[ok])
+        blocks = np.unique(np.concatenate(blocks))
+        if g.is_simplex:
+            cells = np.stack([2 * blocks, 2 * blocks + 1], axis=-1).reshape(-1)
+        else:
+            cells = blocks
+        orient = cells % 2 if g.is_simplex else np.zeros_like(cells)
+        if self.masks is not None:
+            masks = self.masks_or_ones().reshape(g.num_orientations, -1)
+            act = masks[orient, cells // g.cells_per_block] > 0.0
+            cells, orient = cells[act], orient[act]
+        l = idx_of[off + g.cell_vertices_of_np(cells)]
+        keep = (l >= 0).any(axis=1)
+        return l[keep], self.matrices.to(torch.float64).numpy()[orient[keep]]
+
     def add_dense(self, A: np.ndarray, offsets: Dict[str, int]) -> None:
         """Accumulate this batch into the dense global matrix ``A`` (host;
         builds per-cell tables, so small grids only)."""

@@ -107,6 +107,27 @@ class Space:
     def cell_dofs(self) -> torch.Tensor:
         return torch.as_tensor(self.cell_dofs_np, dtype=torch.int64, device=self.grid.device)
 
+    def cell_dofs_of(self, cells: torch.Tensor) -> torch.Tensor:
+        """(len(cells), nloc) int64 DoF ids of the given cells on
+        ``grid.device``.  P1 DoFs are the cell vertices, computed in closed
+        form, so a batch of a few cells never builds the whole-grid table."""
+        g = self.grid
+        cells = torch.as_tensor(cells, device=g.device).to(torch.int64)
+        if self.degree != 1:
+            return self.cell_dofs[cells]
+        if g.is_simplex:
+            block, which = cells // 2, cells % 2
+        else:
+            block, which = cells, torch.zeros_like(cells)
+        ix, iy = block % g.nx, block // g.nx
+        v00 = iy * (g.nx + 1) + ix
+        v10, v01, v11 = v00 + 1, v00 + g.nx + 1, v00 + g.nx + 2
+        if not g.is_simplex:
+            return torch.stack([v00, v10, v01, v11], dim=-1)
+        lower = torch.stack([v00, v10, v11], dim=-1)
+        upper = torch.stack([v00, v11, v01], dim=-1)
+        return torch.where((which == 0)[:, None], lower, upper)
+
     @cached_property
     def dof_coords_np(self) -> np.ndarray:
         """(num_scalar_dofs, 2) physical coordinates of scalar DoFs."""

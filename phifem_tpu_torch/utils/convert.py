@@ -9,17 +9,22 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..assembly import Operator, System
+from ..assembly import Batch, Operator, System
 from ..grid import Grid
+from ..mg import TABLE_DTYPE, VCycle, ras_owner
 from ..ops.lattice import LatticeMG, _Level
 from ..ops.stencil import StencilCellBatch
 from ..spaces import Function, Space
+from ..tagging import EntityTags, TagsMeasures, box_measure
 
 __all__ = [
     "stencil_batch_from_numpy",
     "operator_from_numpy",
     "lattice_mg_from_numpy",
     "function_from_numpy",
+    "tags_from_numpy",
+    "batch_from_numpy",
+    "interface_tables_from_numpy",
 ]
 
 
@@ -70,3 +75,55 @@ def lattice_mg_from_numpy(
 
 def function_from_numpy(space: Space, data: np.ndarray) -> Function:
     return Function(space, space.grid._tensor(np.asarray(data)))
+
+
+def tags_from_numpy(grid: Grid, cell_tags: np.ndarray, facet_tags: np.ndarray) -> TagsMeasures:
+    """Box-mode tags and measures (ids 100, 101) from host tag arrays."""
+    ct = EntityTags("cell", torch.tensor(np.asarray(cell_tags, np.int8), device=grid.device))
+    ft = EntityTags("facet", torch.tensor(np.asarray(facet_tags, np.int8), device=grid.device))
+    return TagsMeasures(ct, ft, None, box_measure(grid, ct, ft), None)
+
+
+def batch_from_numpy(
+    system: System,
+    segments: Sequence[Tuple[str, np.ndarray, Tuple[int, ...]]],
+    matrices: np.ndarray,
+    orient: Optional[np.ndarray] = None,
+) -> Batch:
+    """``segments``: ``(field, dofs (ne, nloc), value_shape)``; ``matrices``
+    per entity, or per orientation with ``orient`` (ne,)."""
+    grid = system.fields[segments[0][0]].grid
+    dev = grid.device
+    idx = lambda a: torch.tensor(np.asarray(a), dtype=torch.int64, device=dev)
+    segs = [(f, idx(d), tuple(vs)) for f, d, vs in segments]
+    return Batch(segs, grid._tensor(np.asarray(matrices)), orient=None if orient is None else idx(orient))
+
+
+def interface_tables_from_numpy(vc: VCycle, flat_meta, device="cpu", **fields) -> VCycle:
+    """Fill the interface fields of ``vc`` from numpy arrays named as the
+    JAX package's (``interface_ids``, ``interface_inv``, ``schwarz_ids``,
+    ``schwarz_inv``, ``schwarz_own``, ``schwarz_sweeps``, ``band_ids``,
+    ``band_ell_cols``, ``band_ell_vals``), on ``device``; ``flat_meta`` is
+    ``(names, shapes, sizes)`` of the flat layout.  Float tables are stored
+    in the interface table dtype; the (nb, K) ownership mask becomes the
+    port's per-DoF owner slots."""
+    dev = torch.device(device)
+    vc._flat_meta = tuple(list(m) for m in flat_meta)
+    if "schwarz_own" in fields:
+        own = np.asarray(fields.pop("schwarz_own"), bool)
+        fields["schwarz_owner"] = ras_owner(
+            np.asarray(fields["schwarz_ids"]), own, len(fields["band_ids"])
+        )
+    for name, val in fields.items():
+        if name == "schwarz_sweeps":
+            vc.schwarz_sweeps = int(val)
+            continue
+        a = np.array(val)  # a writable copy
+        if a.dtype == bool:
+            t = torch.as_tensor(a, device=dev)
+        elif np.issubdtype(a.dtype, np.integer):
+            t = torch.as_tensor(a, dtype=torch.int64, device=dev)
+        else:
+            t = torch.as_tensor(a, dtype=TABLE_DTYPE, device=dev)
+        setattr(vc, name, t)
+    return vc

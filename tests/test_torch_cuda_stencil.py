@@ -73,6 +73,54 @@ def test_solve_goes_through_kernel(cuda):
     assert r.converged and cuda_stencil.launches > before
 
 
+def _flower_scheme(n, device):
+    from phifem_tpu_torch.models import flower
+
+    g = pt.Grid(n, n, ((-4.5, -4.5), (4.5, 4.5)), device=device)
+    s = pt.WeakDirichletPoisson(g, single_layer_cut=True)
+    return s.setup(flower.levelset, flower.source_term, detection_levelset=flower.detection_levelset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("shape", [(200, 200), (150, 90)], ids=["n200", "150x90"])
+def test_masked_kernel_on_flower_masks(cuda, shape, dt):
+    """The masked body on the S1 bulk-region masks (cells tagged 1|2)."""
+    from phifem_tpu_torch.models import flower
+    from phifem_tpu_torch.tagging import tag_cells
+
+    nx, ny = shape
+    box = ((-4.5, -4.5 * ny / nx), (4.5, 4.5 * ny / nx))
+    tags = tag_cells(pt.Grid(nx, ny, box), flower.detection_levelset, 1, True).numpy()
+    g = pt.Grid(nx, ny, box, device=cuda, dtype=dt)
+    mats, _, x, y0 = _inputs(g, False, dt, cuda)
+    b = pt.StencilCellBatch.build(g, "u", mats, tags, (1, 2))
+    assert b.masks is not None and 0 < float(b.masks.mean()) < 1
+    yk = cuda_stencil.stencil_matvec(g, x, b.masks, b.matrices, y=y0.clone())
+    yr = cuda_stencil.stencil_matvec_ref(g, x, b.masks, b.matrices, y=y0.clone())
+    torch.cuda.synchronize()
+    tol = 1e-13 if dt == torch.float64 else 1e-5
+    assert float((yk - yr).abs().max()) <= tol * float(yr.abs().max())
+
+
+@pytest.mark.cuda
+def test_s1_matvec_on_card_matches_cpu(cuda):
+    """The S1 operator and RHS assembled and applied on the card against
+    the CPU lane at n=64 (the card and the CPU contract multiply-adds
+    differently, hence a relative tolerance of 1e-12)."""
+    sc = _flower_scheme(64, cuda).assemble()
+    sh = _flower_scheme(64, "cpu").assemble()
+    np.testing.assert_array_equal(sc.cell_tags, sh.cell_tags)
+    x = {k: torch.as_tensor(np.random.default_rng(1).standard_normal(v.shape)) for k, v in sh.b.items()}
+    before = cuda_stencil.launches
+    yc = sc.op.matvec({k: v.to(cuda) for k, v in x.items()})
+    assert cuda_stencil.launches > before
+    yh = sh.op.matvec(x)
+    for k in ("u", "p"):
+        assert float((yc[k].cpu() - yh[k]).abs().max()) <= 1e-12 * float(yh[k].abs().max())
+        assert float((sc.b[k].cpu() - sh.b[k]).abs().max()) <= 1e-12 * float(sh.b[k].abs().max())
+
+
 def test_cpu_tensors_launch_nothing():
     """On CPU tensors the wrapper runs the plain version: no launch."""
     cuda_stencil.launches = 0

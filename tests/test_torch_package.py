@@ -10,7 +10,10 @@ import torch
 def test_import_leaves_jax_out():
     code = (
         "import sys, phifem_tpu_torch, phifem_tpu_torch.models, "
-        "phifem_tpu_torch.utils.convert, phifem_tpu_torch.ops.cuda_stencil; "
+        "phifem_tpu_torch.utils.convert, phifem_tpu_torch.ops.cuda_stencil, "
+        "phifem_tpu_torch.levelset, phifem_tpu_torch.measures, phifem_tpu_torch.tagging, "
+        "phifem_tpu_torch.mg, phifem_tpu_torch.models.base, "
+        "phifem_tpu_torch.models.weak_dirichlet, phifem_tpu_torch.models.flower; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'phifem_tpu')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -39,13 +42,13 @@ def test_float32_grid_flows_through():
 
 def test_unported_paths_raise():
     import phifem_tpu_torch as pt
-    from phifem_tpu_torch.assembly import CellTerm
 
     g = pt.Grid(4, 4)
     s = pt.BoxPoisson(g).setup(lambda x: x[:, 0]).assemble()
     with pytest.raises(NotImplementedError):
-        pt.solve(s.op, s.b, bcs=s.bcs, method="bicgstab")
-    sys_ = pt.System({"u": pt.Space.lagrange(g, 1)})
-    term = CellTerm(lambda u, v, d, x, ctx: u["u"].val * v["u"].val, None, degree=2)
-    with pytest.raises(NotImplementedError):
-        pt.assemble_operator(sys_, g, cell_terms=[(term, {})])
+        pt.solve(s.op, s.b, bcs=s.bcs, method="gmres")
+    circle = lambda x: x[:, 0] ** 2 + x[:, 1] ** 2 - 0.2
+    with pytest.raises(NotImplementedError, match="slice C"):
+        pt.compute_tags_measures(g, circle, 1, box_mode=False)
+    with pytest.raises(NotImplementedError, match="slice C"):
+        pt.WeakDirichletPoisson(g, mode="sub").setup(circle, lambda x: x[:, 0])
