@@ -34,6 +34,7 @@ from torch.func import grad, jacfwd, vmap
 
 from .grid import Grid
 from .measures import FacetSideList
+from .ops.scatter import scatter_plan
 from .quadrature import cell_rule, segment_rule
 from .spaces import Function, Space
 
@@ -422,24 +423,6 @@ def _facet_local_fn(system: System, term, grid: Grid, data: Dict, one_sided: boo
 
 
 # ---------------------------------------------------------------- operator
-def _scatter_plan(dofs: torch.Tensor):
-    """Deterministic scatter-add plan for ``(ne, nloc)`` local DoFs:
-    ``(uniq, pos)`` with the distinct DoF ids and, per id, the positions of
-    its entries in the flattened local vector in entity order, padded with
-    ``ne * nloc`` (a zero row the caller appends)."""
-    flat = dofs.reshape(-1)
-    n = flat.numel()
-    order = torch.argsort(flat, stable=True)
-    uniq, counts = torch.unique_consecutive(flat[order], return_counts=True)
-    group = torch.repeat_interleave(torch.arange(uniq.numel(), device=flat.device), counts)
-    starts = torch.cumsum(counts, 0) - counts
-    rank = torch.arange(n, device=flat.device) - starts[group]
-    kmax = int(counts.max()) if n else 0
-    pos = torch.full((uniq.numel(), kmax), n, dtype=torch.int64, device=flat.device)
-    pos[group, rank] = order
-    return uniq, pos
-
-
 @dataclasses.dataclass
 class Batch:
     """One assembled entity batch of an operator: per-entity local DoFs of
@@ -470,6 +453,10 @@ class Batch:
     def num_entities(self) -> int:
         return int(self.segments[0][1].shape[0])
 
+    def astype(self, dtype: torch.dtype) -> "Batch":
+        """Copy (not rebuildable) with the matrices cast to ``dtype``."""
+        return Batch(self.segments, self.matrices.to(dtype), orient=self.orient)
+
     def gather(self, x: Dict[str, torch.Tensor]) -> torch.Tensor:
         ne = self.num_entities
         return torch.cat([x[name][dofs].reshape(ne, -1) for name, dofs, vs in self.segments], dim=1)
@@ -481,7 +468,7 @@ class Batch:
         once (CUDA's ``index_add_`` on repeated indices sums in an order
         that changes from run to run)."""
         if self._plans is None:
-            self._plans = [_scatter_plan(dofs) for _, dofs, _ in self.segments]
+            self._plans = [scatter_plan(dofs) for _, dofs, _ in self.segments]
         cur = 0
         ne = y_loc.shape[0]
         for (name, dofs, vs), (uniq, pos) in zip(self.segments, self._plans):
@@ -583,9 +570,25 @@ class Operator:
         return tuple(i for i, b in enumerate(self.batches) if _is_dynamic(b))
 
     def lattice_form(self):
-        """Tap-form lattice representation of the operator: not ported yet
-        (``ops/taps``, the next slice), so the generic batches serve."""
-        return None
+        """Tap-form lattice representation (:mod:`phifem_tpu_torch.ops.taps`)
+        of this operator, or None when unsupported (degree >= 2 fields) or
+        pointless (pure uniform-stencil operators).  Built once (the
+        structure does not depend on the data) and refreshed when
+        :attr:`data_version` moves."""
+        top = getattr(self, "_tap_form", None)
+        if top is None:
+            if getattr(self, "_tap_unsupported", False):
+                return None
+            from .ops.taps import build_tap_operator
+
+            top = build_tap_operator(self)
+            if top is None:
+                self._tap_unsupported = True
+                return None
+            self._tap_form = top
+        if top.data_version != self.data_version:
+            top.refresh(self)
+        return top
 
     @property
     def data_version(self) -> int:

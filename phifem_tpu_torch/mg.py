@@ -49,25 +49,26 @@ __all__ = [
 
 #: dtype of the interface tables (see the module docstring)
 TABLE_DTYPE = torch.float64
-#: largest band (DoFs) that ``attach_interface_solve`` inverts densely
-DENSE_MAX = 4000
 
 
 def prolong(coarse: torch.Tensor, gc: Grid, gf: Grid) -> torch.Tensor:
     """Bilinear prolongation between vertex lattices (gc -> gf = gc.refine()).
-    Fine vertex (2i, 2j) copies coarse (i, j); odd points average."""
-    X = coarse.reshape(gc.ny + 1, gc.nx + 1)
-    out = torch.zeros((gf.ny + 1, gf.nx + 1), dtype=coarse.dtype, device=coarse.device)
+    Fine vertex (2i, 2j) copies coarse (i, j); odd points average.  Trailing
+    axes (vector components) are transferred each on its own."""
+    tail = tuple(coarse.shape[1:])
+    X = coarse.reshape((gc.ny + 1, gc.nx + 1) + tail)
+    out = torch.zeros((gf.ny + 1, gf.nx + 1) + tail, dtype=coarse.dtype, device=coarse.device)
     out[::2, ::2] = X
     out[::2, 1::2] = 0.5 * (X[:, :-1] + X[:, 1:])
     out[1::2, ::2] = 0.5 * (X[:-1, :] + X[1:, :])
     out[1::2, 1::2] = 0.25 * (X[:-1, :-1] + X[:-1, 1:] + X[1:, :-1] + X[1:, 1:])
-    return out.reshape(-1)
+    return out.reshape((-1,) + tail)
 
 
 def restrict(fine: torch.Tensor, gf: Grid, gc: Grid) -> torch.Tensor:
     """Full-weighting restriction (transpose of :func:`prolong`)."""
-    Y = fine.reshape(gf.ny + 1, gf.nx + 1)
+    tail = tuple(fine.shape[1:])
+    Y = fine.reshape((gf.ny + 1, gf.nx + 1) + tail)
     out = Y[::2, ::2].clone()
     h = 0.5 * Y[::2, 1::2]  # horizontal odd neighbours
     out[:, :-1] += h
@@ -80,7 +81,7 @@ def restrict(fine: torch.Tensor, gf: Grid, gc: Grid) -> torch.Tensor:
     out[:-1, 1:] += q
     out[1:, :-1] += q
     out[1:, 1:] += q
-    return out.reshape(-1)
+    return out.reshape((-1,) + tail)
 
 
 def _band_bicgstab(mv, M, b: torch.Tensor, iters: int) -> torch.Tensor:
@@ -184,8 +185,8 @@ class VCycle:
         # identity (BC) rows carry b - x, which must not restrict
         r = {n: torch.where(lvl.active[n], b[n] - ax[n], 0.0) for n in b}
         coarse_lvl = self.levels[k + 1]
-        # scalar vertex fields restrict; other fields live on the fine
-        # level only and see a zero coarse right-hand side
+        # P1 vertex fields (scalar or vector) restrict; other fields (DG0)
+        # live on the fine level only and see a zero coarse right-hand side
         rc = {
             name: restrict(v, lvl.grid, coarse_lvl.grid)
             if name in self.vertex_fields
@@ -315,36 +316,28 @@ class LatticeBulkVCycle(VCycle):
         return out
 
 
-def _cast_batch(b, dtype: torch.dtype):
-    """Copy of an entity batch with matrices (and masks) cast to ``dtype``."""
-    from .assembly import Batch
-    from .ops.stencil import StencilCellBatch
-
-    if isinstance(b, StencilCellBatch):
-        return dataclasses.replace(
-            b,
-            matrices=b.matrices.to(dtype),
-            masks=None if b.masks is None else b.masks.to(dtype),
-        )
-    return Batch(b.segments, b.matrices.to(dtype), orient=b.orient)
-
-
 def _masked_matvec(op, bcs, dtype: Optional[torch.dtype]):
     """``(matvec, inv_diag, active)`` like ``solvers.masked_operator``,
-    optionally computing in a reduced ``dtype`` (the cycle's dtype)."""
+    optionally computing in a reduced ``dtype`` (the cycle's dtype): the
+    tap form cast to ``dtype`` where the operator has one, else its batches
+    cast."""
     from .solvers import masked_operator
 
     matvec, diag, active = masked_operator(op, bcs)
     inv_diag = {k: 1.0 / d for k, d in diag.items()}
     if dtype is None:
         return matvec, inv_diag, active
-    batches = [_cast_batch(b, dtype) for b in op.batches]
+    lat = op.lattice_form()
+    if lat is not None:
+        raw = lat.make_matvec(op, dtype)
+    else:
+        batches = [b.astype(dtype) for b in op.batches]
 
-    def raw(x: Vec) -> Vec:
-        y = {k: torch.zeros_like(v) for k, v in x.items()}
-        for bt in batches:
-            y = bt.matvec_into(x, y)
-        return y
+        def raw(x: Vec) -> Vec:
+            y = {k: torch.zeros_like(v) for k, v in x.items()}
+            for bt in batches:
+                y = bt.matvec_into(x, y)
+            return y
 
     def mv(x: Vec) -> Vec:
         y = raw({k: torch.where(active[k], v, 0.0) for k, v in x.items()})
@@ -463,17 +456,21 @@ def attach_interface_solve(
     vc: VCycle,
     op,
     active,
+    dense_max: int = 4000,
+    sweeps: Optional[int] = None,
     kind: str = "auto",
+    sweeps_coef: float = 0.2,
 ) -> VCycle:
     """Equip a V-cycle with a solve on the data-dependent DoF block (all
     DoFs touched by cut-cell penalty / ghost-facet / boundary batches).
 
-    * ``m <= DENSE_MAX`` (or ``kind="dense"``): exact dense inverse on the
+    * ``m <= dense_max`` (or ``kind="dense"``): exact dense inverse on the
       whole block, O(m^2) memory;
-    * beyond (or ``kind="schwarz"``): an inner BiCGStab of
-      ``max(10, 0.2 sqrt(m))`` iterations on the ELL band matrix, preconditioned by restricted
-      additive Schwarz over the cut entities (one overlapping dense block
-      per data-dependent entity, inverted on the host).  O(m) memory.
+    * beyond (or ``kind="schwarz"``): an inner BiCGStab on the ELL band
+      matrix, preconditioned by restricted additive Schwarz over the cut
+      entities (one overlapping dense block per data-dependent entity,
+      inverted on the host).  O(m) memory.  It runs ``sweeps`` iterations,
+      by default ``max(10, sweeps_coef * sqrt(m))``.
 
     The tables are float64 on the cycle's device."""
     sel = data_dependent_selection(op, active)
@@ -488,7 +485,7 @@ def attach_interface_solve(
     def tab(a, dtype=TABLE_DTYPE):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
 
-    if kind == "dense" or (kind == "auto" and total <= DENSE_MAX):
+    if kind == "dense" or (kind == "auto" and total <= dense_max):
         A_II, ids = op.restricted_dense(sel)
         # identity on rows whose diagonal vanished within the block, plus a
         # tiny Tikhonov shift (a preconditioner need not be exact)
@@ -521,7 +518,7 @@ def attach_interface_solve(
     vc.schwarz_inv = tab(np.linalg.inv(mats))
     vc.schwarz_owner = tab(ras_owner(bids, own, total), torch.int64)
     # inner-iteration demand grows slowly with the band size: ~sqrt(m)
-    vc.schwarz_sweeps = max(10, int(0.2 * total**0.5))
+    vc.schwarz_sweeps = sweeps if sweeps is not None else max(10, int(sweeps_coef * total**0.5))
     # the band matrix itself, ELL rows 0..m-1; identity on empty rows
     cols, vals = ecols[:total].copy(), evals[:total].copy()
     zr = np.where(nnz_row == 0)[0]
@@ -559,7 +556,7 @@ def build_hierarchy(
         op, bcs = make_level(g)
         matvec, inv_diag, active = _masked_matvec(op, bcs, dtype)
         if vertex_fields is None:
-            vertex_fields = tuple(n for n, v in active.items() if v.shape == (g.num_vertices,))
+            vertex_fields = tuple(n for n, v in active.items() if v.shape[0] == g.num_vertices)
         lvl = Level(
             g, matvec, inv_diag, active,
             field_shapes={k: tuple(v.shape) for k, v in active.items()},

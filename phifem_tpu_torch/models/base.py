@@ -1,10 +1,10 @@
-"""Shared scheme machinery: tagging and measures, the lattice
-preconditioner, error norms.
+"""Shared scheme machinery: tagging and measures (bg and sub mode), the
+re-discretized and the lattice preconditioners, error norms.
 
-Counterpart of :mod:`phifem_tpu.models.base` (bg mode, scalar P1 bulk
-fields).  The submesh mode, the re-discretized ``mg_preconditioner`` and
-the vector bulk cycles and the Ritz modes of ``lattice_preconditioner``
-come with later slices and raise ``NotImplementedError`` naming them.
+Counterpart of :mod:`phifem_tpu.models.base`.  The vector and
+free-boundary bulk cycles, coarse corrections and Ritz modes of
+``lattice_preconditioner`` (S5) come with slice D and raise
+``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from ..assembly import Batch, CellTerm, assemble_scalar
 from ..grid import Grid
 from ..measures import FacetSideList
 from ..spaces import Function, Space, interpolate
-from ..tagging import TagsMeasures, compute_tags_measures
+from ..tagging import TagsMeasures, _build_submesh, compute_tags_measures
 
 LevelSetLike = Union[Callable, Function]
 
@@ -27,7 +27,9 @@ LevelSetLike = Union[Callable, Function]
 @dataclasses.dataclass
 class SchemeBase:
     """Common state of the phi-FEM schemes.  ``mode="bg"`` solves on the
-    background grid with one-sided boundary measures (box mode)."""
+    background grid with one-sided boundary measures (box mode);
+    ``mode="sub"`` integrates the boundary term over the exterior of the
+    submesh of active cells (box_mode=False)."""
 
     grid: Grid
     mode: str = "bg"
@@ -37,11 +39,11 @@ class SchemeBase:
     stab_coef: float = 1.0
 
     def tag(self, detection_levelset: LevelSetLike) -> TagsMeasures:
-        """Tag the grid; the host tags drive the terms' regions."""
-        if self.mode != "bg":
-            raise NotImplementedError(
-                f"mode={self.mode!r}: the submesh mode is not ported yet (ROADMAP slice C)"
-            )
+        """Tag the grid; the dense parent-grid host tags drive the terms'
+        regions in both modes (the submesh is an active-cell view of the
+        same grid)."""
+        if self.mode not in ("bg", "sub"):
+            raise ValueError(f"mode must be 'bg' or 'sub', got {self.mode!r}")
         res = compute_tags_measures(
             self.grid,
             detection_levelset,
@@ -52,28 +54,82 @@ class SchemeBase:
         self.tags = res
         self.cell_tags = res.cells_tags.as_numpy()
         self.facet_tags = res.facets_tags.as_numpy()
+        if self.mode == "sub":
+            self.submesh = _build_submesh(self.grid, self.cell_tags, self.facet_tags)
+        else:
+            self.submesh = None
         return res
 
     def boundary_measure(self) -> FacetSideList:
-        """The scheme's ds on Gamma_h: one-sided subdomain id 100."""
-        return self.tags.boundaries_measure(100)
+        """The scheme's ds on Gamma_h: one-sided subdomain id 100 in bg
+        mode, the submesh exterior in sub mode."""
+        if self.mode == "bg":
+            return self.tags.boundaries_measure(100)
+        return self.submesh.exterior
 
     # ------------------------------------------------------ multigrid
+    def _mg_cached(self, key, refresh: bool):
+        cache = self.__dict__.setdefault("_mg_cache", {})
+        return None if refresh else cache.get(key)
+
+    def mg_preconditioner(self, min_n: int = 8, refresh: bool = False, **vcycle_kw):
+        """Geometric V-cycle with re-discretized (re-tagged, re-assembled)
+        coarse levels, the CutFEM multigrid design
+        (:func:`phifem_tpu_torch.mg.build_hierarchy`), plus the cut-band
+        interface solve.  Needs ``setup`` and ``assemble``; each scheme's
+        ``setup`` records its arguments so coarse levels rebuild the same
+        problem.  ``interface_*`` keywords go to
+        :func:`~phifem_tpu_torch.mg.attach_interface_solve` (``interface=
+        False`` drops the band solve), the rest to ``build_hierarchy``.
+        Memoized per argument set and operator data version;
+        ``refresh=True`` rebuilds."""
+        from ..mg import attach_interface_solve, build_hierarchy
+        from ..solvers import masked_operator
+
+        key = ("mg", min_n, repr(sorted(vcycle_kw.items())), self.op.data_version)
+        vc = self._mg_cached(key, refresh)
+        if vc is not None:
+            return vc
+        interface = vcycle_kw.pop("interface", True)
+        interface_kw = {
+            k[len("interface_") :]: vcycle_kw.pop(k) for k in list(vcycle_kw) if k.startswith("interface_")
+        }
+
+        def make_level(grid: Grid):
+            if grid is self.grid:
+                s = self
+            else:
+                s = dataclasses.replace(self, grid=grid)
+                s.setup(*self._setup_args)
+                s.assemble(rhs=False)
+            return s.op, getattr(s, "bcs", ())
+
+        vc = build_hierarchy(self.grid, make_level, min_n=min_n, **vcycle_kw)
+        if interface:
+            _, _, active = masked_operator(self.op, getattr(self, "bcs", ()))
+            vc = attach_interface_solve(vc, self.op, active, **interface_kw)
+        self._mg_cache[key] = vc
+        return vc
+
     def lattice_preconditioner(
         self,
         min_n: int = 16,
         dtype: torch.dtype = torch.float32,
         interface: bool = True,
-        kind: str = "auto",
+        refresh: bool = False,
         ritz_modes: int = 0,
+        **interface_kw,
     ):
         """Full-box lattice V-cycle + cut-band interface correction
         (:class:`phifem_tpu_torch.mg.LatticeBulkVCycle`).  Nothing is
-        re-discretized per level: the bulk P1 stencil is
-        refinement-invariant and the cut-cell couplings are handled by the
-        interface solve (``kind``: see
+        re-discretized per level: each scalar P1 field with a bulk stencil
+        (S1's u and p, S3/S4's u) is cycled on the whole box, the other
+        fields (vector y, DG0 p) get damped Jacobi, and the cut-cell
+        couplings are handled by the interface solve
+        (``interface_kw``: see
         :func:`~phifem_tpu_torch.mg.attach_interface_solve`).  Memoized per
-        argument set and operator data version."""
+        argument set and operator data version; ``refresh=True``
+        rebuilds."""
         from ..mg import (
             LatticeBulkVCycle,
             Level,
@@ -89,12 +145,13 @@ class SchemeBase:
             raise NotImplementedError(
                 "coarse corrections and Ritz modes are not ported yet (ROADMAP slice D)"
             )
-        key = ("lattice", min_n, str(dtype), interface, kind, self.op.data_version)
-        cache = getattr(self, "_mg_cache", None)
-        if cache is None:
-            cache = self._mg_cache = {}
-        if key in cache:
-            return cache[key]
+        key = (
+            "lattice", min_n, str(dtype), interface, repr(sorted(interface_kw.items())),
+            self.op.data_version,
+        )
+        vc = self._mg_cached(key, refresh)
+        if vc is not None:
+            return vc
 
         bcs = getattr(self, "bcs", ())
         matvec, inv_diag, active = _masked_matvec(self.op, bcs, dtype)
@@ -110,7 +167,7 @@ class SchemeBase:
                 if vs:
                     raise NotImplementedError(
                         "vector/tensor P1 bulk cycles (LatticeBlockMG, LatticeVarMG) are "
-                        "not ported yet (ROADMAP slices C and D)"
+                        "not ported yet (ROADMAP slice D)"
                     )
         # interface (h^-3 penalty) DoFs are excluded from the Laplacian bulk
         # cycle: corrections there come from the band solve only
@@ -133,8 +190,8 @@ class SchemeBase:
             bulk_masks=bulk_masks,
         )
         if interface:
-            vc = attach_interface_solve(vc, self.op, active_full, kind=kind)
-        cache[key] = vc
+            vc = attach_interface_solve(vc, self.op, active_full, **interface_kw)
+        self._mg_cache[key] = vc
         return vc
 
     # ------------------------------------------------------------- errors

@@ -1,10 +1,9 @@
 """The P1 cell-stencil matvec: CUDA kernel wrapper and its plain version.
 
 Replaces ``phifem_tpu/ops/pallas_stencil.py:stencil_matvec_pallas``.  The
-kernel (``phifem_tpu_torch/csrc/stencil_matvec.cu``) is built from the
-package sources with ``nvcc`` for ``sm_90a`` at first use, into
-``phifem_tpu_torch/_build/`` under a name keyed by a hash of the source and
-flags (an edit rebuilds it), and loaded with ``ctypes``.
+kernel (``phifem_tpu_torch/csrc/stencil_matvec.cu``) is built with ``nvcc``
+at first use (:mod:`phifem_tpu_torch.ops.nvcc_build`) and loaded with
+``ctypes``.
 
 :func:`stencil_matvec` dispatches on the tensor's device: a CPU tensor goes
 to :func:`stencil_matvec_ref` (shifted slices), a CUDA tensor to the kernel,
@@ -17,18 +16,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..grid import Grid
+from . import nvcc_build
 from .stencil import orientation_offsets
 
 __all__ = ["stencil_matvec", "stencil_matvec_ref", "pack_matrices", "build"]
@@ -38,13 +32,7 @@ launches = 0
 #: of those, launches of the masked body (``masks`` given)
 masked_launches = 0
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "stencil_matvec.cu"
-BUILD_DIR = _PKG / "_build"
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+SOURCE = nvcc_build.PKG / "csrc" / "stencil_matvec.cu"
 
 
 def stencil_matvec_ref(
@@ -171,40 +159,10 @@ def _check(grid: Grid, x, masks, y) -> None:
         raise ValueError("stencil_matvec: lattice too large for 32-bit indexing")
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("stencil_matvec: nvcc not found (set CUDA_HOME)")
-
-
-def _library_path() -> Path:
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(_NVCC_FLAGS).encode())
-    return BUILD_DIR / f"stencil_matvec_{key.hexdigest()[:16]}.so"
-
-
 def build() -> dict:
-    """Compile the kernel library if it is not built yet.  Returns
-    ``{"path", "seconds", "log"}``; ``log`` holds nvcc's ptxas report of
-    the build that made the library (empty when it was already built)."""
-    so = _library_path()
-    t0 = time.perf_counter()
-    if so.exists():
-        return {"path": str(so), "seconds": 0.0, "log": ""}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"stencil_matvec: nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, so)  # atomic: a concurrent build never loads a partial file
-    return {"path": str(so), "seconds": time.perf_counter() - t0, "log": proc.stderr}
+    """Compile the kernel library if it is not built yet (see
+    :func:`phifem_tpu_torch.ops.nvcc_build.build`)."""
+    return nvcc_build.build(SOURCE)
 
 
 @functools.lru_cache(maxsize=None)

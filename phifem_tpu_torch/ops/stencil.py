@@ -73,6 +73,14 @@ class StencilCellBatch:
             masks = sel.reshape(1, ny, nx)
         return StencilCellBatch(grid, field, mats, grid._tensor(masks.astype(np.float64)))
 
+    def astype(self, dtype: torch.dtype) -> "StencilCellBatch":
+        """Copy with the matrices and masks cast to ``dtype`` (repacked)."""
+        return dataclasses.replace(
+            self,
+            matrices=self.matrices.to(dtype),
+            masks=None if self.masks is None else self.masks.to(dtype),
+        )
+
     def masks_or_ones(self) -> np.ndarray:
         """Materialized region masks (host numpy)."""
         if self.masks is not None:

@@ -69,7 +69,10 @@ def masked_operator(
     active = {k: d != 0.0 for k, d in diag.items()}
     for bc in bcs:
         active[bc.field] = active[bc.field] & ~bc.mask
-    base_mv = op.matvec  # stencil-only operators have no tap form
+    # the tap form (ops.taps) where there is one: one lattice kernel instead
+    # of a gather -> batched matmul -> scatter per entity batch
+    lat = op.lattice_form()
+    base_mv = op.matvec if lat is None else lat.make_matvec(op)
 
     def matvec(x: Vec) -> Vec:
         y = base_mv({k: torch.where(active[k], x[k], 0.0) for k in x})
@@ -218,7 +221,7 @@ def solve(
     op: Operator,
     b: Vec,
     bcs: Tuple[DirichletBC, ...] = (),
-    method: str = "cg",
+    method: str = "bicgstab",
     tol: float = 1e-10,
     atol: float = 0.0,
     maxiter: Optional[int] = None,

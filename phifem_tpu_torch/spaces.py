@@ -1,11 +1,13 @@
 """Function spaces, DoF maps, functions and interpolation on structured grids.
 
-Counterpart of :mod:`phifem_tpu.spaces` (Lagrange spaces; DG0 and mixed
-spaces come with the schemes that need them).
+Counterpart of :mod:`phifem_tpu.spaces`: Lagrange spaces of any degree
+and the DG0 space of the mixed schemes (S3, S4).
 
 * A scalar Lagrange space of degree k numbers DoFs vertices first, then
   (k-1) nodes per facet, then interior nodes per cell — closed-form index
   arithmetic, so the cell->dof map is computed vectorized on the host.
+* A DG0 space numbers one DoF per cell, in cell order (on triangles the
+  two orientations of a block interleave, ``2 * block + o``).
 * Vector/tensor spaces share the scalar DoF map; components are trailing
   axes of the coefficient tensor.
 * Coefficient tensors live on ``grid.device`` in ``grid.dtype``.
@@ -20,7 +22,7 @@ from typing import Callable, Tuple, Union
 import numpy as np
 import torch
 
-from .elements import Element, classify_nodes, lagrange_element
+from .elements import Element, classify_nodes, dg0_element, lagrange_element
 from .grid import Grid
 
 __all__ = ["Space", "Function", "interpolate", "locate_dofs", "boundary_dof_mask"]
@@ -28,7 +30,7 @@ __all__ = ["Space", "Function", "interpolate", "locate_dofs", "boundary_dof_mask
 
 @dataclasses.dataclass(frozen=True)
 class Space:
-    """A (possibly vector/tensor-valued) Lagrange space."""
+    """A (possibly vector/tensor-valued) Lagrange or DG0 space."""
 
     grid: Grid
     element: Element
@@ -37,6 +39,10 @@ class Space:
     @staticmethod
     def lagrange(grid: Grid, degree: int, value_shape: Tuple[int, ...] = ()) -> "Space":
         return Space(grid, lagrange_element(grid.cell_type.value, degree), value_shape)
+
+    @staticmethod
+    def dg0(grid: Grid, value_shape: Tuple[int, ...] = ()) -> "Space":
+        return Space(grid, dg0_element(grid.cell_type.value), value_shape)
 
     # ------------------------------------------------------------------ sizes
     @property
@@ -54,6 +60,8 @@ class Space:
     @property
     def num_scalar_dofs(self) -> int:
         g, k = self.grid, self.degree
+        if self.element.family == "DG":
+            return g.num_cells
         n_int = {
             "triangle": (k - 1) * (k - 2) // 2,
             "quadrilateral": (k - 1) ** 2,
@@ -75,6 +83,8 @@ class Space:
         Edge nodes follow the *global* facet parametrization; the only flip
         on this grid is the upper triangle's top edge (local facet 1)."""
         g, k = self.grid, self.degree
+        if self.element.family == "DG":
+            return np.arange(g.num_cells, dtype=np.int32)[:, None]
         kind, entity, param = classify_nodes(self.element)
         edge_base = g.num_vertices
         cell_base = g.num_vertices + g.num_facets * (k - 1)
@@ -113,6 +123,8 @@ class Space:
         form, so a batch of a few cells never builds the whole-grid table."""
         g = self.grid
         cells = torch.as_tensor(cells, device=g.device).to(torch.int64)
+        if self.element.family == "DG":
+            return cells[:, None]
         if self.degree != 1:
             return self.cell_dofs[cells]
         if g.is_simplex:
@@ -132,6 +144,8 @@ class Space:
     def dof_coords_np(self) -> np.ndarray:
         """(num_scalar_dofs, 2) physical coordinates of scalar DoFs."""
         g, k = self.grid, self.degree
+        if self.element.family == "DG":
+            return g.vertex_coords_np[g.cell_vertices_np].mean(axis=1)
         coords = [g.vertex_coords_np]
         if k > 1:
             ends = g.facet_endpoints_np  # (nf, 2, 2)
@@ -162,7 +176,7 @@ class Space:
 
     @cached_property
     def dof_coords(self) -> torch.Tensor:
-        if self.degree == 1:
+        if self.element.family == "Lagrange" and self.degree == 1:
             # P1 scalar DoFs ARE the vertices: reuse the device-built lattice
             return self.grid.vertex_coords
         return self.grid._tensor(self.dof_coords_np)

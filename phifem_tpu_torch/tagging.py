@@ -12,11 +12,12 @@ Counterpart of :mod:`phifem_tpu.tagging` (box mode):
   the two adjacent cell tags, plus a boundary-trace flag for facets on the
   background box;
 * :func:`compute_tags_measures` with ``box_mode=True``: the one-sided
-  boundary measures with ids 100 and 101.
+  boundary measures with ids 100 and 101; with ``box_mode=False`` the
+  submesh mode: a :class:`Submesh` (the active cells 1|2 as a view of the
+  background grid) and its exterior boundary as measure id 0.
 
 The tags are computed on ``grid.device``; :class:`EntityTags` holds the
-tensor and a host copy on demand.  The submesh mode (``box_mode=False``)
-comes with ROADMAP slice C.
+tensor and a host copy on demand.
 """
 
 from __future__ import annotations
@@ -32,12 +33,13 @@ import torch.nn.functional as F
 
 from . import levelset as lsmod
 from .grid import Grid
-from .measures import BoundaryMeasure, one_sided_facets_multi
+from .measures import BoundaryMeasure, FacetSideList, one_sided_facets_multi
 
 LevelSet = lsmod.LevelSet
 
 __all__ = [
     "EntityTags",
+    "Submesh",
     "TagsMeasures",
     "tag_cells",
     "tag_facets",
@@ -249,6 +251,59 @@ def overwrite_tags(
     return EntityTags(tags.dim, torch.as_tensor(vals, device=tags.values.device))
 
 
+# ----------------------------------------------------------------- submesh
+@dataclasses.dataclass(frozen=True)
+class Submesh:
+    """Active-cell view of the background grid (Omega_h = cells tagged
+    1|2): gather lists into the parent grid instead of a new mesh."""
+
+    parent: Grid
+    cells: np.ndarray  # (n_active,) parent cell ids, ascending
+    facets: np.ndarray  # (n_facets,) parent facet ids touched by active cells
+    cell_tags: EntityTags  # over `cells` (submesh numbering)
+    facet_tags: EntityTags  # over `facets` (submesh numbering)
+    exterior: FacetSideList  # exterior boundary of the submesh
+
+    @property
+    def num_cells(self) -> int:
+        return len(self.cells)
+
+
+def _build_submesh(grid: Grid, cell_tags: np.ndarray, facet_tags: np.ndarray) -> Submesh:
+    """The submesh of the cells tagged 1|2 (host tags in, host entity lists
+    out; the exterior facet list lives on ``grid.device``).  An exterior
+    facet has exactly one active adjacent cell, which is its chosen side."""
+    ct = np.asarray(cell_tags)
+    ftags = np.asarray(facet_tags)
+    active = np.where((ct == 1) | (ct == 2))[0].astype(np.int32)
+    facets = np.unique(grid.c2f_of_np(active).reshape(-1)).astype(np.int32)
+    f2c = grid.f2c_of_np(facets)
+    act = np.zeros(grid.num_cells, bool)
+    act[active] = True
+    a0 = (f2c[:, 0] >= 0) & act[np.maximum(f2c[:, 0], 0)]
+    a1 = (f2c[:, 1] >= 0) & act[np.maximum(f2c[:, 1], 0)]
+    ext = np.logical_xor(a0, a1)
+    ext_facets = facets[ext].astype(np.int64)
+    chosen = np.where(a0[ext], f2c[ext, 0], f2c[ext, 1]).astype(np.int64)
+    signs = np.where(a0[ext], 1.0, -1.0)
+    dev = grid.device
+    exterior = FacetSideList(
+        grid,
+        torch.as_tensor(ext_facets, device=dev),
+        torch.as_tensor(chosen, device=dev),
+        torch.as_tensor(grid.local_facet_index_np(chosen, ext_facets), dtype=torch.int64, device=dev),
+        grid._tensor(signs),
+    )
+    return Submesh(
+        parent=grid,
+        cells=active,
+        facets=facets,
+        cell_tags=EntityTags("cell", torch.as_tensor(ct[active], device=dev)),
+        facet_tags=EntityTags("facet", torch.as_tensor(ftags[facets], device=dev)),
+        exterior=exterior,
+    )
+
+
 # ------------------------------------------------------------------- public
 @dataclasses.dataclass(frozen=True)
 class TagsMeasures:
@@ -258,7 +313,7 @@ class TagsMeasures:
 
     cells_tags: EntityTags
     facets_tags: EntityTags
-    submesh: Optional[object]
+    submesh: Optional[Submesh]
     boundaries_measure: BoundaryMeasure
     submesh_maps: Optional[List[np.ndarray]]
 
@@ -296,12 +351,9 @@ def compute_tags_measures(
     :class:`~phifem_tpu_torch.spaces.Function`; ``overwrite`` optionally
     maps ``{"cells": {tag: indices}, "facets": {tag: indices}}``.  Cells
     whose level set is zero (or NaN) at every detection point are tagged
-    cut, with a ``RuntimeWarning``."""
-    if not box_mode:
-        raise NotImplementedError(
-            "box_mode=False (the submesh mode, Submesh/_build_submesh) is not "
-            "ported yet (ROADMAP slice C)"
-        )
+    cut, with a ``RuntimeWarning``.  ``box_mode=False`` returns the
+    submesh's tags (in submesh numbering), the submesh, its exterior as
+    measure id 0 and the maps ``[cells, facets]`` to parent ids."""
     cells, ndeg = tag_cells(grid, levelset, detection_degree, single_layer_cut, return_degenerate=True)
     facets = tag_facets(grid, cells, levelset, detection_degree)
     ndeg = int(ndeg)
@@ -323,7 +375,12 @@ def compute_tags_measures(
             )
     if _debug_mode():
         _check_invariants(cells_tags, facets_tags)
-    return TagsMeasures(cells_tags, facets_tags, None, box_measure(grid, cells_tags, facets_tags), None)
+    if box_mode:
+        return TagsMeasures(cells_tags, facets_tags, None, box_measure(grid, cells_tags, facets_tags), None)
+    sub = _build_submesh(grid, cells_tags.as_numpy(), facets_tags.as_numpy())
+    return TagsMeasures(
+        sub.cell_tags, sub.facet_tags, sub, BoundaryMeasure({0: sub.exterior}), [sub.cells, sub.facets]
+    )
 
 
 def _check_invariants(cells_tags: EntityTags, facets_tags: EntityTags) -> None:

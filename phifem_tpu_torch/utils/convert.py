@@ -14,6 +14,7 @@ from ..grid import Grid
 from ..mg import TABLE_DTYPE, VCycle, ras_owner
 from ..ops.lattice import LatticeMG, _Level
 from ..ops.stencil import StencilCellBatch
+from ..ops.taps import TapOperator, build_tap_operator
 from ..spaces import Function, Space
 from ..tagging import EntityTags, TagsMeasures, box_measure
 
@@ -25,6 +26,8 @@ __all__ = [
     "tags_from_numpy",
     "batch_from_numpy",
     "interface_tables_from_numpy",
+    "tap_operator_from_numpy",
+    "scheme_data_from_numpy",
 ]
 
 
@@ -127,3 +130,29 @@ def interface_tables_from_numpy(vc: VCycle, flat_meta, device="cpu", **fields) -
             t = torch.as_tensor(a, dtype=TABLE_DTYPE, device=dev)
         setattr(vc, name, t)
     return vc
+
+
+def tap_operator_from_numpy(op: Operator, taps, tap_offsets: np.ndarray, W: np.ndarray) -> TapOperator:
+    """The tap form of ``op`` carrying the weights ``W`` of another
+    implementation's tap form of the same operator, whose tap list and
+    offsets must equal the port's (``ValueError`` otherwise)."""
+    top = build_tap_operator(op)
+    if top is None:
+        raise ValueError("the operator has no tap form")
+    if [tuple(int(v) for v in t) for t in taps] != top.taps:
+        raise ValueError("tap lists differ")
+    if not np.array_equal(np.asarray(tap_offsets, np.int64), top.tap_offsets):
+        raise ValueError("tap offsets differ")
+    grid = top.grid
+    top.W = torch.tensor(np.asarray(W), dtype=grid.dtype, device=grid.device)
+    return top
+
+
+def scheme_data_from_numpy(scheme, **arrays) -> None:
+    """Replace the coefficients of a set-up scheme's data Functions
+    (``phi_h``, ``f_h``, ``u_D``, ``u_N``, ``u_R``, ...) by numpy arrays,
+    in place, so that its ``assemble`` sees another implementation's
+    interpolated data bit for bit."""
+    for name, data in arrays.items():
+        fn = getattr(scheme, name)
+        setattr(scheme, name, function_from_numpy(fn.space, data))

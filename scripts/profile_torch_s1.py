@@ -9,7 +9,7 @@ preconditioner split into its bulk lattice cycle and the host-built
 interface tables), then the warm wall times of 3 BiCGStab solves and a
 ``torch.profiler`` trace of one more: kernels launched in all and per outer
 iteration, device time summed over kernels against the warm median wall,
-the stencil kernel's share, and the kernels that take the most device
+the stencil and tap kernels' shares, the peak device memory, and the kernels that take the most device
 time.  Needs a CUDA device.
 """
 
@@ -92,12 +92,14 @@ def main() -> int:
     busy = sum(dev_ms(e) for e in kernels)
     count = sum(e.count for e in kernels)
     stencil = sum(dev_ms(e) for e in kernels if "stencil_matvec_kernel" in e.key)
+    taps = sum(dev_ms(e) for e in kernels if "tap_matvec_kernel" in e.key)
     med = float(np.median(walls))
     print(f"== S1 n={N} bicgstab: {res.iterations} it, recurrence relres {res.recurrence:.3e}; "
           f"warm walls [{', '.join(f'{t:.4f}' for t in walls)}] s, median {med:.4f} s; profiled "
           f"run: wall {t_prof:.4f} s, {count} kernels ({count / max(res.iterations, 1):.0f} per "
           f"iteration), device busy {busy:.3f} ms = {busy / 1e3 / med:.1%} of the warm median, "
-          f"stencil kernel {stencil:.3f} ms")
+          f"stencil kernel {stencil:.3f} ms, tap kernel {taps:.3f} ms; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     for e in sorted(kernels, key=dev_ms, reverse=True)[:TOP]:
         print(f"   {e.key[:70]:70s} n={e.count:7d} dev={dev_ms(e):9.3f} ms")
     return 0

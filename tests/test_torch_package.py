@@ -13,7 +13,11 @@ def test_import_leaves_jax_out():
         "phifem_tpu_torch.utils.convert, phifem_tpu_torch.ops.cuda_stencil, "
         "phifem_tpu_torch.levelset, phifem_tpu_torch.measures, phifem_tpu_torch.tagging, "
         "phifem_tpu_torch.mg, phifem_tpu_torch.models.base, "
-        "phifem_tpu_torch.models.weak_dirichlet, phifem_tpu_torch.models.flower; "
+        "phifem_tpu_torch.models.weak_dirichlet, phifem_tpu_torch.models.flower, "
+        "phifem_tpu_torch.ops.taps, phifem_tpu_torch.ops.cuda_taps, "
+        "phifem_tpu_torch.models.strong_dirichlet, phifem_tpu_torch.models.neumann, "
+        "phifem_tpu_torch.models.robin, phifem_tpu_torch.models.neumann_square, "
+        "phifem_tpu_torch.models.robin_square; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'phifem_tpu')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -47,8 +51,10 @@ def test_unported_paths_raise():
     s = pt.BoxPoisson(g).setup(lambda x: x[:, 0]).assemble()
     with pytest.raises(NotImplementedError):
         pt.solve(s.op, s.b, bcs=s.bcs, method="gmres")
+    # the sub mode is ported (slice C); the Ritz modes of the lattice
+    # preconditioner come with slice D
     circle = lambda x: x[:, 0] ** 2 + x[:, 1] ** 2 - 0.2
-    with pytest.raises(NotImplementedError, match="slice C"):
-        pt.compute_tags_measures(g, circle, 1, box_mode=False)
-    with pytest.raises(NotImplementedError, match="slice C"):
-        pt.WeakDirichletPoisson(g, mode="sub").setup(circle, lambda x: x[:, 0])
+    w = pt.WeakDirichletPoisson(pt.Grid(8, 8, ((-1.0, -1.0), (1.0, 1.0))), mode="sub")
+    w.setup(circle, lambda x: x[:, 0]).assemble()
+    with pytest.raises(NotImplementedError, match="slice D"):
+        w.lattice_preconditioner(ritz_modes=2)

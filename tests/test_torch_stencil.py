@@ -86,14 +86,12 @@ def test_maskless_equals_all_ones_mask(ct):
 def test_batch_packs_its_matrices_for_the_kernel():
     """A batch holds the kernel's float64 row-major form of its matrices,
     repacked when a copy is cast (the float32 cycle's batches)."""
-    from phifem_tpu_torch.mg import _cast_batch
-
     g = pt.Grid(5, 4)
     mats = np.random.default_rng(5).standard_normal((2, 3, 3))
     b = stencil_batch_from_numpy(g, "u", mats, None)
     assert b.packed.dtype == np.float64 and b.packed.flags.c_contiguous
     np.testing.assert_array_equal(b.packed, mats.reshape(-1))
-    b32 = _cast_batch(b, torch.float32)
+    b32 = b.astype(torch.float32)
     np.testing.assert_array_equal(b32.packed, mats.astype(np.float32).reshape(-1))
     with pytest.raises(ValueError, match="shape"):
         cuda_stencil.pack_matrices(g, torch.zeros(1, 4, 4))
