@@ -55,13 +55,16 @@ def _as_cell_type(cell_type) -> CellType:
 class Grid:
     """A uniform rectangular background grid on ``bbox`` with ``nx * ny``
     blocks.  ``device``/``dtype`` place every tensor built from it (default
-    CPU, float64); the host ``*_np`` tables use the matching numpy float."""
+    the card, ``"cuda"``, and float64; pass ``device="cpu"`` for the CPU);
+    the host ``*_np`` tables use the matching numpy float.  Constructing a
+    grid allocates nothing, so the default needs no card until a tensor is
+    built."""
 
     nx: int
     ny: int
     bbox: Tuple[Tuple[float, float], Tuple[float, float]] = ((0.0, 0.0), (1.0, 1.0))
     cell_type: CellType = CellType.triangle
-    device: Union[str, torch.device] = "cpu"
+    device: Union[str, torch.device] = "cuda"
     dtype: torch.dtype = torch.float64
 
     def __post_init__(self):

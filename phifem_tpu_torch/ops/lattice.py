@@ -230,13 +230,14 @@ def build_lattice_mg(
     min_n: int = 16,
     dtype: torch.dtype = torch.float32,
     mask: Optional[np.ndarray] = None,
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device] = "cuda",
     **kw,
 ) -> LatticeMG:
     """Build the V-cycle for an ``nx x ny``-block lattice with vertex
     stencil ``w`` (refinement-invariant for the 2D P1 stiffness, so every
     level shares it).  ``mask``: optional (ny+1, nx+1) bool of active
-    logical vertices; coarser levels pool it (``_coarsen_mask``)."""
+    logical vertices; coarser levels pool it (``_coarsen_mask``).  The
+    tables go to ``device``, the card unless the caller asks for the CPU."""
     levels = [_Level(ny + 1, nx + 1)]
     while nx % 2 == 0 and ny % 2 == 0 and nx // 2 >= min_n and ny // 2 >= min_n:
         nx //= 2

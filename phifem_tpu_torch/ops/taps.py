@@ -108,6 +108,10 @@ class TapOperator:
     ``W`` starts from zeros and no static copy of ``W`` is kept); ``_dyn``
     the flat W index of every entry of each rebuilt batch's element
     matrices, ``_plan`` the entity-ordered scatter plan over all of them.
+    ``support`` is the sorted host array of every flat W id that can ever be
+    nonzero (the union of the ``_dyn`` and ``_static`` ids), or None (every
+    weight may be nonzero, as in an operator built without entities); it
+    depends only on the entity lists, so ``refresh`` keeps it.
     """
 
     grid: Grid
@@ -123,6 +127,7 @@ class TapOperator:
     _stencil_ids: List[int]  # op.batches indices applied outside the taps
     _plan: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
     data_version: int = -1
+    support: Optional[np.ndarray] = None
 
     @property
     def num_taps(self) -> int:
@@ -319,6 +324,7 @@ def build_tap_operator(op) -> Optional[TapOperator]:
 
     dev, dt = grid.device, grid.dtype
     static = None
+    support = np.unique(np.concatenate([ids for _, ids in dyn] + st_ids + [np.zeros(0, np.int64)]))
     if st_ids:
         ids = np.concatenate(st_ids)
         uniq, inv = np.unique(ids, return_inverse=True)
@@ -339,5 +345,6 @@ def build_tap_operator(op) -> Optional[TapOperator]:
         _static=static,
         _dyn=dyn,
         _stencil_ids=stencil_ids,
+        support=support,
     )
     return top.refresh(op)

@@ -60,10 +60,11 @@ def lattice_mg_from_numpy(
     coarse_inv: np.ndarray,
     masks: Optional[Sequence[np.ndarray]],
     dtype: torch.dtype,
-    device="cpu",
+    device="cuda",
     **kw,
 ) -> LatticeMG:
-    """``levels``: ``(R, C)`` logical lattice sizes, fine to coarse."""
+    """``levels``: ``(R, C)`` logical lattice sizes, fine to coarse; the
+    tables go to ``device`` (the card unless the caller asks for the CPU)."""
     return LatticeMG(
         [_Level(int(R), int(C)) for R, C in levels],
         [(int(a), int(b), float(w)) for a, b, w in terms],
@@ -102,11 +103,12 @@ def batch_from_numpy(
     return Batch(segs, grid._tensor(np.asarray(matrices)), orient=None if orient is None else idx(orient))
 
 
-def interface_tables_from_numpy(vc: VCycle, flat_meta, device="cpu", **fields) -> VCycle:
+def interface_tables_from_numpy(vc: VCycle, flat_meta, device="cuda", **fields) -> VCycle:
     """Fill the interface fields of ``vc`` from numpy arrays named as the
     JAX package's (``interface_ids``, ``interface_inv``, ``schwarz_ids``,
     ``schwarz_inv``, ``schwarz_own``, ``schwarz_sweeps``, ``band_ids``,
-    ``band_ell_cols``, ``band_ell_vals``), on ``device``; ``flat_meta`` is
+    ``band_ell_cols``, ``band_ell_vals``), on ``device`` (the card unless
+    the caller asks for the CPU); ``flat_meta`` is
     ``(names, shapes, sizes)`` of the flat layout.  Float tables are stored
     in the interface table dtype; the (nb, K) ownership mask becomes the
     port's per-DoF owner slots."""

@@ -32,7 +32,7 @@ FORMS = {
 
 
 def _systems(ct, nx=6, ny=5, degree=1):
-    gj, gt = pf.Grid(nx, ny, BBOX, ct), pt.Grid(nx, ny, BBOX, ct)
+    gj, gt = pf.Grid(nx, ny, BBOX, ct), pt.Grid(nx, ny, BBOX, ct, device="cpu")
     sj = ja.System({"u": pf.Space.lagrange(gj, degree)})
     st = ta.System({"u": pt.Space.lagrange(gt, degree)})
     return gj, gt, sj, st

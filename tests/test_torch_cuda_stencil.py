@@ -91,7 +91,7 @@ def test_masked_kernel_on_flower_masks(cuda, shape, dt):
 
     nx, ny = shape
     box = ((-4.5, -4.5 * ny / nx), (4.5, 4.5 * ny / nx))
-    tags = tag_cells(pt.Grid(nx, ny, box), flower.detection_levelset, 1, True).numpy()
+    tags = tag_cells(pt.Grid(nx, ny, box, device="cpu"), flower.detection_levelset, 1, True).numpy()
     g = pt.Grid(nx, ny, box, device=cuda, dtype=dt)
     mats, _, x, y0 = _inputs(g, False, dt, cuda)
     b = pt.StencilCellBatch.build(g, "u", mats, tags, (1, 2))
@@ -124,7 +124,7 @@ def test_s1_matvec_on_card_matches_cpu(cuda):
 def test_cpu_tensors_launch_nothing():
     """On CPU tensors the wrapper runs the plain version: no launch."""
     cuda_stencil.launches = 0
-    g = pt.Grid(9, 7)
+    g = pt.Grid(9, 7, device="cpu")
     mats, masks, x, y0 = _inputs(g, True, torch.float64, "cpu")
     y = cuda_stencil.stencil_matvec(g, x, masks, mats, y=y0.clone())
     ref = cuda_stencil.stencil_matvec_ref(g, x, masks, mats, y=y0.clone())

@@ -6,7 +6,8 @@ device; run them on a machine with an NVIDIA Hopper card with
 ``python -m pytest tests/test_torch_cuda_taps.py -q``.  No JAX here.
 Tolerances relative to max|y|: 1e-13 in float64, 1e-5 in float32 (the
 kernel sums a thread's taps in another order than the plain version's
-tap-by-tap accumulation, with FMA).
+tap-by-tap accumulation, with FMA).  Outputs on tiles without an active
+tap are exactly zero, and the kernel is deterministic bit for bit.
 """
 
 import numpy as np
@@ -15,7 +16,7 @@ import torch
 
 import phifem_tpu_torch as pt
 from phifem_tpu_torch.ops import cuda_taps
-from torch_tap_cases import random_tap_operator
+from torch_tap_cases import random_tap_operator, sparse_tap_operator
 
 TOL = {torch.float64: 1e-13, torch.float32: 1e-5}
 
@@ -28,7 +29,56 @@ def cuda():
 
 
 def _rel(a, b):
-    return float((a - b).abs().max()) / float(b.abs().max())
+    return float((a - b).abs().max()) / max(float(b.abs().max()), torch.finfo(torch.float64).tiny)
+
+
+def _empty_tiles(top):
+    """Per field, True at the outputs of the tiles with no active tap."""
+    base, ptr, _ = cuda_taps.tile_table(top)
+    TR, TC = cuda_taps.TILE
+    empty = np.diff(ptr) == 0
+    masks = []
+    for b, (R, C) in enumerate(top.blk_shapes):
+        ntc = -(-C // TC)
+        tiles = empty[base[b] : base[b + 1]].reshape(-1, ntc)
+        m = np.repeat(np.repeat(tiles, TR, axis=0), TC, axis=1)[:R, :C]
+        masks.append(torch.as_tensor(np.repeat(m[:, :, None], top.blk_ch[b], axis=2)))
+    return top._recompose(masks)
+
+
+def _scheme_tap_form(name, device):
+    from phifem_tpu_torch.models import flower
+    from phifem_tpu_torch.models import robin_square as rsq
+
+    if name == "s1":
+        g = pt.Grid(64, 64, ((-4.5, -4.5), (4.5, 4.5)), "triangle", device=device)
+        s = pt.WeakDirichletPoisson(g, mode="bg", detection_degree=1, single_layer_cut=True)
+        s.setup(flower.levelset, flower.source_term, detection_levelset=flower.detection_levelset)
+    else:
+        g = pt.Grid(40, 40, ((-1.0, -1.0), (1.0, 1.0)), "triangle", device=device)
+        s = pt.RobinPoisson(g, detection_degree=1, levelset_degree=2)
+        s.setup(rsq.levelset, rsq.source_term, rsq.robin_data, detection_levelset=rsq.detection_levelset)
+    s.assemble()
+    return s.op.lattice_form()
+
+
+def _random_x(top, dt, device, seed=0):
+    rng = np.random.default_rng(seed)
+    return {sp.name: torch.as_tensor(
+        rng.standard_normal((sp.shape[0] * sp.shape[1] * sp.nblocks,) + sp.vshape), dtype=dt, device=device)
+        for sp in top.specs}
+
+
+def _check_against_plain(top, W, x, dt):
+    yk = cuda_taps.tap_matvec(top, W, x)
+    torch.cuda.synchronize()
+    yr = cuda_taps.tap_matvec_ref(top, W, x)
+    empty = _empty_tiles(top)
+    for k in yr:
+        assert yk[k].shape == yr[k].shape and yk[k].dtype == dt
+        assert _rel(yk[k], yr[k]) <= TOL[dt], k
+        assert torch.all(yk[k].cpu()[empty[k]] == 0), k
+    return yk
 
 
 @pytest.mark.cuda
@@ -80,3 +130,32 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         cuda_taps.tap_matvec(top, top.W[:-1], x)
     with pytest.raises(TypeError):
         cuda_taps.tap_matvec(top, top.W.half(), x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("name", ["s1", "s4"], ids=["S1-flower-n64", "S4-n40"])
+def test_kernel_matches_plain_on_schemes(cuda, name, dt):
+    top = _scheme_tap_form(name, cuda)
+    assert top.support is not None and cuda_taps.active_tile_fraction(top) < 1.0
+    _check_against_plain(top, top.W.to(dt), _random_x(top, dt, cuda), dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("ct", ["triangle", "quadrilateral"])
+def test_kernel_matches_plain_on_sparse_support(cuda, ct, dt):
+    """Empty tiles, whole empty rows of tiles, ragged edges (37 x 23) and a
+    target block without taps: zeros there, the plain version elsewhere."""
+    top, x = sparse_tap_operator(37, 23, ct, dt, cuda)
+    _check_against_plain(top, top.W, x, dt)
+
+
+@pytest.mark.cuda
+def test_s1_matvec_same_bits_twice(cuda):
+    top = _scheme_tap_form("s1", cuda)
+    x = _random_x(top, torch.float64, cuda, seed=3)
+    y1 = cuda_taps.tap_matvec(top, top.W, x)
+    y2 = cuda_taps.tap_matvec(top, top.W, x)
+    for k in y1:
+        assert torch.equal(y1[k], y2[k]), k

@@ -32,7 +32,7 @@ SIZES = [
 
 @pytest.mark.parametrize("ct", ["triangle", "quadrilateral"])
 def test_host_maps_equal(ct):
-    gj, gt = pf.Grid(5, 3, BBOX, ct), pt.Grid(5, 3, BBOX, ct)
+    gj, gt = pf.Grid(5, 3, BBOX, ct), pt.Grid(5, 3, BBOX, ct, device="cpu")
     for name in SIZES:
         assert getattr(gt, name) == getattr(gj, name), name
     for name in HOST_MAPS:
@@ -48,7 +48,7 @@ def test_host_maps_equal(ct):
 
 @pytest.mark.parametrize("ct", ["triangle", "quadrilateral"])
 def test_tensor_maps_equal(ct):
-    gj, gt = pf.Grid(7, 4, BBOX, ct), pt.Grid(7, 4, BBOX, ct)
+    gj, gt = pf.Grid(7, 4, BBOX, ct), pt.Grid(7, 4, BBOX, ct, device="cpu")
     np.testing.assert_array_equal(gt.vertex_coords.numpy(), np.asarray(gj.vertex_coords))
     np.testing.assert_array_equal(gt.cell_vertices.numpy(), np.asarray(gj.cell_vertices))
     np.testing.assert_array_equal(
@@ -77,7 +77,7 @@ def test_tensor_maps_equal(ct):
 
 
 def test_refine_keeps_device_and_dtype():
-    g = pt.Grid(3, 2, BBOX, "quadrilateral", dtype=torch.float32)
+    g = pt.Grid(3, 2, BBOX, "quadrilateral", dtype=torch.float32, device="cpu")
     f = g.refine()
     assert (f.nx, f.ny, f.device, f.dtype) == (6, 4, torch.device("cpu"), torch.float32)
     assert f.vertex_coords.dtype == torch.float32
@@ -94,7 +94,7 @@ def test_space_maps_and_eval(ct, degree):
     and outside the box: edge cells extrapolate) to 1e-13."""
     import jax.numpy as jnp
 
-    gj, gt = pf.Grid(5, 4, BBOX, ct), pt.Grid(5, 4, BBOX, ct)
+    gj, gt = pf.Grid(5, 4, BBOX, ct), pt.Grid(5, 4, BBOX, ct, device="cpu")
     Vj, Vt = pf.Space.lagrange(gj, degree), pt.Space.lagrange(gt, degree)
     assert Vt.dof_shape == Vj.dof_shape
     np.testing.assert_array_equal(Vt.cell_dofs_np, Vj.cell_dofs_np)

@@ -114,7 +114,7 @@ def test_band_bicgstab_matches(precs, monkeypatch):
     vt = VCycle([], ())
     interface_tables_from_numpy(
         vt, vj._flat_meta, **{n: np.asarray(getattr(vj, n)) for n in SCHWARZ + ("schwarz_own",)},
-        schwarz_sweeps=vj.schwarz_sweeps,
+        schwarz_sweeps=vj.schwarz_sweeps, device="cpu",
     )
     m = vt.band_ids.shape[0]
     rb = np.random.default_rng(9).standard_normal(m)

@@ -39,7 +39,7 @@ def test_restrict_prolong_exact():
 
 @pytest.mark.parametrize("ct", ["triangle", "quadrilateral"])
 def test_flat_transfers_exact(ct):
-    gcj, gct = pf.Grid(5, 4, cell_type=ct), pt.Grid(5, 4, cell_type=ct)
+    gcj, gct = pf.Grid(5, 4, cell_type=ct), pt.Grid(5, 4, cell_type=ct, device="cpu")
     gfj, gft = gcj.refine(), gct.refine()
     rng = np.random.default_rng(2)
     c = rng.standard_normal(gcj.num_vertices)
@@ -57,7 +57,7 @@ def test_flat_transfers_exact(ct):
 
 def test_build_matches():
     mj = jl.build_lattice_mg(64, 48, W, min_n=8, dtype=jnp.float64)
-    mt = tl.build_lattice_mg(64, 48, W, min_n=8, dtype=torch.float64)
+    mt = tl.build_lattice_mg(64, 48, W, min_n=8, dtype=torch.float64, device="cpu")
     assert [(l.R, l.C) for l in mt.levels] == [(l.R, l.C) for l in mj.levels]
     assert mt.terms == mj.terms
     np.testing.assert_allclose(mt.coarse_inv.numpy(), np.asarray(mj.coarse_inv), rtol=0, atol=1e-12)
@@ -76,6 +76,7 @@ def test_vcycle_application_f32(masked):
     mt = lattice_mg_from_numpy(
         [(l.R, l.C) for l in mj.levels], mj.terms, np.asarray(mj.coarse_inv),
         None if mj.masks is None else [np.asarray(m) for m in mj.masks], torch.float32,
+        device="cpu",
     )
     rng = np.random.default_rng(4)
     R, C = ny + 1, nx + 1
@@ -91,7 +92,7 @@ def test_lattice_cg_matches():
     """lattice_cg (float64 dots here, float32 in JAX) on a random RHS."""
     nx = ny = 32
     mj = jl.build_lattice_mg(nx, ny, W, min_n=8, dtype=jnp.float32)
-    mt = tl.build_lattice_mg(nx, ny, W, min_n=8, dtype=torch.float32)
+    mt = tl.build_lattice_mg(nx, ny, W, min_n=8, dtype=torch.float32, device="cpu")
     rng = np.random.default_rng(6)
     bp = np.zeros((ny + 3, nx + 3))
     bp[2 : ny + 1, 2 : nx + 1] = rng.standard_normal((ny - 1, nx - 1))

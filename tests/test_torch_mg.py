@@ -44,7 +44,7 @@ def _uex_j(x):
 
 
 def _s1(n, jax_too=False):
-    st = pt.WeakDirichletPoisson(pt.Grid(n, n, BOX, "triangle"), mode="bg")
+    st = pt.WeakDirichletPoisson(pt.Grid(n, n, BOX, "triangle", device="cpu"), mode="bg")
     st.setup(_phi, lambda x: 2.0 * _uex_t(x), u_D=_uex_t).assemble()
     if not jax_too:
         return st
@@ -75,14 +75,14 @@ def s4_16():
     sj = jm.RobinPoisson(pf.Grid(16, 16, BOX, "triangle"), mode="bg")
     sj.setup(data_j, lambda x: jnp.ones(x.shape[:-1]), lambda x: x[..., 0])
     sj.assemble()
-    st = pt.RobinPoisson(pt.Grid(16, 16, BOX, "triangle"), mode="bg")
+    st = pt.RobinPoisson(pt.Grid(16, 16, BOX, "triangle", device="cpu"), mode="bg")
     st.setup(data_t, lambda x: torch.ones(x.shape[:-1], dtype=x.dtype), lambda x: x[..., 0])
     st.assemble()
     return sj, st
 
 
 def test_transfers_of_vector_fields_match_columnwise():
-    gf, gc = pt.Grid(8, 6, BOX), pt.Grid(4, 3, BOX)
+    gf, gc = pt.Grid(8, 6, BOX, device="cpu"), pt.Grid(4, 3, BOX, device="cpu")
     rng = np.random.default_rng(0)
     c = torch.as_tensor(rng.standard_normal((gc.num_vertices, 2)))
     f = torch.as_tensor(rng.standard_normal((gf.num_vertices, 2)))

@@ -29,7 +29,7 @@ def test_no_global_default_changed():
     import phifem_tpu_torch as pt
 
     before = (torch.get_default_dtype(), torch.empty(0).device)
-    s = pt.BoxPoisson(pt.Grid(4, 4)).setup(lambda x: x[:, 0]).assemble()
+    s = pt.BoxPoisson(pt.Grid(4, 4, device="cpu")).setup(lambda x: x[:, 0]).assemble()
     assert (torch.get_default_dtype(), torch.empty(0).device) == before
     assert s.b["u"].dtype == torch.float64
 
@@ -37,7 +37,7 @@ def test_no_global_default_changed():
 def test_float32_grid_flows_through():
     import phifem_tpu_torch as pt
 
-    g = pt.Grid(8, 8, dtype=torch.float32)
+    g = pt.Grid(8, 8, dtype=torch.float32, device="cpu")
     s = pt.BoxPoisson(g).setup(lambda x: torch.ones_like(x[:, 0])).assemble()
     assert s.b["u"].dtype == torch.float32
     assert s.op.batches[0].matrices.dtype == torch.float32
@@ -47,14 +47,14 @@ def test_float32_grid_flows_through():
 def test_unported_paths_raise():
     import phifem_tpu_torch as pt
 
-    g = pt.Grid(4, 4)
+    g = pt.Grid(4, 4, device="cpu")
     s = pt.BoxPoisson(g).setup(lambda x: x[:, 0]).assemble()
     with pytest.raises(NotImplementedError):
         pt.solve(s.op, s.b, bcs=s.bcs, method="gmres")
     # the sub mode is ported (slice C); the Ritz modes of the lattice
     # preconditioner come with slice D
     circle = lambda x: x[:, 0] ** 2 + x[:, 1] ** 2 - 0.2
-    w = pt.WeakDirichletPoisson(pt.Grid(8, 8, ((-1.0, -1.0), (1.0, 1.0))), mode="sub")
+    w = pt.WeakDirichletPoisson(pt.Grid(8, 8, ((-1.0, -1.0), (1.0, 1.0)), device="cpu"), mode="sub")
     w.setup(circle, lambda x: x[:, 0]).assemble()
     with pytest.raises(NotImplementedError, match="slice D"):
         w.lattice_preconditioner(ritz_modes=2)

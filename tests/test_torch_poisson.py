@@ -31,7 +31,7 @@ def pair():
     sj = JBoxPoisson(pf.Grid(N, N, ((0.0, 0.0), (1.0, 1.0)), "triangle"))
     sj.setup(lambda x: 2.0 * jnp.pi**2 * _uex_j(x))
     sj.assemble()
-    st = pt.BoxPoisson(pt.Grid(N, N, ((0.0, 0.0), (1.0, 1.0)), "triangle"))
+    st = pt.BoxPoisson(pt.Grid(N, N, ((0.0, 0.0), (1.0, 1.0)), "triangle", device="cpu"))
     st.setup(lambda x: 2.0 * math.pi**2 * _uex_t(x)).assemble()
     return sj, st
 
@@ -50,7 +50,7 @@ def test_load_vector(pair):
 def test_load_vector_of_random_data():
     """f and u_D given as nodal data from one seed, in both packages."""
     rng = np.random.default_rng(11)
-    gj, gt = pf.Grid(12, 9, cell_type="quadrilateral"), pt.Grid(12, 9, cell_type="quadrilateral")
+    gj, gt = pf.Grid(12, 9, cell_type="quadrilateral"), pt.Grid(12, 9, cell_type="quadrilateral", device="cpu")
     f, uD = rng.standard_normal(gj.num_vertices), rng.standard_normal(gj.num_vertices)
     Vj, Vt = pf.Space.lagrange(gj, 1), pt.Space.lagrange(gt, 1)
     sj = JBoxPoisson(gj)

@@ -56,21 +56,21 @@ jrsq = _demo_data("robin", "square")
 def _build(name):
     if name == "s2":
         gj = pf.Grid(24, 24, FLOWER_BOX, pf.CellType.triangle)
-        gt = pt.Grid(24, 24, FLOWER_BOX, pt.CellType.triangle)
+        gt = pt.Grid(24, 24, FLOWER_BOX, pt.CellType.triangle, device="cpu")
         sj = jm.StrongDirichletPoisson(gj, mode="bg", detection_degree=1)
         sj.setup(jflower.levelset, jflower.source_term, detection_levelset=jflower.detection_levelset)
         st = pt.StrongDirichletPoisson(gt, mode="bg", detection_degree=1)
         st.setup(tflower.levelset, tflower.source_term, detection_levelset=tflower.detection_levelset)
     elif name == "s3":
         gj = pf.Grid(20, 20, BOX, pf.CellType.quadrilateral)
-        gt = pt.Grid(20, 20, BOX, pt.CellType.quadrilateral)
+        gt = pt.Grid(20, 20, BOX, pt.CellType.quadrilateral, device="cpu")
         sj = jm.NeumannPoisson(gj, mode="bg", detection_degree=1, levelset_degree=2)
         sj.setup(jnsq.levelset, jnsq.source_term, jnsq.neumann_data, detection_levelset=jnsq.detection_levelset)
         st = pt.NeumannPoisson(gt, mode="bg", detection_degree=1, levelset_degree=2)
         st.setup(tnsq.levelset, tnsq.source_term, tnsq.neumann_data, detection_levelset=tnsq.detection_levelset)
     else:
         gj = pf.Grid(20, 20, BOX, pf.CellType.triangle)
-        gt = pt.Grid(20, 20, BOX, pt.CellType.triangle)
+        gt = pt.Grid(20, 20, BOX, pt.CellType.triangle, device="cpu")
         sj = jm.RobinPoisson(gj, mode="bg", detection_degree=1, levelset_degree=2, robin_coef=jrsq.robin_coef)
         sj.setup(jrsq.levelset, jrsq.source_term, jrsq.robin_data, detection_levelset=jrsq.detection_levelset)
         st = pt.RobinPoisson(gt, mode="bg", detection_degree=1, levelset_degree=2, robin_coef=trsq.robin_coef)
@@ -114,7 +114,7 @@ def test_assembly_from_jax_data(schemes):
     from phifem_tpu_torch.utils.convert import scheme_data_from_numpy
 
     sj, _ = schemes["s3"]
-    st = pt.NeumannPoisson(pt.Grid(20, 20, BOX, pt.CellType.quadrilateral), mode="bg", levelset_degree=2)
+    st = pt.NeumannPoisson(pt.Grid(20, 20, BOX, pt.CellType.quadrilateral, device="cpu"), mode="bg", levelset_degree=2)
     st.setup(tnsq.levelset, tnsq.source_term, tnsq.neumann_data, detection_levelset=tnsq.detection_levelset)
     scheme_data_from_numpy(
         st, phi_h=np.asarray(sj.phi_h.data), f_h=np.asarray(sj.f_h.data), u_N=np.asarray(sj.u_N.data)
@@ -203,7 +203,7 @@ def test_strong_dirichlet_convergence():
 
     errs = []
     for n in (10, 20):
-        s = pt.StrongDirichletPoisson(pt.Grid(n, n, BOX, "triangle"), mode="bg")
+        s = pt.StrongDirichletPoisson(pt.Grid(n, n, BOX, "triangle", device="cpu"), mode="bg")
         s.setup(phi_circle, f).assemble()
         s.solve(method="dense")
         errs.append(s.l2_h1_errors(s.u_h, u_exact))
@@ -216,7 +216,7 @@ def test_strong_dirichlet_convergence():
 def test_neumann_convergence(cell_type):
     errs = []
     for n in (10, 20):
-        s = pt.NeumannPoisson(pt.Grid(n, n, BOX, cell_type), mode="bg")
+        s = pt.NeumannPoisson(pt.Grid(n, n, BOX, cell_type, device="cpu"), mode="bg")
         s.setup(phi_circle, f_helmholtz, normal_derivative).assemble()
         s.solve(method="dense")
         errs.append(s.l2_h1_errors(s.u_h, u_ex))
@@ -232,7 +232,7 @@ def test_robin_convergence():
 
     errs = []
     for n in (10, 20):
-        s = pt.RobinPoisson(pt.Grid(n, n, BOX, "triangle"), mode="bg", robin_coef=alpha)
+        s = pt.RobinPoisson(pt.Grid(n, n, BOX, "triangle", device="cpu"), mode="bg", robin_coef=alpha)
         s.setup(phi_circle, f_helmholtz, robin_data).assemble()
         s.solve(method="dense")
         errs.append(s.l2_h1_errors(s.u_h, u_ex))

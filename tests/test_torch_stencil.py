@@ -46,7 +46,7 @@ def _jax_batch(ct, masked):
 @pytest.mark.parametrize("ct", ["triangle", "quadrilateral"])
 def test_matvec_matches_jax(ct, masked):
     gj, bj = _jax_batch(ct, masked)
-    gt = pt.Grid(20, 12, BBOX, ct)
+    gt = pt.Grid(20, 12, BBOX, ct, device="cpu")
     masks = None if bj.masks is None else np.asarray(bj.masks)
     bt = stencil_batch_from_numpy(gt, "u", np.asarray(bj.matrices), masks)
     rng = np.random.default_rng(3)
@@ -72,7 +72,7 @@ def test_matvec_matches_jax(ct, masked):
 def test_maskless_equals_all_ones_mask(ct):
     """The maskless branch must not let padded 'cells' leak at the lattice
     boundary: it equals the masked branch with all-ones masks."""
-    g = pt.Grid(20, 12, BBOX, ct)
+    g = pt.Grid(20, 12, BBOX, ct, device="cpu")
     rng = np.random.default_rng(7)
     nl = g.num_vertices_per_cell
     mats = torch.as_tensor(rng.standard_normal((g.num_orientations, nl, nl)))
@@ -86,7 +86,7 @@ def test_maskless_equals_all_ones_mask(ct):
 def test_batch_packs_its_matrices_for_the_kernel():
     """A batch holds the kernel's float64 row-major form of its matrices,
     repacked when a copy is cast (the float32 cycle's batches)."""
-    g = pt.Grid(5, 4)
+    g = pt.Grid(5, 4, device="cpu")
     mats = np.random.default_rng(5).standard_normal((2, 3, 3))
     b = stencil_batch_from_numpy(g, "u", mats, None)
     assert b.packed.dtype == np.float64 and b.packed.flags.c_contiguous
@@ -98,7 +98,7 @@ def test_batch_packs_its_matrices_for_the_kernel():
 
 
 def test_non_cpu_non_cuda_device_raises():
-    g = pt.Grid(3, 2)
+    g = pt.Grid(3, 2, device="cpu")
     x = torch.zeros(g.num_vertices, device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         cuda_stencil.stencil_matvec(g, x, None, torch.zeros(2, 3, 3))

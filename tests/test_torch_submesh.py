@@ -38,7 +38,7 @@ def _int(a):
 
 @pytest.mark.parametrize("ct", ["triangle", "quadrilateral"])
 def test_submesh_matches_jax(ct):
-    gj, gt = pf.Grid(30, 26, FLOWER_BOX, pf.CellType(ct)), pt.Grid(30, 26, FLOWER_BOX, pt.CellType(ct))
+    gj, gt = pf.Grid(30, 26, FLOWER_BOX, pf.CellType(ct)), pt.Grid(30, 26, FLOWER_BOX, pt.CellType(ct), device="cpu")
     rj = jtags(gj, jflower.detection_levelset, 1, box_mode=False)
     rt = pt.compute_tags_measures(gt, tflower.detection_levelset, 1, box_mode=False)
     sj, st = rj.submesh, rt.submesh
@@ -61,7 +61,8 @@ def test_submesh_matches_jax(ct):
 
 def test_s1_sub_mode_matches_jax():
     n = 24
-    gj, gt = pf.Grid(n, n, CIRCLE_BOX, pf.CellType.triangle), pt.Grid(n, n, CIRCLE_BOX, pt.CellType.triangle)
+    gj = pf.Grid(n, n, CIRCLE_BOX, pf.CellType.triangle)
+    gt = pt.Grid(n, n, CIRCLE_BOX, pt.CellType.triangle, device="cpu")
     sj = jm.WeakDirichletPoisson(gj, mode="sub").setup(_circle, lambda x: jnp.ones(x.shape[:-1]))
     sj.assemble()
     st = pt.WeakDirichletPoisson(gt, mode="sub").setup(_circle, lambda x: torch.ones(x.shape[:-1], dtype=x.dtype))
@@ -79,7 +80,7 @@ def test_s1_sub_mode_matches_jax():
 def test_weak_dirichlet_sub_mode_matches_bg():
     errs = {}
     for mode in ("bg", "sub"):
-        g = pt.Grid(12, 12, CIRCLE_BOX, pt.CellType.triangle)
+        g = pt.Grid(12, 12, CIRCLE_BOX, pt.CellType.triangle, device="cpu")
         s = pt.WeakDirichletPoisson(g, mode=mode)
         s.setup(_circle, lambda x: 2.0 * _u_mild(x), u_D=_u_mild).assemble()
         s.solve(method="dense")
@@ -93,7 +94,8 @@ def test_schemes_sub_mode_match_jax(scheme):
     DG0 p) in sub mode: the boundary term runs over the submesh exterior;
     load vector and operator as JAX's to 1e-12."""
     n = 20
-    gj, gt = pf.Grid(n, n, CIRCLE_BOX, pf.CellType.triangle), pt.Grid(n, n, CIRCLE_BOX, pt.CellType.triangle)
+    gj = pf.Grid(n, n, CIRCLE_BOX, pf.CellType.triangle)
+    gt = pt.Grid(n, n, CIRCLE_BOX, pt.CellType.triangle, device="cpu")
     one_j = lambda x: jnp.ones(x.shape[:-1])  # noqa: E731
     one_t = lambda x: torch.ones(x.shape[:-1], dtype=x.dtype)  # noqa: E731
     if scheme == "s2":

@@ -101,7 +101,7 @@ def test_box_boundary_trace_tags():
 
 @pytest.mark.parametrize("ct", ["triangle", "quadrilateral"])
 def test_closed_form_maps_match_tables(ct):
-    g = pt.Grid(7, 5, CIRCLE_BOX, ct)
+    g = pt.Grid(7, 5, CIRCLE_BOX, ct, device="cpu")
     f = np.arange(g.num_facets)
     np.testing.assert_array_equal(g.f2c_of_np(f), g.f2c_np)
     np.testing.assert_array_equal(g.c2f_of_np(np.arange(g.num_cells)), g.c2f_np)
@@ -117,7 +117,7 @@ def test_closed_form_maps_match_tables(ct):
 
 
 def test_overwrite_and_debug_invariants(monkeypatch):
-    gt = pt.Grid(12, 12, CIRCLE_BOX)
+    gt = pt.Grid(12, 12, CIRCLE_BOX, device="cpu")
     res = pt.compute_tags_measures(
         gt, tphi_circle, 1, box_mode=True, overwrite={"cells": {7: [0, 1]}, "facets": {9: [3]}}
     )

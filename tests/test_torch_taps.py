@@ -67,16 +67,16 @@ def _build(name):
     """``(jax_scheme, port_scheme)``, set up and assembled."""
     if name.startswith("s1"):
         mode = name.split("_")[1]
-        gj, gt = pf.Grid(24, 24, BOX, pf.CellType.triangle), pt.Grid(24, 24, BOX, pt.CellType.triangle)
+        gj, gt = pf.Grid(24, 24, BOX, pf.CellType.triangle), pt.Grid(24, 24, BOX, pt.CellType.triangle, device="cpu")
         sj = jm.WeakDirichletPoisson(gj, mode=mode).setup(_circle, _ones_j)
         st = pt.WeakDirichletPoisson(gt, mode=mode).setup(_circle, _ones_t)
     elif name == "s2":
-        gj, gt = pf.Grid(24, 24, BOX, pf.CellType.triangle), pt.Grid(24, 24, BOX, pt.CellType.triangle)
+        gj, gt = pf.Grid(24, 24, BOX, pf.CellType.triangle), pt.Grid(24, 24, BOX, pt.CellType.triangle, device="cpu")
         sj = jm.StrongDirichletPoisson(gj, mode="bg").setup(_circle, _ones_j)
         st = pt.StrongDirichletPoisson(gt, mode="bg").setup(_circle, _ones_t)
     else:
         ct = "quadrilateral" if name == "s3_quad" else "triangle"
-        gj, gt = pf.Grid(20, 20, BOX, pf.CellType(ct)), pt.Grid(20, 20, BOX, pt.CellType(ct))
+        gj, gt = pf.Grid(20, 20, BOX, pf.CellType(ct)), pt.Grid(20, 20, BOX, pt.CellType(ct), device="cpu")
         J, T = (jm.NeumannPoisson, pt.NeumannPoisson) if name.startswith("s3") else (jm.RobinPoisson, pt.RobinPoisson)
         sj = J(gj, mode="bg").setup(_diamond_j, _ones_j, _zeros_j)
         st = T(gt, mode="bg").setup(_diamond_t, _ones_t, _zeros_t)
@@ -142,7 +142,7 @@ def test_f32_path(schemes, name):
 def test_refresh_after_reassemble():
     """A new level set reaches the cached tap form through data_version;
     the refresh is deterministic (the same W bit for bit twice)."""
-    g = pt.Grid(24, 24, BOX, pt.CellType.triangle)
+    g = pt.Grid(24, 24, BOX, pt.CellType.triangle, device="cpu")
     s = pt.WeakDirichletPoisson(g, mode="bg").setup(_circle, _ones_t).assemble()
     top = s.op.lattice_form()
     W0 = top.W.clone()
@@ -162,10 +162,10 @@ def test_refresh_after_reassemble():
 
 
 def test_none_for_pure_stencil_and_degree_two():
-    g = pt.Grid(16, 16, ((0.0, 0.0), (1.0, 1.0)), pt.CellType.triangle)
+    g = pt.Grid(16, 16, ((0.0, 0.0), (1.0, 1.0)), pt.CellType.triangle, device="cpu")
     s = pt.BoxPoisson(g).setup(_ones_t).assemble()
     assert s.op.lattice_form() is None and build_tap_operator(s.op) is None
-    g2 = pt.Grid(16, 16, BOX, pt.CellType.triangle)
+    g2 = pt.Grid(16, 16, BOX, pt.CellType.triangle, device="cpu")
     s2 = pt.WeakDirichletPoisson(g2, mode="bg", primal_degree=2).setup(_circle, _ones_t).assemble()
     assert not supports_tap_form(s2.system)
     assert s2.op.lattice_form() is None
@@ -221,7 +221,7 @@ def test_static_batch_taps_match_jax():
     def vmass_t(u, v, d, x, ctx):
         return torch.dot(u["y"].val, v["y"].val) + torch.sum(u["y"].grad * v["y"].grad)
 
-    gj, gt = pf.Grid(9, 7, BOX, pf.CellType.triangle), pt.Grid(9, 7, BOX, pt.CellType.triangle)
+    gj, gt = pf.Grid(9, 7, BOX, pf.CellType.triangle), pt.Grid(9, 7, BOX, pt.CellType.triangle, device="cpu")
     opj = jasm(JSystem({"y": pf.Space.lagrange(gj, 1, (2,))}), gj,
                cell_terms=[(JCellTerm(vmass_j, None, degree=2, uniform=True), {})])
     opt = assemble_operator(System({"y": pt.Space.lagrange(gt, 1, (2,))}), gt,

@@ -32,7 +32,7 @@ def f_mild(x):
 
 
 def _circle(n, uex=u_mild, f=f_mild, method="dense", ct="triangle"):
-    g = pt.Grid(n, n, CIRCLE_BOX, pt.CellType(ct))
+    g = pt.Grid(n, n, CIRCLE_BOX, pt.CellType(ct), device="cpu")
     s = pt.WeakDirichletPoisson(g, mode="bg")
     s.setup(tphi_circle, f, u_D=uex).assemble()
     res = s.solve(method=method, tol=1e-12)

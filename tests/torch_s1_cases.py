@@ -40,7 +40,7 @@ def tphi_circle(x):
 
 
 def grids(n, box, ct="triangle"):
-    return pf.Grid(n, n, box, pf.CellType(ct)), pt.Grid(n, n, box, pt.CellType(ct))
+    return pf.Grid(n, n, box, pf.CellType(ct)), pt.Grid(n, n, box, pt.CellType(ct), device="cpu")
 
 
 @functools.lru_cache(maxsize=None)

@@ -50,3 +50,30 @@ def direct_tap_sum(top, x):
         src = blocks[bj][np.clip(r, 0, Rj - 1), np.clip(c, 0, Cj - 1)] * ok[..., None]
         ys[bi] += np.einsum("rcij,rcj->rci", w, src)
     return {k: v.cpu().numpy() for k, v in top._recompose([torch.as_tensor(y) for y in ys]).items()}
+
+
+def sparse_tap_operator(nx, ny, cell_type, dtype, device, seed=0):
+    """Like :func:`random_tap_operator`, but the last block lattice is the
+    target of no tap, and each tap plane's weights may be nonzero only on a
+    thin diagonal band in the upper half of its rows (``top.support``), so
+    the tile table has empty tiles and whole empty rows of tiles; a fifth of
+    the supported weights are zero too.  ``(top, x)``."""
+    top, x = random_tap_operator(nx, ny, cell_type, dtype, device, seed)
+    shapes, ch = top.blk_shapes, top.blk_ch
+    taps = [t for t in top.taps if t[0] != len(shapes) - 1]
+    sizes = [shapes[bi][0] * shapes[bi][1] * ch[bi] * ch[bj] for bi, bj, _, _ in taps]
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    rng = np.random.default_rng(seed + 1)
+    ids = []
+    for t, (bi, bj, _, _) in enumerate(taps):
+        R, C = shapes[bi]
+        per = ch[bi] * ch[bj]
+        r, c = np.mgrid[0:R, 0:C]
+        band = (np.abs(2 * r - c - 4) <= 2) & (r < R // 2) & (rng.random((R, C)) < 0.7)
+        pts = np.flatnonzero(band)
+        ids.append(offsets[t] + (pts[:, None] * per + np.arange(per)).reshape(-1))
+    support = np.unique(np.concatenate(ids))
+    W = np.zeros(int(offsets[-1]))
+    W[support] = rng.standard_normal(len(support)) * (rng.random(len(support)) >= 0.2)
+    W = torch.as_tensor(W, dtype=dtype, device=device)
+    return TapOperator(top.grid, top.specs, taps, offsets, shapes, ch, 2, W, None, [], [], support=support), x
