@@ -4,16 +4,19 @@
 
 Builds the two hand-written CUDA kernels from the checkout (one nvcc per
 source, in parallel), holds the stencil kernel against its plain PyTorch
-version on the card (both bodies, both cell types; the masked one also
-timed on the S1 flower's masks at 3200 x 3200; every variant beside its
-bound, the maskless one beside ``torch.mv`` of its CSR matrix), then
+version on the card (both bodies, both cell types, at lattices that are no
+multiple of its tile and at the main path's; the masked one also timed on
+the S1 flower's masks at 3200 x 3200; every variant beside its bound, both
+bodies on triangles also beside ``torch.mv`` of their CSR matrix, with the
+kernel's device time per launch and the wrapper's host time per call), then
 drives the port's main paths, each through the schemes' setup ->
 assemble -> solve:
 
 * box Poisson on a 3200 x 3200 triangle grid (10,246,401 vertex DoFs),
   solved by the generic MG-preconditioned CG (float64 CG, float32 V-cycle,
   every stencil matvec through the kernel) and by the lattice-resident
-  MG-CG, both to a relative residual of 1e-10;
+  MG-CG, both to a relative residual of 1e-10 in exactly 10 and 8
+  iterations, the stencil launches counted per lattice size;
 * the S1 weak-Dirichlet flower (tag, assemble, lattice + cut-band
   preconditioned BiCGStab to 1e-8, and one warm re-tag + reassemble +
   solve iteration) at n=200 (80,802 DoFs, dense interface branch) and at
@@ -43,6 +46,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import threading
@@ -79,6 +83,7 @@ JAX_S3_H1, JAX_S4_H1 = 0.05465, 0.02715
 # every sum on the solve path runs in a fixed order; any other count means
 # that an order of summation moved (the tap kernel's, for one)
 S1_IT = 63  # S1 n=3200, cold and warm
+POISSON_IT, POISSON_LATTICE_IT = 10, 8  # box Poisson n=3200: generic CG, lattice CG
 # what the kernels line gives of each tap-kernel timing (ms: per call back to
 # back by CUDA events, as every kernel's ms; device_ms: per launch, profiler;
 # host_ms: the wrapper's host time per call)
@@ -147,17 +152,19 @@ def _bound(nbytes: float, flops: float, dt):
     return 1e3 * max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
 
-def _stencil_csr(g, mats: torch.Tensor) -> torch.Tensor:
-    """The float64 CSR matrix on the card of the maskless stencil operator
-    with per-orientation matrices ``mats`` on grid ``g``: the library
+def _stencil_csr(g, mats: torch.Tensor, masks=None) -> torch.Tensor:
+    """The float64 CSR matrix on the card of the stencil operator with
+    per-orientation matrices ``mats`` on grid ``g``, over every cell or
+    over the cells whose (0 / 1) ``masks`` entry is set: the library
     call's input (a yardstick; the port never builds it)."""
     from phifem_tpu_torch.ops.stencil import orientation_offsets
 
     C = g.nx + 1
-    blk = (torch.arange(g.ny, device=DEVICE)[:, None] * C + torch.arange(g.nx, device=DEVICE)[None, :]).reshape(-1)
+    every = (torch.arange(g.ny, device=DEVICE)[:, None] * C + torch.arange(g.nx, device=DEVICE)[None, :]).reshape(-1)
     A = mats.to(torch.float64).tolist()
     rows, cols, vals = [], [], []
     for o, offs in enumerate(orientation_offsets(g)):
+        blk = every if masks is None else every[masks[o].reshape(-1) > 0]
         for i, (dxi, dyi) in enumerate(offs):
             for j, (dxj, dyj) in enumerate(offs):
                 rows.append(blk + (dyi * C + dxi))
@@ -196,12 +203,15 @@ def _device_kernels(fn, reps: int) -> dict:
 def _device_ms(fn, reps: int, kernel: str) -> float:
     """Mean device milliseconds per launch of the kernels named ``kernel``
     over ``reps`` calls of ``fn``: the kernel's own time, whatever the host
-    takes between launches."""
-    evs = [v for k, v in _device_kernels(fn, reps).items() if kernel in k]
-    count = sum(c for c, _ in evs)
-    if count == 0:
-        raise AssertionError(f"the profiler saw no launch of {kernel}")
-    return sum(t for _, t in evs) / count
+    takes between launches.  A trace that lost every launch (it happens,
+    most often to the first traces of a process) is taken again."""
+    for attempt in range(5):
+        evs = [v for k, v in _device_kernels(fn, reps).items() if kernel in k]
+        count = sum(c for c, _ in evs)
+        if count:
+            return sum(t for _, t in evs) / count
+        print(f"[profiler] the trace held no launch of {kernel} (attempt {attempt + 1} of 5)")
+    raise AssertionError(f"the profiler saw no launch of {kernel} in 5 traces")
 
 
 def _library_kernels(fn, reps: int = 10) -> str:
@@ -223,6 +233,13 @@ def phase_device() -> str:
     return name
 
 
+def _template_args(mangled: str) -> str:
+    """``f10`` for ``...kernelIfLb1ELb0EE...``: a kernel's scalar type and
+    boolean template flags, from the name ptxas reports."""
+    m = re.search(r"I([fd])((?:Lb[01]E)+)E", mangled)
+    return m.group(1) + "".join(re.findall(r"Lb([01])E", m.group(2))) if m else mangled[-16:]
+
+
 def phase_build(*mods) -> None:
     """Build every kernel library at once: one nvcc process per source."""
     out = {}
@@ -236,19 +253,51 @@ def phase_build(*mods) -> None:
         if m not in out:
             raise RuntimeError(f"{m.__name__}: the kernel did not build")
         info = out[m]
-        regs = [l.strip() for l in info["log"].splitlines() if "registers" in l]
-        print(f"[build] {info['path']} in {info['seconds']:.2f} s "
-              f"({len(regs)} ptxas register reports{': ' + regs[0] if regs else ''})")
+        regs = re.findall(r"Compiling entry function '(\w+)'.*?Used (\d+) registers", info["log"], re.S)
+        print(f"[build] {info['path']} in {info['seconds']:.2f} s; ptxas registers per thread: "
+              + (", ".join(f"{_template_args(k)} {n}" for k, n in regs) or "(already built)"))
     print(f"[build] all kernels in {time.perf_counter() - t0:.2f} s")
 
 
+def _stencil_times(cs, g, x, masks, mats, A) -> dict:
+    """Times of one stencil variant at the main path's size, as the tap
+    kernel is timed: the wrapper's calls back to back (``ms``) and the plain
+    version by CUDA events, the kernel's own device time per launch from the
+    profiler, the wrapper's host time per call and, where ``A`` is the
+    operator's CSR matrix, ``torch.mv``."""
+    y = torch.zeros_like(x)
+    packed = cs.pack_matrices(g, mats)  # as a batch keeps it
+
+    def call():
+        return cs.stencil_matvec(g, x, masks, mats, y=y, packed=packed)
+
+    return {
+        "device_ms": _device_ms(call, 20, "stencil_matvec_kernel"),
+        "ms": _event_ms(call, 50),
+        "host_ms": _host_ms(call, 50),
+        "plain_ms": _event_ms(lambda: cs.stencil_matvec_ref(g, x, masks, mats, y=y), 10),
+        "library_ms": None if A is None else _event_ms(lambda: torch.mv(A, x), 20),
+    }
+
+
+def _stencil_report(label: str, t: dict, nbytes: int, bound) -> None:
+    lib = "" if t["library_ms"] is None else f", CSR torch.mv {t['library_ms']:.4f} ms (int32 indices, cuSPARSE)"
+    print(f"[kernel] time {label}: kernel {t['ms']:.4f} ms per call back to back (CUDA events), "
+          f"{t['device_ms']:.4f} ms of device time per launch (profiler), {t['host_ms']:.4f} ms of host time "
+          f"per call; {nbytes / (t['ms'] * 1e-3) / 1e9:.0f} GB/s of the bound's bytes; bound {bound[0]:.4f} ms "
+          f"by {bound[1]}, {bound[0] / t['ms']:.1%} of it per call, {bound[0] / t['device_ms']:.1%} of the "
+          f"device time; plain {t['plain_ms']:.4f} ms{lib}")
+
+
 def phase_kernel(pt, cs) -> dict:
-    """Kernel vs plain on the card: 8 variants at an odd, non-square size,
-    and the main path's shapes at N x N; then times at N x N."""
+    """Kernel vs plain on the card: 8 variants at two sizes that are no
+    multiple of the kernel's tile (one below it, one above), and the main
+    path's shapes at N x N; then times at N x N."""
     rng = np.random.default_rng(SEED)
     tol = {torch.float32: 1e-5, torch.float64: 1e-13}
     worst = 0.0
-    cases = [(37, 53, ct, masked, dt)
+    cases = [(nx, ny, ct, masked, dt)
+             for nx, ny in ((37, 53), (269, 131))
              for ct in ("triangle", "quadrilateral")
              for masked in (True, False)
              for dt in (torch.float32, torch.float64)]
@@ -277,13 +326,12 @@ def phase_kernel(pt, cs) -> dict:
 
     # the bound of y += A x: read x, read and write y (masks, where there
     # are, in the value type); 9 FMAs per cell (16 on quads)
-    times, bounds, library = {}, {}, {}
+    times, bounds = {}, {}
     mats = torch.as_tensor(rng.standard_normal((2, 3, 3)))
     A64 = _stencil_csr(pt.Grid(N, N, device="cuda"), mats)
     for dt in (torch.float32, torch.float64):
         g = pt.Grid(N, N, device="cuda", dtype=dt)
         x = torch.as_tensor(rng.standard_normal(g.num_vertices), dtype=dt, device="cuda")
-        y = torch.zeros_like(x)
         A, md = _csr_as(A64, dt), mats.to(dt)
         yk = cs.stencil_matvec(g, x, None, md)
         yl = torch.mv(A, x)
@@ -291,18 +339,13 @@ def phase_kernel(pt, cs) -> dict:
         rel = float((yk - yl).abs().max()) / float(yl.abs().max())
         if rel > tol[dt]:
             raise AssertionError(f"the stencil CSR is not the kernel's operator: {rel}")
-        k_ms = _event_ms(lambda: cs.stencil_matvec(g, x, None, md, y=y), 50)
-        p_ms = _event_ms(lambda: cs.stencil_matvec_ref(g, x, None, md, y=y), 10)
-        l_ms = _event_ms(lambda: torch.mv(A, x), 20)
         nbytes = 3 * x.element_size() * g.num_vertices
-        bounds[dt] = _bound(nbytes, 2 * 9 * 2 * N * N, dt)
-        times[dt] = (k_ms, p_ms)
-        library[dt] = l_ms
-        print(f"[kernel] time {str(dt)[6:]} maskless triangle {N}x{N}: kernel "
-              f"{k_ms:.4f} ms ({nbytes / (k_ms * 1e-3) / 1e9:.0f} GB/s of x+y traffic; bound "
-              f"{bounds[dt][0]:.4f} ms by {bounds[dt][1]}, {bounds[dt][0] / k_ms:.1%} of it), plain "
-              f"{p_ms:.4f} ms, CSR torch.mv {l_ms:.4f} ms ({A._nnz()} nonzeros, cuSPARSE; "
-              f"agrees to {rel:.1e}); CSR kernels: {_library_kernels(lambda: torch.mv(A, x))}")
+        bounds["maskless", dt] = _bound(nbytes, 2 * 9 * 2 * N * N, dt)
+        times["maskless", dt] = _stencil_times(cs, g, x, None, md, A)
+        _stencil_report(f"{str(dt)[6:]} maskless triangle {N}x{N}", times["maskless", dt], nbytes,
+                        bounds["maskless", dt])
+        print(f"[kernel] CSR of the maskless operator: {A._nnz()} nonzeros, agrees with the kernel to {rel:.1e}; "
+              f"CSR kernels: {_library_kernels(lambda: torch.mv(A, x))}")
         del A, yk, yl
     del A64
     torch.cuda.empty_cache()
@@ -314,31 +357,38 @@ def phase_kernel(pt, cs) -> dict:
 
     tags = tag_cells(pt.Grid(N, N, FLOWER_BOX, device="cuda"), flower.detection_levelset, 1, True)
     tags = tags.cpu().numpy()
-    masked = {}
+    mats = torch.as_tensor(rng.standard_normal((2, 3, 3)))
+    A64 = None
     for dt in (torch.float32, torch.float64):
         g = pt.Grid(N, N, FLOWER_BOX, device="cuda", dtype=dt)
-        b = pt.StencilCellBatch.build(
-            g, "u", torch.as_tensor(rng.standard_normal((2, 3, 3)), dtype=dt), tags, (1, 2))
+        b = pt.StencilCellBatch.build(g, "u", mats.to(dt), tags, (1, 2))
+        if A64 is None:
+            A64 = _stencil_csr(g, mats, b.masks)
+        A = _csr_as(A64, dt)
         x = torch.as_tensor(rng.standard_normal(g.num_vertices), dtype=dt, device="cuda")
         yk = cs.stencil_matvec(g, x, b.masks, b.matrices, packed=b.packed)
         yr = cs.stencil_matvec_ref(g, x, b.masks, b.matrices)
+        yl = torch.mv(A, x)
         torch.cuda.synchronize()
         err = float((yk - yr).abs().max())
         rel = err / float(yr.abs().max())
+        rel_l = float((yk - yl).abs().max()) / float(yr.abs().max())
         worst = max(worst, err)
         print(f"[kernel] triangle masked {str(dt)[6:]:7s} {N}x{N} flower masks "
               f"({float(b.masks.mean()):.3f} of cells set): max|dy|/max|y| = {rel:.3e} "
-              f"(tol {tol[dt]:.0e}) {'ok' if rel <= tol[dt] else 'FAIL'}")
+              f"(tol {tol[dt]:.0e}) {'ok' if rel <= tol[dt] else 'FAIL'}; CSR of the masked operator "
+              f"{A._nnz()} nonzeros, agrees to {rel_l:.1e}")
         if rel > tol[dt]:
             raise AssertionError(f"masked kernel disagrees with plain version: {rel} > {tol[dt]}")
-        y = torch.zeros_like(x)
-        k_ms = _event_ms(lambda: cs.stencil_matvec(g, x, b.masks, b.matrices, y=y, packed=b.packed), 50)
-        p_ms = _event_ms(lambda: cs.stencil_matvec_ref(g, x, b.masks, b.matrices, y=y), 10)
-        masked[dt] = (k_ms, p_ms)
-        bounds["masked", dt] = _bound((3 * g.num_vertices + b.masks.numel()) * x.element_size(), 36 * N * N, dt)
-        print(f"[kernel] time {str(dt)[6:]} masked triangle {N}x{N}: kernel {k_ms:.4f} ms (bound "
-              f"{bounds['masked', dt][0]:.4f} ms, {bounds['masked', dt][0] / k_ms:.1%} of it), "
-              f"plain {p_ms:.4f} ms")
+        if rel_l > tol[dt]:
+            raise AssertionError(f"the masked stencil CSR is not the kernel's operator: {rel_l}")
+        nbytes = (3 * g.num_vertices + b.masks.numel()) * x.element_size()
+        bounds["masked", dt] = _bound(nbytes, 36 * N * N, dt)
+        times["masked", dt] = _stencil_times(cs, g, x, b.masks, b.matrices, A)
+        _stencil_report(f"{str(dt)[6:]} masked triangle {N}x{N}", times["masked", dt], nbytes, bounds["masked", dt])
+        del A, yk, yr, yl
+    del A64
+    torch.cuda.empty_cache()
 
     # both bodies on quadrilaterals (S3's bulk), at N x N, random masks
     quad = {}
@@ -357,36 +407,33 @@ def phase_kernel(pt, cs) -> dict:
             print(f"[kernel] time {str(dt)[6:]} {body} quadrilateral {N}x{N}: kernel {k_ms:.4f} ms "
                   f"(bound {bounds[body, 'quad', dt][0]:.4f} ms, {bounds[body, 'quad', dt][0] / k_ms:.1%} "
                   f"of it), plain {p_ms:.4f} ms")
+    f32, f64 = torch.float32, torch.float64
+    keys = ("ms", "device_ms", "host_ms", "plain_ms", "library_ms")
     return {
         "name": "stencil_matvec",
         "route": "cuda",
         "source": "phifem_tpu_torch/csrc/stencil_matvec.cu",
         "replaces": "phifem_tpu/ops/pallas_stencil.py:124",
         "max_abs_err": worst,
-        "ms": times[torch.float32][0],
-        "plain_ms": times[torch.float32][1],
-        "bound_ms": bounds[torch.float32][0],
-        "bound_by": bounds[torch.float32][1],
-        "library_ms": library[torch.float32],
+        **{k: times["maskless", f32][k] for k in keys},
+        "bound_ms": bounds["maskless", f32][0],
+        "bound_by": bounds["maskless", f32][1],
         "library": "torch.mv of the operator as a CUDA CSR matrix (cuSPARSE SpMV)",
-        "ms_f64": times[torch.float64][0],
-        "plain_ms_f64": times[torch.float64][1],
-        "bound_ms_f64": bounds[torch.float64][0],
-        "library_ms_f64": library[torch.float64],
+        **{f"{k}_f64": times["maskless", f64][k] for k in keys},
+        "bound_ms_f64": bounds["maskless", f64][0],
         "shape": f"{N}x{N} triangle maskless",
-        "masked_bound_ms": bounds["masked", torch.float32][0],
-        "masked_bound_ms_f64": bounds["masked", torch.float64][0],
+        "tile": {"block": list(cs.BLOCK), "rows_f32": cs.ROWS[f32], "rows_f64": cs.ROWS[f64]},
+        **{f"masked_{k}": times["masked", f32][k] for k in keys},
+        "masked_bound_ms": bounds["masked", f32][0],
+        **{f"masked_{k}_f64": times["masked", f64][k] for k in keys},
+        "masked_bound_ms_f64": bounds["masked", f64][0],
+        "masked_shape": f"{N}x{N} triangle, S1 flower masks",
         **{f"{body}_quad_bound_ms{sfx}": bounds[body, "quad", dt][0]
            for body in ("masked", "maskless")
-           for dt, sfx in ((torch.float32, ""), (torch.float64, "_f64"))},
-        "masked_ms": masked[torch.float32][0],
-        "masked_plain_ms": masked[torch.float32][1],
-        "masked_ms_f64": masked[torch.float64][0],
-        "masked_plain_ms_f64": masked[torch.float64][1],
-        "masked_shape": f"{N}x{N} triangle, S1 flower masks",
+           for dt, sfx in ((f32, ""), (f64, "_f64"))},
         **{f"{body}_quad_{what}{sfx}": quad[body, dt][i]
            for body in ("masked", "maskless")
-           for dt, sfx in ((torch.float32, ""), (torch.float64, "_f64"))
+           for dt, sfx in ((f32, ""), (f64, "_f64"))
            for i, what in enumerate(("ms", "plain_ms"))},
     }
 
@@ -514,6 +561,9 @@ def phase_generic(pt):
             f"generic solve: recurrence relres {r.recurrence}, true relres {r.residual}")
     if err > 5 * h * h:
         raise AssertionError(f"generic solve error {err} > 5h^2")
+    if r.iterations != POISSON_IT:
+        raise AssertionError(f"generic solve took {r.iterations} iterations, not {POISSON_IT}: the order of "
+                             "summation moved")
     return s, r
 
 
@@ -530,8 +580,9 @@ def phase_lattice(pt, s, r_gen):
           f"{t_cold:.3f} s / warm median {t_warm:.4f} s of {_fmt(runs)}, {r.iterations} it, relres "
           f"{r.residual:.3e}, {ndofs / t_warm / 1e6:.2f} MDoF/s, max nodal err "
           f"{err:.3e}, max|u_lat - u_gen|/max|u_gen| {diff:.3e}")
-    if not (r.converged and r.residual <= TOL and r.iterations <= 12):
-        raise AssertionError(f"lattice solve: converged={r.converged} it={r.iterations}")
+    if not (r.converged and r.residual <= TOL and r.iterations == POISSON_LATTICE_IT):
+        raise AssertionError(f"lattice solve: converged={r.converged}, {r.iterations} iterations (not "
+                             f"{POISSON_LATTICE_IT}), relres {r.residual}")
     if err > 5 * h * h:
         raise AssertionError(f"lattice solve error {err} > 5h^2")
     if diff > 1e-8:
@@ -723,6 +774,7 @@ def _taps():
 def _reset(cs) -> None:
     """Every kernel count to 0, just before a main path."""
     cs.launches = cs.masked_launches = 0
+    cs.shape_launches.clear()
     _taps().launches = 0
 
 
@@ -921,6 +973,12 @@ def main() -> int:
     s, r_gen = phase_generic(pt)
     phase_lattice(pt, s, r_gen)
     paths["box Poisson"] = _counts(cs)
+    # how many of the path's stencil launches run at the full lattice, how
+    # many on the multigrid's coarse levels
+    by_lattice = {f"{r}x{c}": k for (r, c), k in sorted(cs.shape_launches.items(), reverse=True)}
+    print(f"[box Poisson] stencil launches by lattice: {by_lattice}")
+    if sum(by_lattice.values()) != paths["box Poisson"]["stencil"]:
+        raise AssertionError("the launches by lattice do not add up to the path's launches")
     del s, r_gen
     _reset(cs)
     paths[f"S1 n={N_S1}"] = phase_s1_small(pt, cs)
@@ -948,6 +1006,8 @@ def main() -> int:
             raise AssertionError(f"{p} never launched the masked stencil kernel")
     kernel["launches"] = sum(c["stencil"] for c in paths.values())
     kernel["launches_by_path"] = {p: c["stencil"] for p, c in paths.items()}
+    kernel["masked_launches_by_path"] = {p: c["masked"] for p, c in paths.items()}
+    kernel["poisson_launches_by_lattice"] = by_lattice
     f64, f32 = torch.float64, torch.float32
     taps = {
         "name": "tap_matvec",

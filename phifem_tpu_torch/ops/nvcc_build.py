@@ -34,22 +34,24 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME)")
 
 
-def library_path(source: Path) -> Path:
-    key = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+def library_path(source: Path, defines: tuple = ()) -> Path:
+    key = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS + tuple(defines)).encode())
     return BUILD_DIR / f"{source.stem}_{key.hexdigest()[:16]}.so"
 
 
-def build(source: Path) -> dict:
+def build(source: Path, defines: tuple = ()) -> dict:
     """Compile ``source`` if its library is not built yet.  Returns
     ``{"path", "seconds", "log"}``; ``log`` holds nvcc's ptxas report of
-    the build that made the library (empty when it was already built)."""
-    so = library_path(source)
+    the build that made the library (empty when it was already built).
+    ``defines`` are ``-DNAME=value`` flags over the source's own constants
+    (a tuning script's variants; the package builds with none)."""
+    so = library_path(source, defines)
     t0 = time.perf_counter()
     if so.exists():
         return {"path": str(so), "seconds": 0.0, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.{time.monotonic_ns()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    cmd = [nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)

@@ -3,6 +3,12 @@
 The card tests carry the ``cuda`` marker and skip where there is no CUDA
 device; run them on a machine with an NVIDIA Hopper card with
 ``python -m pytest tests/test_torch_cuda_stencil.py -q``.  No JAX here.
+
+Beyond agreement with the plain version, the cases at the kernel's risky
+shapes run inside guard bands (NaN around x and the masks, a sentinel around
+y, views that are not 16-byte aligned), compare the bits of two calls, and
+fill x and the masks with NaN outside one tile's halo to show that a tile
+reads no further.
 """
 
 import numpy as np
@@ -47,6 +53,78 @@ def test_kernel_matches_plain(cuda, ct, masked, dt):
     yr = cuda_stencil.stencil_matvec_ref(g, x, masks, mats, y=y0.clone())
     tol = 1e-13 if dt == torch.float64 else 1e-5  # summation order and FMA
     assert float((yk - yr).abs().max()) <= tol * float(yr.abs().max())
+
+
+# lattices (nx, ny) that are no multiple of the kernel's run or tile, smaller
+# than one tile, and several tiles each way
+TILING_SHAPES = [(37, 53), (4, 3), (129, 65), (1, 1), (1, 9), (9, 1), (269, 131)]
+GUARD = 301  # elements around x, y and the masks; odd, so no view is 16-byte aligned
+
+
+def _guarded(t, fill):
+    """A contiguous view holding ``t`` inside a buffer with ``GUARD`` elements
+    of ``fill`` on each side, and the buffer."""
+    buf = torch.full((t.numel() + 2 * GUARD,), fill, dtype=t.dtype, device=t.device)
+    view = buf[GUARD : GUARD + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view, buf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("masked", [True, False], ids=["masked", "maskless"])
+@pytest.mark.parametrize("ct", ["triangle", "quadrilateral"])
+@pytest.mark.parametrize("shape", TILING_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_kernel_at_tiling_shapes_inside_guard_bands(cuda, shape, ct, masked, dt):
+    """Against the plain version at the shapes the tiling makes risky, with
+    NaN all around x and the masks and a sentinel all around y: nothing
+    outside the lattice is read into a result or written, and a second call
+    gives the same bits."""
+    g = pt.Grid(*shape, cell_type=ct, device=cuda, dtype=dt)
+    mats, masks, x, y0 = _inputs(g, masked, dt, cuda)
+    xg, _ = _guarded(x, float("nan"))
+    mg = None if masks is None else _guarded(masks, float("nan"))[0]
+    yg, ybuf = _guarded(y0, 7.0)
+    yk = cuda_stencil.stencil_matvec(g, xg, mg, mats, y=yg)
+    torch.cuda.synchronize()
+    yr = cuda_stencil.stencil_matvec_ref(g, x, masks, mats, y=y0.clone())
+    tol = 1e-13 if dt == torch.float64 else 1e-5  # summation order and FMA
+    assert float((yk - yr).abs().max()) <= tol * float(yr.abs().max())
+    assert bool((ybuf[:GUARD] == 7.0).all()) and bool((ybuf[-GUARD:] == 7.0).all())
+    again = cuda_stencil.stencil_matvec(g, x, masks, mats, y=y0.clone())
+    assert torch.equal(again, yk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("masked", [True, False], ids=["masked", "maskless"])
+@pytest.mark.parametrize("ct", ["triangle", "quadrilateral"])
+def test_tile_reads_no_further_than_its_halo(cuda, ct, masked, dt):
+    """With NaN everywhere in x and the masks except a tile's outputs and
+    their one-point halo, that tile's outputs keep their bits: no thread of
+    a corner, edge or interior tile uses a value past what it needs."""
+    nx, ny = 269, 131
+    g = pt.Grid(nx, ny, cell_type=ct, device=cuda, dtype=dt)
+    mats, masks, x, y0 = _inputs(g, masked, dt, cuda)
+    want = cuda_stencil.stencil_matvec(g, x, masks, mats, y=y0.clone()).view(ny + 1, nx + 1)
+    tiles_y, tiles_x, tr, tc = cuda_stencil.tile_grid(nx, ny, dt)
+    assert tiles_y >= 3 and tiles_x >= 3
+    tiles = [(0, 0), (0, 1), (1, 0), (1, 1), (tiles_y // 2, 1), (tiles_y - 1, tiles_x - 1),
+             (tiles_y - 1, 1), (1, tiles_x - 1)]
+    assert cuda_stencil.tile_is_interior(1, 1, nx, ny, dt) and not cuda_stencil.tile_is_interior(0, 1, nx, ny, dt)
+    for ty, tx in tiles:
+        r0, r1 = ty * tr, min((ty + 1) * tr, ny + 1)  # the tile's rows and columns
+        c0, c1 = tx * tc, min((tx + 1) * tc, nx + 1)
+        xn = torch.full_like(x, float("nan")).view(ny + 1, nx + 1)
+        lo_r, lo_c = max(r0 - 1, 0), max(c0 - 1, 0)
+        xn[lo_r : r1 + 1, lo_c : c1 + 1] = x.view(ny + 1, nx + 1)[lo_r : r1 + 1, lo_c : c1 + 1]
+        mn = None
+        if masked:  # the cells around the tile's vertices
+            mn = torch.full_like(masks, float("nan"))
+            mn[:, lo_r:r1, lo_c:c1] = masks[:, lo_r:r1, lo_c:c1]
+        got = cuda_stencil.stencil_matvec(g, xn.reshape(-1), mn, mats, y=y0.clone()).view(ny + 1, nx + 1)
+        torch.cuda.synchronize()
+        assert torch.equal(got[r0:r1, c0:c1], want[r0:r1, c0:c1]), (ty, tx)
 
 
 @pytest.mark.cuda
