@@ -35,7 +35,15 @@ assemble -> solve:
   triangles, n=200): BiCGStab with ``lattice_preconditioner()`` and with
   ``mg_preconditioner()``; each held against the same problem on the CPU,
   against the port's own iteration counts exactly, and against the JAX
-  package's H1 errors.
+  package's H1 errors;
+* S5 (two-material interface elasticity, the demo's disk, param1.yaml's
+  level 3: n=120, h = 0.025 on [-1.5, 1.5]^2): tag, assemble and the
+  sparse direct solve (factor, then the cached re-solve), held against the
+  CPU lane and against the reference's recorded L2 / H10 errors; deflated
+  BiCGStab with the flat ``lattice_preconditioner(coupled=False)`` at
+  n=120 and with the default coupled hierarchy at n=64; and the tap kernel
+  at 4 channels on S5's tap form at n=512 (tag and assemble only), timed
+  as the S1 and S4 tap forms are.
 
 Every check raises; the script exits non-zero without a result when there
 is no card or no checkout.  The line before the last is a JSON record of
@@ -90,6 +98,18 @@ POISSON_IT, POISSON_LATTICE_IT = 10, 8  # box Poisson n=3200: generic CG, lattic
 TAP_TIMES = ("ms", "device_ms", "host_ms", "plain_ms", "bound_ms", "library_ms")
 S2_IT, S2_MG_IT = 397, 5  # bg and sub
 S3_IT, S4_IT, S4_MG_IT = 37, 86, 10
+# S5: the demo's disk on [-1.5, 1.5]^2 (demo/interface-elasticity)
+S5_BOX = ((-1.5, -1.5), (1.5, 1.5))
+N_S5 = 120  # param1.yaml level 3: h = 0.2 / 8, 29,282 displacement DoFs
+N_S5_COUPLED = 64  # bench.py's s5_iter size
+N_S5_TAPS = 512  # the S5 tap form the tap kernel is timed on (3.7M DoFs)
+S5_TOL = 1e-8
+# the reference's record at level 3 (docs/s5_param1_results.csv; JAX's
+# deflated BiCGStab, another null gauge than the direct solve's, hence 5%)
+S5_REF_L2, S5_REF_H10 = 6.694107748208591e-3, 0.24532890594543272
+# the flat preconditioner's iteration cap: 1.5 x JAX's 25 at n=128
+# (docs/s5_preconditioner.md), rounded up
+S5_FLAT_MAX_IT = 38
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense, outside
 # the tensor cores): the least time of a kernel is the larger of its bytes
 # over the memory rate and its flops over the rate of its value type
@@ -234,10 +254,11 @@ def phase_device() -> str:
 
 
 def _template_args(mangled: str) -> str:
-    """``f10`` for ``...kernelIfLb1ELb0EE...``: a kernel's scalar type and
-    boolean template flags, from the name ptxas reports."""
-    m = re.search(r"I([fd])((?:Lb[01]E)+)E", mangled)
-    return m.group(1) + "".join(re.findall(r"Lb([01])E", m.group(2))) if m else mangled[-16:]
+    """``f10`` for ``...kernelIfLb1ELb0EE...``, ``d42`` for
+    ``...kernelIdLi4ELi2EE...``: a kernel's scalar type and its boolean or
+    integer template arguments, from the name ptxas reports."""
+    m = re.search(r"I([fd])((?:L[bi]\d+E)+)E", mangled)
+    return m.group(1) + "".join(re.findall(r"L[bi](\d+)E", m.group(2))) if m else mangled[-16:]
 
 
 def phase_build(*mods) -> None:
@@ -253,9 +274,11 @@ def phase_build(*mods) -> None:
         if m not in out:
             raise RuntimeError(f"{m.__name__}: the kernel did not build")
         info = out[m]
-        regs = re.findall(r"Compiling entry function '(\w+)'.*?Used (\d+) registers", info["log"], re.S)
-        print(f"[build] {info['path']} in {info['seconds']:.2f} s; ptxas registers per thread: "
-              + (", ".join(f"{_template_args(k)} {n}" for k, n in regs) or "(already built)"))
+        regs = re.findall(r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores.*?Used (\d+) registers",
+                          info["log"], re.S)
+        print(f"[build] {info['path']} in {info['seconds']:.2f} s; ptxas registers per thread (bytes of "
+              "spill stores): " + (", ".join(f"{_template_args(k)} {n} ({sp})" for k, sp, n in regs)
+                                   or "(already built)"))
     print(f"[build] all kernels in {time.perf_counter() - t0:.2f} s")
 
 
@@ -945,6 +968,121 @@ def phase_s4_taps(pt, ct) -> dict:
     return _tap_kernel_check(ct, top, f"s4 n={N_S4_TAPS}")
 
 
+def _s5(pt, n: int, device: str):
+    """The S5 demo's disk problem at n x n, set up (tagged) on ``device``."""
+    from phifem_tpu_torch.models import elasticity_disk as disk
+
+    g = pt.Grid(n, n, S5_BOX, pt.CellType.triangle, device=device)
+    s = pt.InterfaceElasticity(g, mode="bg", E_in=disk.E_in, nu_in=disk.nu_in, E_out=disk.E_out,
+                               nu_out=disk.nu_out)
+    return s.setup(disk.levelset, disk.source_term, disk.exact_solution)
+
+
+def _s5_errors(s) -> dict:
+    from phifem_tpu_torch.models import elasticity_disk as disk
+
+    return s.l2_h1_errors(s.u_h, disk.exact_solution, region=None)
+
+
+def _within(e: dict, ref: dict, frac: float = 0.05) -> bool:
+    return all(abs(e[k] - ref[k]) / ref[k] < frac for k in ("l2", "h10"))
+
+
+def phase_s5_direct(pt, cs):
+    """S5 at n=N_S5: tag, assemble, sparse LU (factor, then the cached
+    re-solve), held against the CPU lane and the reference's errors.
+    Returns ``(launches, scheme, errors)``."""
+    from phifem_tpu_torch.models import elasticity_disk as disk
+
+    label = f"s5 n={N_S5}"
+    s, t_tag = _sync_time(_s5, pt, N_S5, DEVICE)
+    _, t_asm = _sync_time(s.assemble)
+    r1, t_fac = _sync_time(s.solve, method="sparse")
+    r2, t_re = _sync_time(s.solve, method="sparse")
+    counts = _counts(cs)  # the path's own launches, before the CPU-lane check
+    e = _s5_errors(s)
+    top = s.op.lattice_form()
+    print(f"[{label}] ndofs={s.system.num_dofs} ({s.U.num_dofs} displacement DoFs): tag {t_tag:.3f} s, "
+          f"assemble {t_asm:.3f} s; tap form {top.num_taps} taps, pad {top.pad}, channels {top.blk_ch}; "
+          f"sparse LU factor + solve {t_fac:.3f} s (relres {r1.residual:.3e}), cached re-solve "
+          f"{t_re:.3f} s (relres {r2.residual:.3e}); relative L2 {e['l2']:.4e} (reference {S5_REF_L2:.4e}), "
+          f"H10 {e['h10']:.4f} (reference {S5_REF_H10:.4f}); launches {counts}")
+    t0 = time.perf_counter()
+    h = _s5(pt, N_S5, "cpu").assemble()
+    _check_tags(s, h, disk.levelset, "s5")
+    errs = _against_cpu(s, h)
+    print(f"[{label}] CPU lane {time.perf_counter() - t0:.1f} s")
+    _hold(label, errs)
+    del h
+    for r in (r1, r2):
+        if not r.residual < 1e-10:
+            raise AssertionError(f"{label} sparse solve: relres {r.residual}")
+    if not _within(e, {"l2": S5_REF_L2, "h10": S5_REF_H10}):
+        raise AssertionError(f"{label} errors {e} not within 5% of the reference's")
+    return counts, s, e
+
+
+def phase_s5_flat(pt, cs, s, e_direct) -> dict:
+    """Deflated BiCGStab with the flat lattice preconditioner on the direct
+    phase's scheme (n=N_S5)."""
+    label = f"s5 n={N_S5} flat"
+    vc, t_pre = _sync_time(s.lattice_preconditioner, coupled=False)
+    r, t_cold = _sync_time(s.solve, tol=S5_TOL, precond=vc)
+    r2, t_warm = _sync_time(s.solve, tol=S5_TOL, precond=vc)
+    counts = _counts(cs)
+    e = _s5_errors(s)
+    print(f"[{label}] lattice_preconditioner(coupled=False) {t_pre:.3f} s ({_band(vc)}; bulk cycles "
+          f"{ {f: type(m).__name__ for f, m in vc.mgs.items()} }, {vc.coarse_Z.shape[0]} coarse modes); "
+          f"deflated bicgstab tol {S5_TOL:.0e}: {r.iterations} it (JAX 25 at n=128), relres "
+          f"{r.residual:.3e}, cold {t_cold:.3f} s, warm {t_warm:.3f} s ({r2.iterations} it); relative L2 "
+          f"{e['l2']:.4e}, H10 {e['h10']:.4f} (direct {e_direct['l2']:.4e}, {e_direct['h10']:.4f}); "
+          f"launches {counts}")
+    for res in (r, r2):
+        if not (res.converged and res.iterations <= S5_FLAT_MAX_IT):
+            raise AssertionError(f"{label}: {res.iterations} it (cap {S5_FLAT_MAX_IT}), relres {res.residual}")
+    if not _within(e, e_direct):
+        raise AssertionError(f"{label} errors {e} not within 5% of the direct solve's {e_direct}")
+    return counts
+
+
+def phase_s5_coupled(pt, cs) -> dict:
+    """S5 at n=N_S5_COUPLED with its default preconditioner, the coupled
+    hierarchy, and deflated BiCGStab."""
+    label = f"s5 n={N_S5_COUPLED} coupled"
+    s, t_tag = _sync_time(_s5, pt, N_S5_COUPLED, DEVICE)
+    _, t_asm = _sync_time(s.assemble)
+    vc, t_pre = _sync_time(s.lattice_preconditioner)
+    r, t_cold = _sync_time(s.solve, tol=S5_TOL, precond=vc)
+    r2, t_warm = _sync_time(s.solve, tol=S5_TOL, precond=vc)
+    counts = _counts(cs)
+    e = _s5_errors(s)
+    print(f"[{label}] ndofs={s.system.num_dofs}: tag {t_tag:.3f} s, assemble {t_asm:.3f} s, "
+          f"lattice_preconditioner() {t_pre:.3f} s ({type(vc).__name__}: smoothing levels "
+          f"{[lv['grid'].nx for lv in vc.levels]}, coarse n={vc.coarse_level.grid.nx} pinv of "
+          f"{vc.coarse_level.coarse_inv.shape[0]}); deflated bicgstab tol {S5_TOL:.0e}: {r.iterations} it, "
+          f"relres {r.residual:.3e}, cold {t_cold:.3f} s, warm {t_warm:.3f} s ({r2.iterations} it); "
+          f"relative L2 {e['l2']:.4e}, H10 {e['h10']:.4f}; launches {counts}")
+    for res in (r, r2):
+        if not res.converged:
+            raise AssertionError(f"{label}: did not converge ({res.iterations} it, relres {res.residual})")
+    return counts
+
+
+def phase_s5_taps(pt, ct) -> dict:
+    """The tap kernel at 4 channels on S5's tap form at n=N_S5_TAPS (tag and
+    assemble only): five block lattices of 2 / 2 / 4 / 4 / 2 channels."""
+    torch.cuda.reset_peak_memory_stats()
+    s, t_tag = _sync_time(_s5, pt, N_S5_TAPS, DEVICE)
+    _, t_asm = _sync_time(s.assemble, rhs=False)
+    top, t_taps = _sync_time(s.op.lattice_form)
+    nw = top.num_weights
+    print(f"[s5 n={N_S5_TAPS}] ndofs={s.system.num_dofs}: tag {t_tag:.3f} s, assemble {t_asm:.3f} s, tap "
+          f"form {t_taps:.3f} s; W {nw} weights ({nw / s.grid.num_vertices:.0f} per lattice point; "
+          f"{nw * 8 / 1e9:.2f} GB in float64, {nw * 4 / 1e9:.2f} GB more in float32 for the check); "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return _tap_kernel_check(ct, top, f"s5 n={N_S5_TAPS}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -995,6 +1133,25 @@ def main() -> int:
     _reset(cs)
     paths["S4"] = phase_s4(pt, cs)
     taps_s4 = phase_s4_taps(pt, ct)
+    torch.cuda.empty_cache()
+    t_s5 = time.perf_counter()
+    _reset(cs)
+    paths[f"S5 n={N_S5} sparse"], s5, e5 = phase_s5_direct(pt, cs)
+    print(f"[time] S5 direct {time.perf_counter() - t_s5:.1f} s")
+    t0 = time.perf_counter()
+    _reset(cs)
+    paths[f"S5 n={N_S5} flat"] = phase_s5_flat(pt, cs, s5, e5)
+    del s5
+    print(f"[time] S5 flat {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _reset(cs)
+    paths[f"S5 n={N_S5_COUPLED} coupled"] = phase_s5_coupled(pt, cs)
+    print(f"[time] S5 coupled {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    taps_s5 = phase_s5_taps(pt, ct)
+    torch.cuda.empty_cache()
+    print(f"[time] S5 tap kernel {time.perf_counter() - t0:.1f} s; S5 phases {time.perf_counter() - t_s5:.1f} s")
 
     print(f"[main path] kernel launches per path: {paths}")
     if paths["box Poisson"]["stencil"] <= 0:
@@ -1016,7 +1173,7 @@ def main() -> int:
         "replaces": "phifem_tpu/ops/taps.py:305 (per-tap loop, XLA-fused; not a Pallas kernel)",
         "launches": sum(c["taps"] for c in paths.values()),
         "launches_by_path": {p: c["taps"] for p, c in paths.items()},
-        "max_abs_err": max(v["err"] for d in (taps_s1, taps_s4) for v in d.values()),
+        "max_abs_err": max(v["err"] for d in (taps_s1, taps_s4, taps_s5) for v in d.values()),
         **{k: taps_s1[f64][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                         "active_tile_fraction")},
         "library": "torch.mv of the operator as a CUDA CSR matrix (cuSPARSE SpMV)",
@@ -1028,6 +1185,10 @@ def main() -> int:
         **{f"s4_{k}": taps_s4[f64][k] for k in TAP_TIMES + ("active_tile_fraction",)},
         **{f"s4_{k}_f32": taps_s4[f32][k] for k in TAP_TIMES},
         "s4_shape": f"S4 Robin square n={N_S4_TAPS} tap form",
+        **{f"s5_{k}": taps_s5[f64][k] for k in TAP_TIMES + ("active_tile_fraction",)},
+        **{f"s5_{k}_f32": taps_s5[f32][k] for k in TAP_TIMES},
+        "s5_shape": f"S5 interface elasticity n={N_S5_TAPS} tap form (blocks of 2/2/4/4/2 channels)",
+        "s5_launches_by_path": {p: c["taps"] for p, c in paths.items() if p.startswith("S5")},
     }
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [kernel, taps]}))

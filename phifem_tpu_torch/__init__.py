@@ -5,7 +5,9 @@ far: grids, P1 spaces, level-set tagging and one-sided measures, assembly
 of cell, facet and boundary terms (stencil batches for uniform P1 terms),
 the tap form of assembled operators, CG and BiCGStab, the geometric and
 lattice multigrid V-cycles with the cut-band interface solve, box Poisson
-and the phi-FEM schemes S1-S4 in bg and sub mode.  The P1 cell-stencil
+and the phi-FEM schemes S1-S4 in bg and sub mode and S5 (two-material
+interface elasticity: sparse direct and deflated, lattice-preconditioned
+BiCGStab).  The P1 cell-stencil
 matvec (``ops/cuda_stencil.py``) and the tap-form matvec
 (``ops/cuda_taps.py``) run hand-written CUDA kernels for tensors on an
 NVIDIA Hopper card and their plain PyTorch versions for tensors on the
@@ -35,6 +37,7 @@ from .mg import LatticeBulkVCycle, VCycle, attach_interface_solve, build_hierarc
 from .solvers import DirichletBC, solve
 from .models import (
     BoxPoisson,
+    InterfaceElasticity,
     NeumannPoisson,
     RobinPoisson,
     StrongDirichletPoisson,
@@ -74,4 +77,5 @@ __all__ = [
     "StrongDirichletPoisson",
     "NeumannPoisson",
     "RobinPoisson",
+    "InterfaceElasticity",
 ]

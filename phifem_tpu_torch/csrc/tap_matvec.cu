@@ -40,9 +40,14 @@
 //   source block its target reads, zero outside the source's own shape (the
 //   bounds check of each read moves here).  Warp w then takes row w, one
 //   lattice point a thread, and walks only the active taps, Unroll at a time
-//   (16 where every block is scalar, 4 with 2-channel blocks): their weights
-//   are loaded into registers first (independent loads in flight), then
-//   summed.  A warp reads a tap's W row segment as 32 consecutive points.
+//   (16 where every block is scalar, 4 with 2-channel blocks, 2 with 3- or
+//   4-channel blocks, so that the Unroll x MaxCh x MaxCh weights in flight
+//   stay at 16 or 32 values): their weights are loaded into registers first
+//   (independent loads in flight), then summed.  A warp reads a tap's W row
+//   segment as 32 consecutive points.  S5's five blocks of 2 / 2 / 4 / 4 / 2
+//   channels make an x window of (8 + 4) x (32 + 4) points x 14 channels,
+//   48.4 KB in f64: above 32 KB the launch opts in to more dynamic shared
+//   memory.
 //   cp.async.bulk / TMA is not used: it wants 16-byte-aligned source
 //   addresses, and a tile row of a tap plane starts at an arbitrary element.
 // * One CTA per work item of zero runs: the host lists, per field tensor, the
@@ -69,7 +74,7 @@
 namespace {
 
 constexpr int kMaxBlocks = 16;
-constexpr int kMaxCh = 2;  // channels per block lattice (2D vector P1)
+constexpr int kMaxCh = 4;  // channels per block lattice (2D tensor P1)
 constexpr int kDescFields = 11;  // per block, see phifem_tap_matvec
 constexpr int kTileR = 8;  // lattice rows per tile: one warp each
 constexpr int kTileC = 32;  // lattice columns per tile: one lane each
@@ -248,10 +253,16 @@ cudaError_t launch_any(const Params& p, int maxch, const long long* taps, const 
                        const int* tile_taps, const int* act, int nactive, const long long* runs,
                        const int* work_ptr, int nwork, const void* W, int win_elems,
                        cudaStream_t s) {
+  // each instantiation gives an output the same acc += w * x chain (taps
+  // ascending, kj ascending within a tap), so a 2-channel operator sums the
+  // same way whichever of the last two it would run
   if (maxch == 1)
     return launch<T, 1, 16>(p, taps, tile_ptr, tile_taps, act, nactive, runs, work_ptr, nwork, W,
                             win_elems, s);
-  return launch<T, kMaxCh, 4>(p, taps, tile_ptr, tile_taps, act, nactive, runs, work_ptr, nwork,
+  if (maxch == 2)
+    return launch<T, 2, 4>(p, taps, tile_ptr, tile_taps, act, nactive, runs, work_ptr, nwork, W,
+                           win_elems, s);
+  return launch<T, kMaxCh, 2>(p, taps, tile_ptr, tile_taps, act, nactive, runs, work_ptr, nwork,
                               W, win_elems, s);
 }
 

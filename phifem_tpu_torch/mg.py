@@ -1,7 +1,8 @@
 """Geometric multigrid on the structured background grid.
 
-Counterpart of :mod:`phifem_tpu.mg` (the bulk V-cycles and the interface
-band solve; coarse-space corrections come with slice D).
+Counterpart of :mod:`phifem_tpu.mg`: the bulk V-cycles, the interface band
+solve, the rank-k Galerkin coarse correction and the coupled multilevel
+hierarchy of interface-transmission systems (Ritz modes are not ported).
 
 * hierarchy: grids ``n, n/2, n/4, ...``, each level *re-discretized* by a
   level factory;
@@ -13,7 +14,11 @@ band solve; coarse-space corrections come with slice D).
 * :class:`LatticeBulkVCycle`: the full-box lattice V-cycle of
   :mod:`phifem_tpu_torch.ops.lattice` as the bulk smoother of a phi-FEM
   preconditioner, with the multiplicative solve on the cut band
-  (:func:`attach_interface_solve`).
+  (:func:`attach_interface_solve`) and, optionally, a rank-k Galerkin
+  correction over near-null modes (:func:`attach_coarse_correction`);
+* :class:`CoupledVCycle`: the whole scheme re-discretized on halved grids,
+  each level smoothed by its own lattice preconditioner, the coarsest one
+  solved by a dense pseudo-inverse (S5's default).
 
 Every level's matvec goes through its operator's batches, so on the card
 each stencil matvec runs the hand-written kernel.
@@ -39,9 +44,12 @@ Vec = Dict[str, torch.Tensor]
 __all__ = [
     "VCycle",
     "LatticeBulkVCycle",
+    "CoupledVCycle",
     "Level",
     "build_hierarchy",
     "attach_interface_solve",
+    "attach_coarse_correction",
+    "attach_coarse_correction_device",
     "data_dependent_selection",
     "prolong",
     "restrict",
@@ -216,6 +224,12 @@ class VCycle:
     band_ids: Optional[torch.Tensor] = None  # (m,) global flat band DoF ids
     band_ell_cols: Optional[torch.Tensor] = None  # (m, nnz) compact cols, pad -> m
     band_ell_vals: Optional[torch.Tensor] = None  # (m, nnz)
+    # optional rank-k Galerkin coarse correction (attach_coarse_correction):
+    # near-null modes that both the bulk cycle and the band solve miss, e.g.
+    # the rigid motions of a floating subdomain
+    coarse_Z: Optional[torch.Tensor] = None  # (k, n_flat) masked mode basis
+    coarse_Ginv: Optional[torch.Tensor] = None  # (k, k) pseudo-inverse of Z A Z^T
+    coarse_AZ: Optional[torch.Tensor] = None  # (k, n_flat) rows of A Z^T
     _flat_meta: Optional[Tuple] = None  # (names, shapes, sizes) in system order
 
     def _flatten(self, x: Vec) -> torch.Tensor:
@@ -245,10 +259,24 @@ class VCycle:
         # must be SPD on the FULL space or outer CG cannot correct nonzero
         # Dirichlet components
         x = {k: torch.where(self.levels[0].active[k], v, b[k]) for k, v in x.items()}
-        if self.interface_inv is None and self.schwarz_inv is None:
+        has_coarse = self.coarse_Z is not None
+        has_band = self.interface_inv is not None or self.schwarz_inv is not None
+        if not (has_coarse or has_band):
             return x
+        # one residual for both multiplicative corrections: the coarse
+        # update keeps it current through the rows A Z^T (no second matvec).
+        # The rank-k correction goes first: the modes' residual lies almost
+        # entirely in the band, which the band solve then re-slaves to the
+        # corrected bulk
         r = {k: b[k] - v for k, v in self.levels[0].matvec(x).items()}
-        return self._band_correct_flat(self._flatten(x), self._flatten(r))
+        rf, xf = self._flatten(r), self._flatten(x)
+        if has_coarse:
+            c = self.coarse_Ginv.to(rf.dtype) @ (self.coarse_Z.to(rf.dtype) @ rf)
+            xf = xf + self.coarse_Z.to(rf.dtype).T @ c
+            if not has_band:
+                return self._unflatten(xf)
+            rf = rf - self.coarse_AZ.to(rf.dtype).T @ c
+        return self._band_correct_flat(xf, rf)
 
     def _band_correct_flat(self, xf: torch.Tensor, rf: torch.Tensor) -> Vec:
         """Multiplicative solve on the cut-cell / ghost-facet DoF block, the
@@ -291,13 +319,17 @@ class LatticeBulkVCycle(VCycle):
     couplings a Laplacian-sized correction would blow up, so they get
     damped Jacobi here and the multiplicative interface solve after.
     Fields without a lattice cycle (phi-FEM auxiliary fields live on cut
-    cells only) get damped Jacobi."""
+    cells only) get damped Jacobi.  A vector field whose cycle is a
+    :class:`~phifem_tpu_torch.ops.lattice.LatticeVarMG` (S5's displacements)
+    is cycled on its channels-first block lattice."""
 
-    mgs: Optional[Dict[str, object]] = None  # field -> ops.lattice.LatticeMG
+    mgs: Optional[Dict[str, object]] = None  # field -> ops.lattice.LatticeMG or LatticeVarMG
     lattice_shapes: Optional[Dict[str, Tuple[int, int]]] = None
     bulk_masks: Optional[Dict[str, torch.Tensor]] = None
 
     def _cycle(self, k: int, b: Vec) -> Vec:
+        from .ops.lattice import LatticeVarMG
+
         lvl = self.levels[0]
         out = {}
         for f, v in b.items():
@@ -309,11 +341,79 @@ class LatticeBulkVCycle(VCycle):
                 continue
             bulk = self.bulk_masks[f] if self.bulk_masks and f in self.bulk_masks else a
             R, C = self.lattice_shapes[f]
-            rp = torch.zeros((R + 2, C + 2), dtype=v.dtype, device=v.device)
-            rp[1 : 1 + R, 1 : 1 + C] = torch.where(bulk, v, 0.0).reshape(R, C)
-            z = mg2(rp)[1 : 1 + R, 1 : 1 + C].reshape(v.shape)
+            rmask = torch.where(bulk, v, 0.0)
+            if isinstance(mg2, LatticeVarMG):
+                # vector P1 field: channels-first block lattice
+                vsz = mg2.vsz
+                rp = torch.zeros((vsz, R + 2, C + 2), dtype=v.dtype, device=v.device)
+                rp[:, 1 : 1 + R, 1 : 1 + C] = torch.movedim(rmask.reshape(R, C, vsz), -1, 0)
+                z = torch.movedim(mg2(rp)[:, 1 : 1 + R, 1 : 1 + C], 0, -1).reshape(v.shape)
+            else:
+                rp = torch.zeros((R + 2, C + 2), dtype=v.dtype, device=v.device)
+                rp[1 : 1 + R, 1 : 1 + C] = rmask.reshape(R, C)
+                z = mg2(rp)[1 : 1 + R, 1 : 1 + C].reshape(v.shape)
             out[f] = torch.where(bulk, z, torch.where(a, jac, 0.0))
         return out
+
+
+@dataclasses.dataclass
+class CoupledVCycle:
+    """Multilevel coupled hierarchy of interface-coupled phi-FEM systems
+    (S5 two-material elasticity).
+
+    The bulk / band splitting alone is h-dependent for interface
+    transmission: the two material bulks communicate only through the
+    O(h)-thin band.  So the WHOLE coupled scheme is re-discretized on
+    halved grids; each level is smoothed (before and after the coarse
+    correction) by its own lattice preconditioner (bulk lattice MG + rank-k
+    coarse modes + band solve), vertex fields move by bilinear restriction
+    and prolongation, cut-only fields are handled per level by that level's
+    band solve (their coarse right-hand side is zero), and the coarsest
+    coupled operator is solved by a dense pseudo-inverse."""
+
+    levels: List[Dict]  # per level: grid, matvec, active, M (the smoother)
+    coarse_level: Level  # pack / unpack and pinv of the coarsest coupled operator
+    vertex_fields: Tuple[str, ...]
+    dtype: Optional[torch.dtype] = torch.float32
+
+    def __call__(self, b: Vec) -> Vec:
+        in_dtype = next(iter(b.values())).dtype
+        cast = self.dtype is not None and in_dtype != self.dtype
+        if cast:
+            b = {k: v.to(self.dtype) for k, v in b.items()}
+        x = self._cycle(0, b)
+        if cast:
+            x = {k: v.to(in_dtype) for k, v in x.items()}
+        return x
+
+    def _cycle(self, k: int, b: Vec) -> Vec:
+        if k == len(self.levels):
+            cl = self.coarse_level
+            return cl.unpack(cl.coarse_inv.to(next(iter(b.values())).dtype) @ cl.pack(b))
+        lvl = self.levels[k]
+        x = lvl["M"]._apply(b)
+        ax = lvl["matvec"](x)
+        # only active-row residuals drive the coarse correction
+        r = {n: torch.where(lvl["active"][n], b[n] - ax[n], 0.0) for n in b}
+        gf = lvl["grid"]
+        nxt = self.levels[k + 1] if k + 1 < len(self.levels) else None
+        gc = nxt["grid"] if nxt is not None else self.coarse_level.grid
+        cactive = nxt["active"] if nxt is not None else self.coarse_level.active
+        rc = {}
+        for name, v in r.items():
+            if name in self.vertex_fields:
+                rc[name] = torch.where(cactive[name], restrict(v, gf, gc), 0.0)
+            else:
+                rc[name] = torch.zeros(cactive[name].shape, dtype=v.dtype, device=v.device)
+        ec = self._cycle(k + 1, rc)
+        for name in x:
+            if name in self.vertex_fields:
+                x[name] = torch.where(lvl["active"][name], x[name] + prolong(ec[name], gc, gf), x[name])
+        # post-smooth: a second full smoother application on the corrected
+        # residual (without it the V-recursion loses the two-grid rate)
+        ax = lvl["matvec"](x)
+        dx = lvl["M"]._apply({n: b[n] - ax[n] for n in b})
+        return {n: torch.where(lvl["active"][n], x[n] + dx[n], x[n]) for n in x}
 
 
 def _masked_matvec(op, bcs, dtype: Optional[torch.dtype]):
@@ -528,6 +628,80 @@ def attach_interface_solve(
     vc.band_ell_cols = tab(cols, torch.int64)
     vc.band_ell_vals = tab(vals)
     return vc
+
+
+def _flat_layout(vc: VCycle, op):
+    names = list(op.system.fields)
+    shapes = [tuple(op.system.fields[n].dof_shape) for n in names]
+    sizes = [int(np.prod(sh)) for sh in shapes]
+    if vc._flat_meta is None:
+        vc._flat_meta = (names, shapes, sizes)
+    return names, shapes, sizes
+
+
+def _set_coarse(vc: VCycle, Z: torch.Tensor, AZ: torch.Tensor) -> VCycle:
+    """Store the basis, ``A Z^T`` and the pseudo-inverse of the Galerkin
+    matrix ``Z A Z^T``, computed on the host in float64 with ``rcond=1e-10``
+    (an enriched basis may be near-dependent after masking, and pairs of
+    modes may sum to an exact null direction)."""
+    G = (Z @ AZ.T).cpu().numpy()
+    vc.coarse_Z, vc.coarse_AZ = Z, AZ
+    vc.coarse_Ginv = torch.as_tensor(np.linalg.pinv(G, rcond=1e-10), dtype=Z.dtype, device=Z.device)
+    return vc
+
+
+def attach_coarse_correction(vc: VCycle, op, active, vectors, bcs=()) -> VCycle:
+    """Equip a V-cycle with a rank-k multiplicative Galerkin correction
+    ``x += Z G^+ Z^T (b - A x)``, ``G = Z A Z^T``, over the mode dicts
+    ``vectors`` (system field layout), each masked to the active DoFs and
+    normalized.  The coarse space of substructuring methods: without it the
+    near-null modes of a floating block are reduced only through their
+    O(h)-thin trace next to the band, and outer iterations grow like 1/h.
+    The basis and ``A Z^T`` are float64 on the operator's device."""
+    from .solvers import masked_operator
+
+    if not vectors:
+        return vc
+    matvec, _, _ = masked_operator(op, bcs)
+    names, shapes, _ = _flat_layout(vc, op)
+    Zs, AZs = [], []
+    for v in vectors:
+        vm = {n: torch.where(active[n], torch.broadcast_to(v[n], sh), 0.0) for n, sh in zip(names, shapes)}
+        nrm = float(torch.sqrt(sum((w * w).sum() for w in vm.values())))
+        vm = {n: w / max(nrm, 1e-300) for n, w in vm.items()}
+        Zs.append(torch.cat([vm[n].reshape(-1) for n in names]))
+        Av = matvec(vm)
+        AZs.append(torch.cat([Av[n].reshape(-1) for n in names]))
+    return _set_coarse(vc, torch.stack(Zs), torch.stack(AZs))
+
+
+def attach_coarse_correction_device(vc: VCycle, op, active, z_builder, bcs=()) -> VCycle:
+    """:func:`attach_coarse_correction` with the raw ``(k, n_flat)`` basis
+    built on the operator's device by ``z_builder()`` (closed-form modes
+    from the grid's coordinate lattice, e.g. the S5 interface Fourier
+    modes): masking, normalization and the k matvecs for ``A Z^T`` stay on
+    the device; only the (k, k) Galerkin matrix goes to the host for its
+    pseudo-inverse."""
+    from .solvers import masked_operator
+
+    matvec, _, _ = masked_operator(op, bcs)
+    names, shapes, sizes = _flat_layout(vc, op)
+    act = torch.cat([torch.broadcast_to(active[n], sh).reshape(-1) for n, sh in zip(names, shapes)])
+
+    def unflat(z):
+        out, cur = {}, 0
+        for n, sh, sz in zip(names, shapes, sizes):
+            out[n] = z[cur : cur + sz].reshape(sh)
+            cur += sz
+        return out
+
+    Z = torch.where(act[None, :], z_builder(), 0.0)
+    Z = Z / torch.clamp(torch.sqrt(torch.sum(Z * Z, dim=1, keepdim=True)), min=1e-300)
+    AZ = torch.empty_like(Z)
+    for i in range(Z.shape[0]):
+        Az = matvec(unflat(Z[i]))
+        AZ[i] = torch.cat([Az[n].reshape(-1) for n in names])
+    return _set_coarse(vc, Z, AZ)
 
 
 def build_hierarchy(

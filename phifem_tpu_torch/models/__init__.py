@@ -1,7 +1,9 @@
 """Problem models of the port: box Poisson and the phi-FEM schemes S1
-(weak Dirichlet), S2 (strong Dirichlet), S3 (Neumann) and S4 (Robin)."""
+(weak Dirichlet), S2 (strong Dirichlet), S3 (Neumann), S4 (Robin) and S5
+(two-material interface elasticity)."""
 
 from .base import SchemeBase
+from .interface_elasticity import InterfaceElasticity, s5_forms
 from .neumann import NeumannPoisson, s3_forms
 from .poisson import BoxPoisson
 from .robin import RobinPoisson, s4_forms
@@ -10,6 +12,7 @@ from .weak_dirichlet import WeakDirichletPoisson, s1_forms
 
 __all__ = [
     "BoxPoisson",
+    "InterfaceElasticity",
     "NeumannPoisson",
     "RobinPoisson",
     "SchemeBase",
@@ -19,4 +22,5 @@ __all__ = [
     "s2_forms",
     "s3_forms",
     "s4_forms",
+    "s5_forms",
 ]

@@ -1,10 +1,11 @@
 """Shared scheme machinery: tagging and measures (bg and sub mode), the
 re-discretized and the lattice preconditioners, error norms.
 
-Counterpart of :mod:`phifem_tpu.models.base`.  The vector and
-free-boundary bulk cycles, coarse corrections and Ritz modes of
-``lattice_preconditioner`` (S5) come with slice D and raise
-``NotImplementedError`` naming it.
+Counterpart of :mod:`phifem_tpu.models.base`.  Two paths of
+``lattice_preconditioner`` raise ``NotImplementedError``: the constant
+block cycle of a vector field with a Dirichlet-masked bulk
+(``LatticeBlockMG``; no ported scheme reaches it) and the Ritz modes
+(measured not to help S5).
 """
 
 from __future__ import annotations
@@ -118,35 +119,52 @@ class SchemeBase:
         interface: bool = True,
         refresh: bool = False,
         ritz_modes: int = 0,
+        ritz_arnoldi: Optional[int] = None,
         **interface_kw,
     ):
         """Full-box lattice V-cycle + cut-band interface correction
         (:class:`phifem_tpu_torch.mg.LatticeBulkVCycle`).  Nothing is
         re-discretized per level: each scalar P1 field with a bulk stencil
-        (S1's u and p, S3/S4's u) is cycled on the whole box, the other
-        fields (vector y, DG0 p) get damped Jacobi, and the cut-cell
-        couplings are handled by the interface solve
-        (``interface_kw``: see
-        :func:`~phifem_tpu_torch.mg.attach_interface_solve`).  Memoized per
-        argument set and operator data version; ``refresh=True``
-        rebuilds."""
+        (S1's u and p, S3/S4's u) is cycled on the whole box; a field of
+        :meth:`_bulk_neumann_fields` (S5's displacements) takes the
+        free-boundary variable-stencil block cycle
+        (:class:`~phifem_tpu_torch.ops.lattice.LatticeVarMG`); the other
+        fields (fluxes, DG0) get damped Jacobi.  The cut-cell couplings are
+        handled by the interface solve (``interface_kw``: see
+        :func:`~phifem_tpu_torch.mg.attach_interface_solve`; ``sweeps_coef``
+        defaults to the scheme's ``_iface_sweeps_coef``), and a scheme with
+        a coarse space (:meth:`_coarse_matrix_builder`,
+        :meth:`_coarse_modes`) gets its rank-k correction.  Memoized per
+        argument set and operator data version; ``refresh=True`` rebuilds.
+
+        ``ritz_modes > 0`` raises ``NotImplementedError``: Ritz modes were
+        measured not to help S5 (docs/s5_preconditioner.md) and are not
+        ported; ``ritz_arnoldi`` is taken for them."""
         from ..mg import (
             LatticeBulkVCycle,
             Level,
             _masked_matvec,
+            attach_coarse_correction,
+            attach_coarse_correction_device,
             attach_interface_solve,
             data_dependent_selection,
         )
-        from ..ops.lattice import build_lattice_mg, vertex_stencil_weights
+        from ..ops.lattice import (
+            build_lattice_mg,
+            build_lattice_var_mg,
+            orientation_cell_masks,
+            vertex_stencil_weights,
+        )
         from ..ops.stencil import StencilCellBatch, orientation_offsets
         from ..solvers import masked_operator
 
         if ritz_modes > 0:
             raise NotImplementedError(
-                "coarse corrections and Ritz modes are not ported yet (ROADMAP slice D)"
+                "Ritz modes are not ported: measured not to help S5 (docs/s5_preconditioner.md), "
+                "they wait for a later PR (ROADMAP queue 1)"
             )
         key = (
-            "lattice", min_n, str(dtype), interface, repr(sorted(interface_kw.items())),
+            "lattice", min_n, str(dtype), interface, ritz_arnoldi, repr(sorted(interface_kw.items())),
             self.op.data_version,
         )
         vc = self._mg_cached(key, refresh)
@@ -157,42 +175,138 @@ class SchemeBase:
         matvec, inv_diag, active = _masked_matvec(self.op, bcs, dtype)
         g = self.grid
         offs = orientation_offsets(g)
+        neum = set(self._bulk_neumann_fields())
         ws: Dict[str, np.ndarray] = {}  # scalar P1 field -> (3, 3) vertex stencil
+        wsv: Dict[str, list] = {}  # free-boundary field -> [(mats, cell indicator)]
         for b in self.op.batches:
             if isinstance(b, StencilCellBatch):
                 w = vertex_stencil_weights(b.matrices.numpy(), offs)
                 ws[b.field] = ws.get(b.field, 0.0) + w
             elif isinstance(b, Batch) and b.orient is not None and not b.dynamic and len(b.segments) == 1:
-                name, _, vs = b.segments[0]
-                if vs:
-                    raise NotImplementedError(
-                        "vector/tensor P1 bulk cycles (LatticeBlockMG, LatticeVarMG) are "
-                        "not ported yet (ROADMAP slice D)"
-                    )
-        # interface (h^-3 penalty) DoFs are excluded from the Laplacian bulk
-        # cycle: corrections there come from the band solve only
+                # a geometry-uniform single-field vector P1 cell batch (S5's
+                # elasticity bulks)
+                name, dofs, vs = b.segments[0]
+                sp = self.op.system.fields[name]
+                if not (vs and sp.element.family == "Lagrange" and sp.degree == 1
+                        and dofs.shape[1] == len(offs[0])):
+                    continue
+                if name in neum and b.cells is not None:
+                    covered = np.zeros(g.num_cells, bool)
+                    covered[b.cells] = True
+                    wsv.setdefault(name, []).append((b.matrices.cpu().numpy(), orientation_cell_masks(g, covered)))
+                    continue
+                raise NotImplementedError(
+                    f"the constant block cycle LatticeBlockMG of field {name!r} (a vector P1 bulk "
+                    "with a Dirichlet-masked boundary) is not ported yet (ROADMAP queue 1)"
+                )
+        # interface (h^-3 penalty) DoFs are excluded from the bulk cycles:
+        # corrections there come from the band solve only
         _, _, active_full = masked_operator(self.op, bcs)
         sel = data_dependent_selection(self.op, active_full)
         R, C = g.ny + 1, g.nx + 1
-        mgs, bulk_masks = {}, {}
+        bulk_np, vertex_np = {}, {}
+        for f in list(ws) + list(wsv):
+            sp = self.op.system.fields[f]
+            act = np.broadcast_to(active_full[f].cpu().numpy(), sp.dof_shape).reshape(-1, sp.value_size)
+            m = act & ~sel[f].reshape(-1, sp.value_size)
+            bulk_np[f] = m.reshape(sp.dof_shape)
+            # the cycle's per-vertex mask: bulk iff every component is
+            vertex_np[f] = m.all(axis=1).reshape(R, C)
+        mgs = {}
         for f, w in ws.items():
-            bulk = active_full[f].cpu().numpy() & ~sel[f]
-            bulk_masks[f] = torch.as_tensor(bulk, device=g.device)
-            mgs[f] = build_lattice_mg(
-                g.nx, g.ny, w, min_n=min_n, dtype=dtype, mask=bulk.reshape(R, C), device=g.device
-            )
+            mgs[f] = build_lattice_mg(g.nx, g.ny, w, min_n=min_n, dtype=dtype, mask=vertex_np[f], device=g.device)
+        for f, contribs in wsv.items():
+            if vertex_np[f].any():
+                mgs[f] = build_lattice_var_mg(
+                    g, contribs, self.op.system.fields[f].value_size, min_n=min_n, dtype=dtype,
+                    mask=vertex_np[f], device=g.device,
+                )
         vc = LatticeBulkVCycle(
             [Level(g, matvec, inv_diag, active)],
             tuple(mgs),
             dtype=dtype,
             mgs=mgs,
-            lattice_shapes={f: (R, C) for f in ws},
-            bulk_masks=bulk_masks,
+            lattice_shapes={f: (R, C) for f in bulk_np},
+            bulk_masks={f: torch.as_tensor(m, device=g.device) for f, m in bulk_np.items()},
         )
         if interface:
+            interface_kw.setdefault("sweeps_coef", getattr(self, "_iface_sweeps_coef", 0.2))
             vc = attach_interface_solve(vc, self.op, active_full, **interface_kw)
+        builder = self._coarse_matrix_builder()
+        if builder is not None:
+            vc = attach_coarse_correction_device(vc, self.op, active_full, builder[0], bcs)
+        else:
+            modes = self._coarse_modes()
+            if modes:
+                vc = attach_coarse_correction(vc, self.op, active_full, modes, bcs)
         self._mg_cache[key] = vc
         return vc
+
+    def coupled_preconditioner(
+        self,
+        min_n: int = 16,
+        dtype: torch.dtype = torch.float32,
+        refresh: bool = False,
+        max_coarse_dofs: int = 9000,
+        **interface_kw,
+    ):
+        """Multilevel coupled hierarchy (:class:`phifem_tpu_torch.mg.
+        CoupledVCycle`): the scheme re-discretized on halved grids while
+        ``n/2 >= min_n`` and it has more than ``max_coarse_dofs`` DoFs, each
+        level smoothed by its own flat :meth:`lattice_preconditioner`
+        (``interface_kw`` go there), and a dense pseudo-inverse of the
+        coarsest coupled operator.  For interface-transmission systems
+        (S5), where the flat bulk / band preconditioner contracts at
+        1 - O(h)."""
+        from ..mg import CoupledVCycle, Level, _coarse_pinv, _masked_matvec
+
+        key = ("coupled", min_n, str(dtype), max_coarse_dofs, repr(sorted(interface_kw.items())),
+               self.op.data_version)
+        vc = self._mg_cached(key, refresh)
+        if vc is not None:
+            return vc
+        levels = []
+        s = self
+        vertex_fields = None
+        while True:
+            g = s.grid
+            matvec, _, active = _masked_matvec(s.op, getattr(s, "bcs", ()), dtype)
+            if vertex_fields is None:
+                vertex_fields = tuple(n for n, v in active.items() if v.shape[0] == g.num_vertices)
+            can_halve = g.nx % 2 == 0 and g.ny % 2 == 0 and g.nx // 2 >= min_n and g.ny // 2 >= min_n
+            if not can_halve or s.op.system.num_dofs <= max_coarse_dofs:
+                coarse = Level(
+                    g, matvec, None, active, coarse_inv=_coarse_pinv(s.op, active).to(dtype),
+                    field_shapes={n: tuple(sp.dof_shape) for n, sp in s.op.system.fields.items()},
+                )
+                break
+            M = SchemeBase.lattice_preconditioner(s, min_n=min_n, dtype=dtype, **interface_kw)
+            levels.append({"grid": g, "matvec": matvec, "active": active, "M": M})
+            s = dataclasses.replace(s, grid=dataclasses.replace(g, nx=g.nx // 2, ny=g.ny // 2))
+            s.setup(*self._setup_args)
+            s.assemble(rhs=False)
+        vc = CoupledVCycle(levels, coarse, vertex_fields, dtype=dtype)
+        self._mg_cache[key] = vc
+        return vc
+
+    def _bulk_neumann_fields(self) -> tuple:
+        """Fields whose bulk lattice MG must use the free-boundary variable
+        stencil (:class:`~phifem_tpu_torch.ops.lattice.LatticeVarMG`):
+        fields with a natural (traction, flux) condition at the immersed
+        boundary.  The Dirichlet-masked constant stencil mis-corrects their
+        boundary's harmonic-extension modes, and outer iterations grow like
+        1/h."""
+        return ()
+
+    def _coarse_modes(self) -> tuple:
+        """Near-null mode dicts for the lattice preconditioner's rank-k
+        Galerkin correction (none by default)."""
+        return ()
+
+    def _coarse_matrix_builder(self):
+        """Optional device-side coarse-basis builder ``(z_builder, k)``,
+        preferred over :meth:`_coarse_modes` (None by default)."""
+        return None
 
     # ------------------------------------------------------------- errors
     def l2_h1_errors(

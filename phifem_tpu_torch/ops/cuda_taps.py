@@ -39,7 +39,7 @@ SOURCE = nvcc_build.PKG / "csrc" / "tap_matvec.cu"
 # the kernel's compile-time shape; _library() checks it against the built
 # kernel's (phifem_tap_constants)
 _MAX_BLOCKS = 16  # kMaxBlocks
-_MAX_CH = 2  # kMaxCh
+_MAX_CH = 4  # kMaxCh
 TILE = (8, 32)  # (TR, TC) lattice points per output tile: kTileR, kTileC
 _STAGE = 256  # kStage: most zero runs per work item
 _DESC = 11  # kDescFields: int64 fields per block of the launch's descriptor

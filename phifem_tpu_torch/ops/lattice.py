@@ -1,6 +1,9 @@
 """2D lattice-resident geometric multigrid for uniform P1 box problems.
 
-Counterpart of :mod:`phifem_tpu.ops.lattice` (scalar part).  The reduced
+Counterpart of :mod:`phifem_tpu.ops.lattice`: the scalar cycle
+(:class:`LatticeMG`) and the variable-stencil block cycle of free-boundary
+vector fields (:class:`LatticeVarMG`, S5's displacement bulks); the
+constant block cycle (``LatticeBlockMG``) is not ported yet.  The reduced
 operator of a uniform single-scalar P1 cell term with Dirichlet conditions
 on the box boundary is EXACTLY a constant-coefficient 9-point vertex stencil
 applied to the zero-extended interior; on the right-triangle split the P1
@@ -8,7 +11,7 @@ stiffness stencil is the classic 5-point Laplacian.  So the whole
 MG-preconditioned CG solver is shifted-slice arithmetic on 2D
 ``(rows, cols)`` tensors: no gathers, scatters, masks or reshapes on the
 hot path.  In this port these are plain PyTorch ops (hand-written kernels
-for them are later work: ROADMAP queue 2, item 2).
+for them are later work: ROADMAP queue 2, items 2 and 3).
 
 Layout: ``(R+2, C+2)`` padded tensors for an ``R x C`` vertex lattice
 (``R = ny+1``); logical node ``(r, c)`` lives at ``[1+r, 1+c]``.  For
@@ -28,7 +31,12 @@ import torch
 __all__ = [
     "vertex_stencil_weights",
     "LatticeMG",
+    "LatticeVarMG",
     "build_lattice_mg",
+    "build_lattice_var_mg",
+    "cell_stencil_maps",
+    "galerkin_coarsen_stencil",
+    "orientation_cell_masks",
     "lattice_cg",
 ]
 
@@ -263,6 +271,263 @@ def build_lattice_mg(
         masks=lvl_masks,
         **kw,
     )
+
+
+def orientation_cell_masks(grid, sel: np.ndarray) -> np.ndarray:
+    """Per-orientation ``(norient, ny, nx)`` float cell indicators from a
+    flat covered-cells bool ``sel`` (row-major boxes, the two triangles of
+    a box interleaved, as in ``StencilCellBatch``)."""
+    ny, nx = grid.ny, grid.nx
+    if grid.is_simplex:
+        return np.stack([sel[0::2].reshape(ny, nx), sel[1::2].reshape(ny, nx)]).astype(np.float64)
+    return sel.reshape(1, ny, nx).astype(np.float64)
+
+
+def cell_stencil_maps(contribs, offs_per_orient, vsz: int) -> np.ndarray:
+    """Variable per-vertex block stencil maps ``(3, 3, vsz, vsz, R-2, C-2)``
+    on the logical-interior vertices, assembled from per-orientation cell
+    indicators: the exact reduced operator of the cell terms on the covered
+    region, with a FREE (Neumann) boundary where coverage ends, which a
+    floating or naturally bounded block needs from its bulk MG.
+
+    ``contribs``: ``(mats, ind)`` pairs, element matrices (norient,
+    nloc*vsz, nloc*vsz) and indicators (norient, ny, nx), summed."""
+    norient, ny, nx = contribs[0][1].shape
+    R, C = ny + 1, nx + 1
+    W = np.zeros((3, 3, vsz, vsz, R, C))
+    for mats, ind in contribs:
+        mats = np.asarray(mats, np.float64)
+        for o, offs in enumerate(offs_per_orient):
+            io = ind[o]
+            for i, (dxi, dyi) in enumerate(offs):
+                for j, (dxj, dyj) in enumerate(offs):
+                    blk = mats[o, i * vsz : (i + 1) * vsz, j * vsz : (j + 1) * vsz]
+                    a, b = 1 + dyj - dyi, 1 + dxj - dxi
+                    W[a, b, :, :, dyi : dyi + ny, dxi : dxi + nx] += blk[:, :, None, None] * io
+    return W[:, :, :, :, 1 : R - 1, 1 : C - 1]
+
+
+def galerkin_coarsen_stencil(Wf: np.ndarray, Rc: int, Cc: int) -> np.ndarray:
+    """Galerkin (RAP) coarsening of a variable 9-point block stencil with
+    full-weighting restriction and bilinear prolongation; the coarse
+    operator stays 9-point.  (Re-discretizing coarse levels from pooled
+    cell indicators diverges with depth on free-boundary blocks; RAP keeps
+    the coarse correction A-optimal for SPD blocks.)
+
+    ``Wf``: (3, 3, vsz, vsz, Rf-2, Cf-2) with ``Rf = 2 Rc - 1``.  Returns
+    (3, 3, vsz, vsz, Rc-2, Cc-2)."""
+    _, _, vsz, _, nif, njf = Wf.shape
+    Rf, Cf = nif + 2, njf + 2
+    # logical-full with a ring of zeros, plus 2 of padding for the gathers
+    Wfull = np.zeros((3, 3, vsz, vsz, Rf + 4, Cf + 4))
+    Wfull[:, :, :, :, 3 : 3 + nif, 3 : 3 + njf] = Wf
+    wt = {-1: 0.5, 0: 1.0, 1: 0.5}
+    Wc = np.zeros((3, 3, vsz, vsz, Rc, Cc))
+    Iidx = 2 * np.arange(Rc)
+    Jidx = 2 * np.arange(Cc)
+    for dI in (-1, 0, 1):
+        for dJ in (-1, 0, 1):
+            acc = np.zeros((vsz, vsz, Rc, Cc))
+            for s in (-1, 0, 1):
+                for t in (-1, 0, 1):
+                    for sp in (-1, 0, 1):
+                        a = 2 * dI + sp - s
+                        if abs(a) > 1:
+                            continue
+                        for tp in (-1, 0, 1):
+                            b = 2 * dJ + tp - t
+                            if abs(b) > 1:
+                                continue
+                            w = wt[s] * wt[t] * wt[sp] * wt[tp]
+                            # fine row vertex (2I+s, 2J+t), offset (a, b)
+                            acc += w * Wfull[1 + a, 1 + b][:, :, (Iidx + s + 2)[:, None], (Jidx + t + 2)[None, :]]
+            Wc[1 + dI, 1 + dJ] = acc
+    return Wc[:, :, :, :, 1 : Rc - 1, 1 : Cc - 1]
+
+
+def _var_diag_inv(Wint: np.ndarray, mask: Optional[np.ndarray]) -> np.ndarray:
+    """Per-vertex inverses of the center blocks ``Wint[1, 1]``, ``(vsz,
+    vsz, R-2, C-2)``; identity where the block vanishes or the vertex is
+    masked out."""
+    vsz = Wint.shape[2]
+    D = np.moveaxis(Wint[1, 1], (0, 1), (-2, -1)).copy()  # (R-2, C-2, v, v)
+    dead = np.abs(D).max(axis=(-2, -1)) < 1e-300
+    if mask is not None:
+        dead |= ~np.asarray(mask[1:-1, 1:-1], bool)
+    D[dead] = np.eye(vsz)
+    return np.moveaxis(np.linalg.inv(D), (-2, -1), (0, 1))
+
+
+def _dense_var_coarse_pinv(Wint: np.ndarray, mask: Optional[np.ndarray]) -> np.ndarray:
+    """Masked dense pseudo-inverse of the coarsest variable operator (a
+    floating block's coarsest operator is exactly singular: pinv gives the
+    zero-gauge solve); flat index (node_row * nj + node_col) * vsz + comp."""
+    vsz, ni, nj = Wint.shape[2], Wint.shape[-2], Wint.shape[-1]
+    n = ni * nj * vsz
+    A = np.zeros((n, n))
+    idx = np.arange(ni)[:, None] * nj + np.arange(nj)[None, :]
+    for a in range(3):
+        for b in range(3):
+            dy, dx = a - 1, b - 1
+            i0, i1 = max(0, -dy), min(ni, ni - dy)
+            j0, j1 = max(0, -dx), min(nj, nj - dx)
+            if i0 >= i1 or j0 >= j1:
+                continue
+            rows = idx[i0:i1, j0:j1].reshape(-1)
+            cols = idx[i0 + dy : i1 + dy, j0 + dx : j1 + dx].reshape(-1)
+            blks = np.moveaxis(Wint[a, b, :, :, i0:i1, j0:j1], (0, 1), (-2, -1)).reshape(-1, vsz, vsz)
+            np.add.at(
+                A,
+                (rows[:, None, None] * vsz + np.arange(vsz)[None, :, None],
+                 cols[:, None, None] * vsz + np.arange(vsz)[None, None, :]),
+                blks,
+            )
+    if mask is not None:
+        act = np.repeat(np.asarray(mask[1:-1, 1:-1], bool).reshape(-1), vsz)
+        A[~act, :] = 0.0
+        A[:, ~act] = 0.0
+        dd = np.where(~act)[0]
+        A[dd, dd] = 1.0
+    return np.linalg.pinv(A, rcond=1e-10)
+
+
+def _mask_rows_cols(Wint: np.ndarray, m: np.ndarray) -> np.ndarray:
+    """The stencil restricted to the active vertices ``m`` (logical (R, C)
+    bool): rows and columns of inactive vertices zeroed."""
+    ni, nj = Wint.shape[-2:]
+    mi = m[1:-1, 1:-1].astype(np.float64)
+    mp = np.pad(mi, 1)
+    Wint = Wint * mi  # rows
+    for a in range(3):
+        for b in range(3):
+            Wint[a, b] *= mp[a : a + ni, b : b + nj]  # columns
+    return Wint
+
+
+@dataclasses.dataclass
+class LatticeVarMG:
+    """Variable-stencil block V-cycle on channels-first padded lattices
+    ``(vsz, R+2, C+2)``: every level's operator is the exact reduced
+    cell-term operator of the covered region (free boundary where coverage
+    ends) or its Galerkin coarsening, smoothed by damped block Jacobi with
+    per-vertex (vsz, vsz) inverses.  For floating or naturally bounded
+    blocks (S5's two displacement fields).
+
+    Plain PyTorch: ``_conv`` is one stacked ``einsum`` over the 9 taps."""
+
+    levels: List[_Level]
+    Ws: List[torch.Tensor]  # per level (3, 3, vsz, vsz, R-2, C-2)
+    Dinvs: List[torch.Tensor]  # per level (vsz, vsz, R-2, C-2)
+    coarse_inv: torch.Tensor  # dense pinv on the coarsest interior
+    vsz: int
+    dtype: torch.dtype = torch.float32
+    omega: float = 0.8
+    pre_smooth: int = 2
+    post_smooth: int = 2
+    masks: Optional[List[torch.Tensor]] = None  # per level (R, C), shared by the channels
+
+    def _conv(self, xp: torch.Tensor, k: int, R: int, C: int) -> torch.Tensor:
+        W = self.Ws[k]
+        xs = torch.stack([xp[:, a + 1 : a + R - 1, b + 1 : b + C - 1] for a in range(3) for b in range(3)])
+        return torch.einsum("tijrc,tjrc->irc", W.reshape((9,) + W.shape[2:]), xs)
+
+    def _mask_int(self, k: int, R: int, C: int):
+        if self.masks is None:
+            return None
+        return self.masks[k][1 : R - 1, 1 : C - 1]
+
+    def _smooth(self, xp, bp, lvl: _Level, k: int, sweeps: int):
+        """Damped block Jacobi on the interior (updates ``xp`` in place)."""
+        R, C = lvl.R, lvl.C
+        m = self._mask_int(k, R, C)
+        for _ in range(sweeps):
+            r = bp[:, 2:R, 2:C] - self._conv(xp, k, R, C)
+            upd = self.omega * torch.einsum("ijrc,jrc->irc", self.Dinvs[k], r)
+            xp[:, 2:R, 2:C] += upd if m is None else upd * m
+        return xp
+
+    def _cycle(self, k: int, bp):
+        lvl = self.levels[k]
+        R, C = lvl.R, lvl.C
+        if k == len(self.levels) - 1:
+            flat = torch.movedim(bp[:, 2:R, 2:C], 0, -1).reshape(-1)
+            sol = self.coarse_inv @ flat
+            out = torch.zeros_like(bp)
+            out[:, 2:R, 2:C] = torch.movedim(sol.reshape(R - 2, C - 2, self.vsz), -1, 0)
+            return out
+        xp = self._smooth(torch.zeros_like(bp), bp, lvl, k, self.pre_smooth)
+        r_int = bp[:, 2:R, 2:C] - self._conv(xp, k, R, C)
+        m = self._mask_int(k, R, C)
+        if m is not None:
+            r_int = r_int * m
+        nxt = self.levels[k + 1]
+        bc = torch.stack([_restrict(ri, nxt.R, nxt.C) for ri in r_int])
+        if self.masks is not None:
+            bc = bc * _embed(self.masks[k + 1][1:-1, 1:-1], nxt.R, nxt.C)
+        ec = self._cycle(k + 1, bc)
+        corr = torch.stack([_prolong(e, nxt.R, nxt.C) for e in ec])
+        if self.masks is not None:
+            corr = corr * self.masks[k]
+        xp[:, 2:R, 2:C] += corr[:, 1:-1, 1:-1]
+        return self._smooth(xp, bp, lvl, k, self.post_smooth)
+
+    def __call__(self, bp: torch.Tensor) -> torch.Tensor:
+        return self._cycle(0, bp.to(self.dtype)).to(bp.dtype)
+
+
+def build_lattice_var_mg(
+    grid,
+    contribs,
+    vsz: int,
+    min_n: int = 16,
+    dtype: torch.dtype = torch.float32,
+    mask: Optional[np.ndarray] = None,
+    device: Union[str, torch.device] = "cuda",
+    **kw,
+) -> LatticeVarMG:
+    """Build the variable-stencil V-cycle for the cell terms ``contribs``:
+    ``(mats, covered)`` pairs, element matrices (norient, nloc*vsz,
+    nloc*vsz) and a covered-cells bool (num_cells,) or a (norient, ny, nx)
+    indicator.  ``mask``: (ny+1, nx+1) active-vertex bool.  The fine
+    operator is the row- and column-masked stencil (the bulk block); the
+    coarse ones are its Galerkin coarsenings, each masked where its center
+    block falls below 1e-12 of the fine scale.  The tables go to
+    ``device``, the card unless the caller asks for the CPU."""
+    from .stencil import orientation_offsets
+
+    nx, ny = grid.nx, grid.ny
+    levels = [_Level(ny + 1, nx + 1)]
+    while nx % 2 == 0 and ny % 2 == 0 and nx // 2 >= min_n and ny // 2 >= min_n:
+        nx //= 2
+        ny //= 2
+        levels.append(_Level(ny + 1, nx + 1))
+    fine = []
+    for mats, covered in contribs:
+        covered = np.asarray(covered)
+        ind = orientation_cell_masks(grid, covered.astype(bool)) if covered.ndim == 1 else covered.astype(np.float64)
+        fine.append((np.asarray(mats), ind))
+    Wint = cell_stencil_maps(fine, orientation_offsets(grid), vsz)
+    if mask is not None:
+        m0 = np.asarray(mask, bool)
+    else:
+        m0 = np.zeros((levels[0].R, levels[0].C), bool)
+        m0[1:-1, 1:-1] = np.abs(Wint[1, 1]).max(axis=(0, 1)) > 0.0
+    Wint = _mask_rows_cols(Wint, m0)
+    masks_np: List[np.ndarray] = [m0]
+    Ws, Dinvs = [], []
+    scale = max(1e-300, np.abs(Wint[1, 1]).max())
+    tens = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    for k, lv in enumerate(levels):
+        if k > 0:
+            Wint = galerkin_coarsen_stencil(Wint, lv.R, lv.C)
+            mk = np.zeros((lv.R, lv.C), bool)
+            mk[1:-1, 1:-1] = np.abs(Wint[1, 1]).max(axis=(0, 1)) > 1e-12 * scale
+            masks_np.append(mk)
+            Wint = _mask_rows_cols(Wint, mk)
+        Ws.append(tens(Wint))
+        Dinvs.append(tens(_var_diag_inv(Wint, masks_np[k])))
+    inv = _dense_var_coarse_pinv(Wint, masks_np[-1])
+    return LatticeVarMG(levels, Ws, Dinvs, tens(inv), vsz, dtype=dtype, masks=[tens(m) for m in masks_np], **kw)
 
 
 def lattice_cg(

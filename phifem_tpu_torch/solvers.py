@@ -1,5 +1,6 @@
-"""Linear solvers: matrix-free preconditioned CG / BiCGStab, a dense direct
-solve for small systems, and Dirichlet BC handling.
+"""Linear solvers: matrix-free preconditioned CG / BiCGStab (optionally
+deflated by a known null basis), a dense direct solve for small systems, a
+host sparse LU (SuperLU) for larger ones, and Dirichlet BC handling.
 
 Counterpart of :mod:`phifem_tpu.solvers`.  DoFs with a zero diagonal
 (touched by no active term) and Dirichlet DoFs get identity rows and a unit
@@ -10,7 +11,8 @@ package.  Vectors are dicts of per-field tensors.
 The Krylov loops are eager Python; each iteration reads one host value
 (the exit test).  Dots run in the working dtype (float64 for the outer
 solve), where the JAX package computes the recurrence's dots in float32.
-GMRES, deflation and the sparse direct path come with slice D.
+GMRES and flexible GMRES come with slice E (p-multigrid is their first
+user).
 """
 
 from __future__ import annotations
@@ -190,12 +192,18 @@ def _pbicgstab(matvec, b: Vec, x0: Vec, *, tol, atol, maxiter, M, dot=tree_dot):
     return xb, it, float(np.sqrt(rrb_f / max(bnorm2, 1e-300)))
 
 
-def _eq_context(op: Operator, bcs, precond):
-    """The symmetric-diagonally-equilibrated system the Krylov loop
-    solves.  Returns ``(matvec, active, dsqrt, dinv_sqrt, mv_eq, M)``:
-    ``mv_eq = D^-1/2 A D^-1/2`` and ``M = D^1/2 P D^1/2`` for a
-    preconditioner ``P ~ A^-1`` of the unscaled system (identity without
-    one: the scaled system has unit diagonal)."""
+def _eq_context(op: Operator, bcs, precond, defl=None):
+    """The symmetric-diagonally-equilibrated (and optionally deflated)
+    system the Krylov loop solves.  Returns ``(matvec, active, dsqrt,
+    dinv_sqrt, mv_eq, M, proj)``: ``mv_eq = D^-1/2 A D^-1/2`` and ``M =
+    D^1/2 P D^1/2`` for a preconditioner ``P ~ A^-1`` of the unscaled system
+    (identity without one: the scaled system has unit diagonal).
+
+    ``defl``: vectors spanning a known null space of the reduced operator.
+    Their equilibrated images ``D^1/2 v``, masked to the active DoFs and
+    orthonormalized (Gram-Schmidt in float64), are stacked into a ``(k,
+    n_flat)`` basis Q; then ``mv_eq = P A P + Q Q^T`` and ``M = P M P`` with
+    ``P = I - Q Q^T``, and ``proj`` applies P (None without ``defl``)."""
     matvec, diag, active = masked_operator(op, bcs)
     dsqrt = {
         k: torch.sqrt(torch.where(torch.abs(d) > 1e-30, torch.abs(d), 1.0))
@@ -214,7 +222,49 @@ def _eq_context(op: Operator, bcs, precond):
             z = precond({k: v * dsqrt[k] for k, v in r.items()})
             return {k: v * dsqrt[k] for k, v in z.items()}
 
-    return matvec, active, dsqrt, dinv_sqrt, mv_eq, M
+    if not defl:
+        return matvec, active, dsqrt, dinv_sqrt, mv_eq, M, None
+    ortho = []
+    for v in defl:
+        q = {k: torch.where(active[k], v[k].to(dsqrt[k]), 0.0) * dsqrt[k] for k in v}
+        for o in ortho:
+            q = tree_axpy(-tree_dot(o, q), o, q)
+        nrm = torch.clamp(torch.sqrt(tree_dot(q, q)), min=1e-300)
+        ortho.append({k: t / nrm for k, t in q.items()})
+    # the projections run on the stacked flat basis: two (k, n) products
+    # per application instead of k * fields separate dots
+    names = sorted(defl[0])
+    shapes = [ortho[0][k].shape for k in names]
+    sizes = [int(np.prod(sh)) for sh in shapes]
+
+    def fl(t: Vec) -> torch.Tensor:
+        return torch.cat([t[k].reshape(-1) for k in names])
+
+    def unfl(vf: torch.Tensor) -> Vec:
+        out, cur = {}, 0
+        for k, sh, sz in zip(names, shapes, sizes):
+            out[k] = vf[cur : cur + sz].reshape(sh)
+            cur += sz
+        return out
+
+    Q = torch.stack([fl(o) for o in ortho])  # (k, n_flat)
+
+    def proj(v: Vec) -> Vec:
+        vf = fl(v)
+        return unfl(vf - Q.T @ (Q @ vf))
+
+    mv_plain, M_plain = mv_eq, M
+
+    def mv_eq(y: Vec) -> Vec:
+        yf = fl(y)
+        c = Q @ yf
+        z = proj(mv_plain(unfl(yf - Q.T @ c)))
+        return unfl(fl(z) + Q.T @ c)  # identity on the deflated span
+
+    def M(r: Vec) -> Vec:
+        return proj(M_plain(proj(r)))
+
+    return matvec, active, dsqrt, dinv_sqrt, mv_eq, M, proj
 
 
 def solve(
@@ -227,45 +277,61 @@ def solve(
     maxiter: Optional[int] = None,
     x0: Optional[Vec] = None,
     precond: Optional[Callable] = None,
+    deflate: Optional[Tuple[Vec, ...]] = None,
 ) -> SolveResult:
     """Solve ``A x = b`` with preconditioned CG or BiCGStab on the
-    equilibrated, BC-reduced system, or (``method="dense"``, small systems)
-    by a host least-squares solve.  ``precond`` is a preconditioner of the
-    unscaled system (e.g. a :class:`phifem_tpu_torch.mg.VCycle`); the
-    reported residual is the equilibrated one, relative to the equilibrated
-    RHS."""
-    if method == "dense":
-        _, _, active = masked_operator(op, bcs)
-        return _dense_solve(op, lift_rhs(op, b, bcs, active), active)
-    runners = {"cg": _pcg, "bicgstab": _pbicgstab}
-    if method not in runners:
+    equilibrated, BC-reduced system, or directly: ``method="dense"`` (host
+    least squares, small systems) and ``method="sparse"`` (host SuperLU of
+    the active submatrix, cached on the operator).  ``precond`` is a
+    preconditioner of the unscaled system (e.g. a
+    :class:`phifem_tpu_torch.mg.VCycle`); the reported residual is the
+    equilibrated one, relative to the equilibrated RHS.
+
+    ``deflate``: vectors (dicts in the system's layout) spanning a known
+    null space of the reduced operator, e.g. the collective rigid modes of
+    S5.  The Krylov methods then solve ``P A P + Q Q^T`` (see
+    :func:`_eq_context`): the solution has no component along the basis and
+    the reported residual is the deflated one.  The sparse path solves the
+    bordered system ``[[A, Q], [Q^T, 0]]`` instead."""
+    if method not in ("cg", "bicgstab", "gmres", "fgmres", "dense", "sparse"):
+        raise ValueError(f"Unknown method {method!r}.")
+    if method in ("gmres", "fgmres"):
         raise NotImplementedError(
-            f"method={method!r} is not ported yet (ported: 'cg', 'bicgstab', "
-            "'dense'; ROADMAP slice D)"
+            f"method={method!r} is not ported yet: it comes with slice E (p-multigrid)"
         )
+    if method in ("dense", "sparse"):
+        matvec, _, active = masked_operator(op, bcs)
+        b_l = lift_rhs(op, b, bcs, active, raw_matvec=matvec.raw)
+        if method == "dense":
+            return _dense_solve(op, b_l, active)
+        return _sparse_solve(op, b_l, bcs, active, deflate)
+    runners = {"cg": _pcg, "bicgstab": _pbicgstab}
     if maxiter is None:
         maxiter = 25 * int(np.sqrt(op.system.num_dofs)) + 1000
-    matvec, active, dsqrt, dinv_sqrt, mv_eq, M = _eq_context(op, bcs, precond)
+    matvec, active, dsqrt, dinv_sqrt, mv_eq, M, proj = _eq_context(op, bcs, precond, deflate)
     b_l = lift_rhs(op, b, bcs, active, raw_matvec=matvec.raw)
     b_eq = {k: v * dinv_sqrt[k] for k, v in b_l.items()}
+    if proj is not None:
+        b_eq = proj(b_eq)
     if x0 is None:
         x0_eq = {k: torch.zeros_like(v) for k, v in b_eq.items()}
     else:
         x0_eq = {k: v * dsqrt[k] for k, v in x0.items()}
+        if proj is not None:
+            x0_eq = proj(x0_eq)
     x, it, rec = runners[method](mv_eq, b_eq, x0_eq, tol=tol, atol=atol, maxiter=maxiter, M=M)
     r = {k: b_eq[k] - v for k, v in mv_eq(x).items()}
     rel = float(torch.sqrt(tree_dot(r, r)) / torch.clamp(torch.sqrt(tree_dot(b_eq, b_eq)), min=1e-300))
+    if proj is not None:
+        x = proj(x)  # zero null-component gauge
     x = {k: v * dinv_sqrt[k] for k, v in x.items()}  # undo x = D^-1/2 y
     return SolveResult(
         x=x, residual=rel, iterations=it, converged=rel <= 10 * tol, recurrence=rec
     )
 
 
-def _dense_solve(op: Operator, b: Vec, active) -> SolveResult:
-    """Host least-squares solve of the masked dense system (minimum norm
-    on numerically null pivots, the reference's MUMPS null-pivot
-    handling).  Small systems only."""
-    A = op.to_dense()
+def _host_layout(op: Operator, b: Vec, active):
+    """Global flat host arrays ``(act, bv)`` of the active mask and the RHS."""
     off = op.system.offsets()
     n = op.system.num_dofs
     act = np.zeros(n, bool)
@@ -274,13 +340,93 @@ def _dense_solve(op: Operator, b: Vec, active) -> SolveResult:
         sl = slice(off[name], off[name] + s.num_dofs)
         act[sl] = np.broadcast_to(active[name].cpu().numpy(), s.dof_shape).reshape(-1)
         bv[sl] = b[name].cpu().numpy().reshape(-1)
+    return act, bv
+
+
+def _from_host(op: Operator, xv: np.ndarray) -> Vec:
+    off = op.system.offsets()
+    return {
+        name: s.grid._tensor(xv[off[name] : off[name] + s.num_dofs].reshape(s.dof_shape))
+        for name, s in op.system.fields.items()
+    }
+
+
+def _sparse_solve(op: Operator, b: Vec, bcs, active, deflate=None) -> SolveResult:
+    """Host sparse direct LU (SuperLU) of the reduced system, the analogue
+    of the reference's MUMPS LU at sizes where the dense path's O(n^2)
+    memory is out of reach.  Only the ACTIVE submatrix of
+    ``op.restricted_csr`` is factored (inactive rows are ``x = b``).  The
+    factorization is cached on the operator, keyed by its data version, the
+    BC objects and the deflation rank, so repeated right-hand sides reuse
+    it.  If COLAMD's fill-in overflows SuperLU's workspace, the factor is
+    retried with MMD on the symmetrized pattern.
+
+    ``deflate`` switches to the bordered system ``[[A, Q], [Q^T, 0]]`` (Q
+    the orthonormalized masked null basis): x is the zero-null-gauge
+    solution and the reported residual is the deflated one, as on the
+    Krylov path."""
+    import scipy.sparse as sp
+    from scipy.sparse.linalg import splu
+
+    n = op.system.num_dofs
+    off = op.system.offsets()
+    act, bv = _host_layout(op, b, active)
+    Q = None
+    if deflate:
+        Q = np.zeros((n, len(deflate)))
+        for j, m in enumerate(deflate):
+            for name, s in op.system.fields.items():
+                Q[off[name] : off[name] + s.num_dofs, j] = m[name].cpu().numpy().reshape(-1)
+        Q[~act] = 0.0
+        Q, _ = np.linalg.qr(Q)
+
+    key = (op.data_version, tuple(id(bc) for bc in bcs), len(deflate or ()))
+    cached = op.__dict__.get("_splu_cache")
+    if cached is None or cached[0] != key:
+        A, _ = op.restricted_csr({name: np.ones(s.dof_shape, bool) for name, s in op.system.fields.items()})
+        A = A.tocoo()
+        keep = act[A.row] & act[A.col]
+        idx = np.where(act)[0]
+        ren = np.full(n, -1, np.int64)
+        ren[idx] = np.arange(len(idx))
+        Ared = sp.csc_matrix((A.data[keep], (ren[A.row[keep]], ren[A.col[keep]])), shape=(len(idx),) * 2)
+        Afac = Ared
+        if Q is not None:
+            Qa = sp.csc_matrix(Q[idx])
+            Afac = sp.bmat([[Ared, Qa], [Qa.T, None]], format="csc")
+        try:
+            lu = splu(Afac)
+        except (RuntimeError, MemoryError):
+            lu = splu(Afac, permc_spec="MMD_AT_PLUS_A", options={"SymmetricMode": True})
+        # the bc objects stay referenced so the id()-based key stays unique
+        cached = op._splu_cache = (key, lu, Ared, idx, tuple(bcs))
+    _, lu, Ared, idx = cached[:4]
+
+    ba = bv[idx]
+    xv = bv.copy()  # inactive identity rows: x = b
+    if Q is None:
+        xa = lu.solve(ba)
+        r = np.linalg.norm(Ared @ xa - ba) / max(np.linalg.norm(ba), 1e-300)
+    else:
+        Qa = Q[idx]  # orthonormal: Q has no mass on inactive rows
+        xa = lu.solve(np.concatenate([ba, np.zeros(Qa.shape[1])]))[: len(idx)]
+        rv = ba - Ared @ xa
+        rv -= Qa @ (Qa.T @ rv)  # deflated residual (Krylov-path semantics)
+        bd = ba - Qa @ (Qa.T @ ba)
+        r = np.linalg.norm(rv) / max(np.linalg.norm(bd), 1e-300)
+    xv[idx] = xa
+    return SolveResult(x=_from_host(op, xv), residual=float(r), iterations=1, converged=True, recurrence=float(r))
+
+
+def _dense_solve(op: Operator, b: Vec, active) -> SolveResult:
+    """Host least-squares solve of the masked dense system (minimum norm
+    on numerically null pivots, the reference's MUMPS null-pivot
+    handling).  Small systems only."""
+    A = op.to_dense()
+    act, bv = _host_layout(op, b, active)
     A[~act, :] = 0.0
     A[:, ~act] = 0.0
     A[~act, ~act] = 1.0
     xv, *_ = np.linalg.lstsq(A, bv, rcond=None)
-    x = {}
-    for name, s in op.system.fields.items():
-        sl = slice(off[name], off[name] + s.num_dofs)
-        x[name] = s.grid._tensor(xv[sl].reshape(s.dof_shape))
     r = float(np.linalg.norm(A @ xv - bv) / max(np.linalg.norm(bv), 1e-300))
-    return SolveResult(x=x, residual=r, iterations=1, converged=True, recurrence=r)
+    return SolveResult(x=_from_host(op, xv), residual=r, iterations=1, converged=True, recurrence=r)

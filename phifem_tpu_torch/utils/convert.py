@@ -12,7 +12,7 @@ import torch
 from ..assembly import Batch, Operator, System
 from ..grid import Grid
 from ..mg import TABLE_DTYPE, VCycle, ras_owner
-from ..ops.lattice import LatticeMG, _Level
+from ..ops.lattice import LatticeMG, LatticeVarMG, _Level
 from ..ops.stencil import StencilCellBatch
 from ..ops.taps import TapOperator, build_tap_operator
 from ..spaces import Function, Space
@@ -22,6 +22,8 @@ __all__ = [
     "stencil_batch_from_numpy",
     "operator_from_numpy",
     "lattice_mg_from_numpy",
+    "lattice_var_mg_from_numpy",
+    "coarse_correction_from_numpy",
     "function_from_numpy",
     "tags_from_numpy",
     "batch_from_numpy",
@@ -75,6 +77,47 @@ def lattice_mg_from_numpy(
         else [torch.tensor(np.asarray(m), dtype=dtype, device=device) for m in masks],
         **kw,
     )
+
+
+def lattice_var_mg_from_numpy(
+    levels: Sequence[Tuple[int, int]],
+    Ws: Sequence[np.ndarray],
+    Dinvs: Sequence[np.ndarray],
+    coarse_inv: np.ndarray,
+    vsz: int,
+    masks: Optional[Sequence[np.ndarray]],
+    dtype: torch.dtype,
+    device="cuda",
+    **kw,
+) -> LatticeVarMG:
+    """The variable-stencil block cycle from another implementation's
+    tables: ``levels`` ``(R, C)`` fine to coarse, per level ``Ws`` (3, 3,
+    vsz, vsz, R-2, C-2) and ``Dinvs`` (vsz, vsz, R-2, C-2), the coarsest
+    pseudo-inverse and the (R, C) masks, on ``device`` (the card unless the
+    caller asks for the CPU)."""
+    t = lambda a: torch.tensor(np.asarray(a), dtype=dtype, device=device)
+    return LatticeVarMG(
+        [_Level(int(R), int(C)) for R, C in levels],
+        [t(w) for w in Ws],
+        [t(d) for d in Dinvs],
+        t(coarse_inv),
+        int(vsz),
+        dtype=dtype,
+        masks=None if masks is None else [t(m) for m in masks],
+        **kw,
+    )
+
+
+def coarse_correction_from_numpy(vc: VCycle, flat_meta, Z: np.ndarray, AZ: np.ndarray, Ginv: np.ndarray,
+                                 device="cuda") -> VCycle:
+    """Set the rank-k coarse correction of ``vc`` (``coarse_Z``,
+    ``coarse_AZ``, ``coarse_Ginv``) from numpy arrays, in float64 on
+    ``device``; ``flat_meta`` is ``(names, shapes, sizes)`` of the flat
+    layout."""
+    vc._flat_meta = tuple(list(m) for m in flat_meta)
+    t = lambda a: torch.tensor(np.asarray(a), dtype=torch.float64, device=device)
+    vc.coarse_Z, vc.coarse_AZ, vc.coarse_Ginv = t(Z), t(AZ), t(Ginv)
+    return vc
 
 
 def function_from_numpy(space: Space, data: np.ndarray) -> Function:

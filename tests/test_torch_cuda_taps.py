@@ -4,9 +4,10 @@ version.
 The card tests carry the ``cuda`` marker and skip where there is no CUDA
 device; run them on a machine with an NVIDIA Hopper card with
 ``python -m pytest tests/test_torch_cuda_taps.py -q``.  No JAX here.
-Tolerances relative to max|y|: 1e-13 in float64, 1e-5 in float32 (the
-kernel sums a thread's taps in another order than the plain version's
-tap-by-tap accumulation, with FMA).  Outputs on tiles without an active
+Block pairs of 1, 2 and 4 channels (tensor P1) and the tap forms of S1,
+S4 and S5.  Tolerances relative to max|y|: 1e-13 in float64, 1e-5 in
+float32 (the kernel sums a thread's taps in another order than the plain
+version's tap-by-tap accumulation, with FMA).  Outputs on tiles without an active
 tap are exactly zero, and the kernel is deterministic bit for bit.
 """
 
@@ -16,7 +17,7 @@ import torch
 
 import phifem_tpu_torch as pt
 from phifem_tpu_torch.ops import cuda_taps
-from torch_tap_cases import random_tap_operator, sparse_tap_operator
+from torch_tap_cases import FOUR_CHANNEL_PAIRS, random_tap_operator, sparse_tap_operator
 
 TOL = {torch.float64: 1e-13, torch.float32: 1e-5}
 
@@ -47,10 +48,16 @@ def _empty_tiles(top):
 
 
 def _scheme_tap_form(name, device):
+    from phifem_tpu_torch.models import elasticity_disk as disk
     from phifem_tpu_torch.models import flower
     from phifem_tpu_torch.models import robin_square as rsq
 
-    if name == "s1":
+    if name.startswith("s5"):
+        n = int(name[3:])
+        g = pt.Grid(n, n, ((-1.5, -1.5), (1.5, 1.5)), "triangle", device=device)
+        s = pt.InterfaceElasticity(g, E_in=disk.E_in, nu_in=disk.nu_in, E_out=disk.E_out, nu_out=disk.nu_out)
+        s.setup(disk.levelset, disk.source_term, disk.exact_solution)
+    elif name == "s1":
         g = pt.Grid(64, 64, ((-4.5, -4.5), (4.5, 4.5)), "triangle", device=device)
         s = pt.WeakDirichletPoisson(g, mode="bg", detection_degree=1, single_layer_cut=True)
         s.setup(flower.levelset, flower.source_term, detection_levelset=flower.detection_levelset)
@@ -149,6 +156,32 @@ def test_kernel_matches_plain_on_sparse_support(cuda, ct, dt):
     target block without taps: zeros there, the plain version elsewhere."""
     top, x = sparse_tap_operator(37, 23, ct, dt, cuda)
     _check_against_plain(top, top.W, x, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("case", [c[0] for c in FOUR_CHANNEL_PAIRS])
+def test_kernel_matches_plain_four_channels(cuda, case, dt):
+    """Block pairs with tensor P1 (4-channel) blocks, every offset in
+    [-2, 2]^2, ragged 37 x 23 lattices."""
+    _, fields, chans = next(c for c in FOUR_CHANNEL_PAIRS if c[0] == case)
+    top, x = random_tap_operator(37, 23, "triangle", dt, cuda, fields=fields, chans=chans)
+    _check_against_plain(top, top.W, x, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("name", ["s5_16", "s5_33"], ids=["S5-n16", "S5-n33"])
+def test_kernel_matches_plain_on_s5(cuda, name, dt):
+    """S5's own tap form (five blocks of 2 / 2 / 4 / 4 / 2 channels, pad 2;
+    n=33 is odd and not a tile multiple); the same bits on two calls."""
+    top = _scheme_tap_form(name, cuda)
+    assert top.blk_ch == [2, 2, 4, 4, 2]
+    W, x = top.W.to(dt), _random_x(top, dt, cuda, seed=7)
+    y1 = _check_against_plain(top, W, x, dt)
+    y2 = cuda_taps.tap_matvec(top, W, x)
+    for k in y1:
+        assert torch.equal(y1[k], y2[k]), k
 
 
 @pytest.mark.cuda

@@ -161,6 +161,20 @@ def test_tile_traversal_equals_plain_on_sparse_support(ct):
     assert cuda_taps.active_tile_fraction(top) < 0.5
 
 
+@pytest.mark.parametrize("case", ["4x4", "4x2", "2x4", "mixed"])
+def test_tile_traversal_equals_plain_four_channels(case):
+    """The kernel's traversal on operators with 4-channel blocks (37 x 23:
+    ragged tiles), against the plain matvec."""
+    from torch_tap_cases import FOUR_CHANNEL_PAIRS
+
+    _, fields, chans = next(c for c in FOUR_CHANNEL_PAIRS if c[0] == case)
+    top, x = random_tap_operator(37, 23, "triangle", torch.float64, "cpu", fields=fields, chans=chans)
+    y = tile_traversal(top, x)
+    ref = cuda_taps.tap_matvec_ref(top, top.W, x)
+    for k in ref:
+        assert _rel(y[k], ref[k]) <= 1e-13, k
+
+
 def test_tile_table_without_support_lists_every_tap():
     top, x = random_tap_operator(13, 9, "triangle", torch.float64, "cpu")
     base, ptr, tile_taps = cuda_taps.tile_table(top)

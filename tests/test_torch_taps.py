@@ -208,6 +208,21 @@ def test_plain_matvec_reads_zero_outside_the_source(ct):
         assert rel(y[k], ref[k]) <= 1e-12, k
 
 
+@pytest.mark.parametrize("case", ["4x4", "4x2", "2x4", "mixed"])
+def test_plain_matvec_four_channels(case):
+    """The plain tap matvec on block pairs with tensor P1 (4-channel)
+    blocks, against the direct tap sum (1e-12 relative)."""
+    from torch_tap_cases import FOUR_CHANNEL_PAIRS, direct_tap_sum, random_tap_operator
+
+    _, fields, chans = next(c for c in FOUR_CHANNEL_PAIRS if c[0] == case)
+    top, x = random_tap_operator(7, 5, "triangle", torch.float64, "cpu", seed=3, fields=fields, chans=chans)
+    assert 4 in top.blk_ch
+    y = cuda_taps.tap_matvec(top, top.W, x)
+    ref = direct_tap_sum(top, x)
+    for k in ref:
+        assert rel(y[k], ref[k]) <= 1e-12, k
+
+
 def test_static_batch_taps_match_jax():
     """A geometry-uniform term on a vector P1 field is a static (never
     rebuilt) batch: its weights go to the static part, pairs that are zero

@@ -1,6 +1,7 @@
 """Synthetic tap operators for the tap-matvec tests: every block pair of a
-(u: P1, y: vector P1, p: DG0) system at every offset in [-2, 2]^2, with
-random weights, and a direct numpy evaluation of the tap sum.  No JAX."""
+(u: P1, y: vector P1, p: DG0, t: tensor P1 of 4 channels) system at every
+offset in [-2, 2]^2, with random weights, and a direct numpy evaluation of
+the tap sum.  No JAX."""
 
 import numpy as np
 import torch
@@ -10,12 +11,14 @@ from phifem_tpu_torch.assembly import System
 from phifem_tpu_torch.ops.taps import TapOperator, _field_specs
 
 
-def random_tap_operator(nx, ny, cell_type, dtype, device, seed=0, fields="uyp"):
+def random_tap_operator(nx, ny, cell_type, dtype, device, seed=0, fields="uyp", chans=None):
     """A :class:`TapOperator` over the chosen fields of the mixed system,
-    with a tap for every (target, source, dr, dc), random W, and a random
-    x: ``(top, x)``."""
+    with a tap for every (target, source, dr, dc) (only the pairs of
+    (target, source) channel counts in ``chans`` where given), random W,
+    and a random x: ``(top, x)``."""
     g = pt.Grid(nx, ny, ((-1.0, -1.0), (1.0, 1.0)), cell_type, device=device, dtype=dtype)
-    spaces = {"u": pt.Space.lagrange(g, 1), "y": pt.Space.lagrange(g, 1, (2,)), "p": pt.Space.dg0(g)}
+    spaces = {"u": pt.Space.lagrange(g, 1), "y": pt.Space.lagrange(g, 1, (2,)), "p": pt.Space.dg0(g),
+              "t": pt.Space.lagrange(g, 1, (2, 2))}
     system = System({f: spaces[f] for f in fields})
     specs = _field_specs(system, g)
     shapes, ch = [], []
@@ -23,7 +26,8 @@ def random_tap_operator(nx, ny, cell_type, dtype, device, seed=0, fields="uyp"):
         shapes += [sp.shape] * sp.nblocks
         ch += [sp.vsz] * sp.nblocks
     nb = len(shapes)
-    taps = [(bi, bj, dr, dc) for bi in range(nb) for bj in range(nb) for dr in range(-2, 3) for dc in range(-2, 3)]
+    taps = [(bi, bj, dr, dc) for bi in range(nb) for bj in range(nb) for dr in range(-2, 3) for dc in range(-2, 3)
+            if chans is None or (ch[bi], ch[bj]) in chans]
     sizes = [shapes[bi][0] * shapes[bi][1] * ch[bi] * ch[bj] for bi, bj, _, _ in taps]
     offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
     rng = np.random.default_rng(seed)
@@ -32,6 +36,11 @@ def random_tap_operator(nx, ny, cell_type, dtype, device, seed=0, fields="uyp"):
     x = {n: torch.as_tensor(rng.standard_normal(s.dof_shape), dtype=dtype, device=device)
          for n, s in system.fields.items()}
     return top, x
+
+
+#: block pairs at 4 channels: (case id, fields, (target, source) channels)
+FOUR_CHANNEL_PAIRS = [("4x4", "t", {(4, 4)}), ("4x2", "ty", {(4, 2)}), ("2x4", "ty", {(2, 4)}),
+                      ("mixed", "uytp", None)]
 
 
 def direct_tap_sum(top, x):
