@@ -43,7 +43,18 @@ assemble -> solve:
   BiCGStab with the flat ``lattice_preconditioner(coupled=False)`` at
   n=120 and with the default coupled hierarchy at n=64; and the tap kernel
   at 4 channels on S5's tap form at n=512 (tag and assemble only), timed
-  as the S1 and S4 tap forms are.
+  as the S1 and S4 tap forms are;
+* slice E: box Poisson's ``solve_ir`` at n=1024 (float32 MG-CG corrections
+  in a float64 loop, counted in the box-Poisson path); left-preconditioned
+  GMRES on S1 n=200, held to the BiCGStab solution; S1 on the flower at
+  degree 2 and 3 (P2 / P3 level set) with ``p_multigrid_preconditioner()``
+  and flexible GMRES to 1e-8: P2 and P3 at n=200 (321,602 / 722,402 DoFs)
+  against the CPU lane, P2 at n=800 (5,126,402 DoFs) with the parts of
+  its set-up timed and, after its launches are read, two iterations
+  traced; Q3 on quadrilaterals (the
+  circle of ``tests/test_schemes.py``) at n=32 and 64, its L2 error falling
+  by more than 10; every count exact.  The degree >= 2 operator runs its
+  entity batches; both kernels run in its P1 twin's cycle.
 
 Every check raises; the script exits non-zero without a result when there
 is no card or no checkout.  The line before the last is a JSON record of
@@ -107,9 +118,18 @@ S5_TOL = 1e-8
 # the reference's record at level 3 (docs/s5_param1_results.csv; JAX's
 # deflated BiCGStab, another null gauge than the direct solve's, hence 5%)
 S5_REF_L2, S5_REF_H10 = 6.694107748208591e-3, 0.24532890594543272
-# the flat preconditioner's iteration cap: 1.5 x JAX's 25 at n=128
-# (docs/s5_preconditioner.md), rounded up
-S5_FLAT_MAX_IT = 38
+# the port's iteration counts on the H100: flat preconditioner at n=120
+# (JAX 25 at n=128, docs/s5_preconditioner.md), coupled hierarchy at n=64
+S5_FLAT_IT, S5_COUPLED_IT = 27, 13
+# slice E: S1 on the demo's flower at degree 2 and 3 (P2 / P3 level set),
+# p-multigrid + flexible GMRES to S1_TOL, in whole restart cycles of 20; the
+# counts are the port's own on the H100 and its CPU lane's (JAX converges in
+# one cycle, 20, at the sizes it ran: n <= 80)
+N_PMG, N_PMG_LARGE = 200, 800
+S1_P2_IT, S1_P3_IT, S1_P2_LARGE_IT = 40, 80, 40
+# Q3 on the circle of tests/test_schemes.py, fgmres to SCHEME_TOL, n=32 / 64
+N_Q3, Q3_IT = (32, 64), (20, 80)
+N_IR = 1024  # solve_ir's box Poisson (1,050,625 DoFs), to TOL in <= 6 rounds
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense, outside
 # the tensor cores): the least time of a kernel is the larger of its bytes
 # over the memory rate and its flops over the rate of its value type
@@ -554,8 +574,8 @@ def _tap_kernel_check(ct, top, label: str) -> dict:
     return out
 
 
-def _problem(pt):
-    g = pt.Grid(N, N, ((0.0, 0.0), (1.0, 1.0)), pt.CellType.triangle, device="cuda")
+def _problem(pt, n: int = N):
+    g = pt.Grid(n, n, ((0.0, 0.0), (1.0, 1.0)), pt.CellType.triangle, device="cuda")
     uex = lambda x: torch.sin(math.pi * x[..., 0]) * torch.sin(math.pi * x[..., 1])
     f = lambda x: 2.0 * math.pi**2 * uex(x)
     return g, uex, f
@@ -612,12 +632,14 @@ def phase_lattice(pt, s, r_gen):
         raise AssertionError(f"lattice and generic solutions differ: {diff}")
 
 
-def _flower_s1(pt, n: int, device: str):
-    """bench.py's S1 flower scheme at n x n, set up (tagged) on ``device``."""
+def _flower_s1(pt, n: int, device: str, degree: int = 1):
+    """bench.py's S1 flower scheme at n x n, set up (tagged) on ``device``;
+    at ``degree`` >= 2 with the level set of the same degree."""
     from phifem_tpu_torch.models import flower
 
     g = pt.Grid(n, n, FLOWER_BOX, pt.CellType.triangle, device=device)
-    s = pt.WeakDirichletPoisson(g, mode="bg", detection_degree=1, single_layer_cut=True)
+    s = pt.WeakDirichletPoisson(g, mode="bg", detection_degree=1, single_layer_cut=True,
+                                primal_degree=degree, levelset_degree=degree)
     return s.setup(flower.levelset, flower.source_term, detection_levelset=flower.detection_levelset)
 
 
@@ -656,21 +678,27 @@ def _check_tags(s, h, detection_levelset=None, label="s1") -> None:
           f"(allowed only at knife-edge cells, |phi| <= {KNIFE_EDGE:.0e})")
 
 
-def _against_cpu(s, h) -> dict:
+def _against_cpu(s, h, taps: bool = True) -> dict:
     """Largest relative differences of the card's load vector, of its
-    operator (entity batches) and of its tap form (the tap kernel) applied
-    to a seeded random x, from the CPU lane's operator."""
+    operator (entity batches) and, with ``taps`` (degree 1), of its tap
+    form (the tap kernel) applied to a seeded random x, from the CPU lane's
+    operator."""
     rng = np.random.default_rng(SEED)
     x = {k: torch.as_tensor(rng.standard_normal(v.shape)) for k, v in h.b.items()}
     xc = {k: v.to(DEVICE) for k, v in x.items()}
     yc = s.op.matvec(xc)
-    yt = s.op.lattice_form().make_matvec(s.op)(xc)
     yh = h.op.matvec(x)
-    return {
+    errs = {
         "b": max(_rel(s.b[k], h.b[k]) for k in h.b),
         "matvec": max(_rel(yc[k], yh[k]) for k in yh),
-        "tap_matvec": max(_rel(yt[k], yh[k]) for k in yh),
     }
+    if taps:
+        top = s.op.lattice_form()
+        if top is None:
+            raise AssertionError("the degree-1 operator has no tap form")
+        yt = top.make_matvec(s.op)(xc)
+        errs["tap_matvec"] = max(_rel(yt[k], yh[k]) for k in yh)
+    return errs
 
 
 def _hold(label: str, errs: dict, tol_u: float = 1e-6) -> None:
@@ -737,7 +765,7 @@ def phase_s1_small(pt, cs) -> dict:
                 f"S1 n={N_S1} solve: recurrence {res.recurrence}, {res.iterations} iterations")
     if counts["masked"] <= 0:
         raise AssertionError(f"S1 n={N_S1} never launched the masked stencil kernel")
-    return counts
+    return counts, s, vc, r
 
 
 def phase_s1_large(pt, cs):
@@ -1038,8 +1066,8 @@ def phase_s5_flat(pt, cs, s, e_direct) -> dict:
           f"{e['l2']:.4e}, H10 {e['h10']:.4f} (direct {e_direct['l2']:.4e}, {e_direct['h10']:.4f}); "
           f"launches {counts}")
     for res in (r, r2):
-        if not (res.converged and res.iterations <= S5_FLAT_MAX_IT):
-            raise AssertionError(f"{label}: {res.iterations} it (cap {S5_FLAT_MAX_IT}), relres {res.residual}")
+        if not (res.converged and res.iterations == S5_FLAT_IT):
+            raise AssertionError(f"{label}: {res.iterations} it (not {S5_FLAT_IT}), relres {res.residual}")
     if not _within(e, e_direct):
         raise AssertionError(f"{label} errors {e} not within 5% of the direct solve's {e_direct}")
     return counts
@@ -1063,8 +1091,8 @@ def phase_s5_coupled(pt, cs) -> dict:
           f"relres {r.residual:.3e}, cold {t_cold:.3f} s, warm {t_warm:.3f} s ({r2.iterations} it); "
           f"relative L2 {e['l2']:.4e}, H10 {e['h10']:.4f}; launches {counts}")
     for res in (r, r2):
-        if not res.converged:
-            raise AssertionError(f"{label}: did not converge ({res.iterations} it, relres {res.residual})")
+        if not (res.converged and res.iterations == S5_COUPLED_IT):
+            raise AssertionError(f"{label}: {res.iterations} it (not {S5_COUPLED_IT}), relres {res.residual}")
     return counts
 
 
@@ -1081,6 +1109,157 @@ def phase_s5_taps(pt, ct) -> dict:
           f"{nw * 8 / 1e9:.2f} GB in float64, {nw * 4 / 1e9:.2f} GB more in float32 for the check); "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return _tap_kernel_check(ct, top, f"s5 n={N_S5_TAPS}")
+
+
+def phase_ir(pt) -> None:
+    """Mixed-precision iterative refinement on box Poisson at n=N_IR:
+    float32 MG-preconditioned CG corrections (every float32 matvec through
+    the stencil kernel) in a float64 residual loop, to TOL in <= 6 rounds."""
+    g, uex, f = _problem(pt, N_IR)
+    s = pt.BoxPoisson(g).setup(f).assemble()
+    vc, t_mg = _sync_time(s.mg_preconditioner, dtype=torch.float32)
+    r0, t_cold = _sync_time(s.solve_ir, tol=TOL, precond=vc)
+    r, t_warm = _sync_time(s.solve_ir, tol=TOL, precond=vc)
+    err = float((r.x["u"] - pt.interpolate(uex, s.V).data).abs().max())
+    h = 1.0 / N_IR
+    print(f"[solve_ir] n={N_IR} ndofs={s.system.num_dofs}: mg_preconditioner(float32) {t_mg:.3f} s; "
+          f"{r.iterations} rounds (cold {r0.iterations}), relres {r.residual:.3e}, cold {t_cold:.3f} s, "
+          f"warm {t_warm:.4f} s; max nodal err {err:.3e} (5h^2 {5 * h * h:.3e})")
+    for res in (r0, r):
+        if not (res.converged and res.residual <= TOL and res.iterations <= 6):
+            raise AssertionError(f"solve_ir n={N_IR}: {res.iterations} rounds, relres {res.residual}")
+    if err > 5 * h * h:
+        raise AssertionError(f"solve_ir error {err} > 5h^2")
+
+
+def phase_gmres(pt, cs, s, vc, r_bicg) -> dict:
+    """Left-preconditioned restarted GMRES (restart 50, JAX's contract) on
+    the S1 n=N_S1 phase's scheme and lattice preconditioner, held to that
+    phase's BiCGStab solution."""
+    kw = dict(method="gmres", tol=S1_TOL, precond=vc)
+    r0, t_cold = _sync_time(s.solve, **kw)
+    r, t_warm = _sync_time(s.solve, **kw)
+    counts = _counts(cs)
+    diff = _rel(r.x["u"], r_bicg.x["u"])
+    print(f"[s1 n={N_S1} gmres] tol {S1_TOL:.0e}: iterations {r.iterations} (not reported, as in JAX), "
+          f"||M r|| / ||b|| {r.recurrence:.3e}, true relres {r.residual:.3e}, cold {t_cold:.3f} s, warm "
+          f"{t_warm:.4f} s; max|u_gmres - u_bicgstab| / max|u_bicgstab| {diff:.3e} (tol 1e-6); launches "
+          f"{counts}")
+    for res in (r0, r):
+        if not (res.iterations == -1 and res.converged and res.recurrence <= S1_TOL):
+            raise AssertionError(f"S1 gmres: {res.iterations}, recurrence {res.recurrence}, relres {res.residual}")
+    if diff > 1e-6:
+        raise AssertionError(f"S1 gmres and BiCGStab solutions differ: {diff}")
+    return counts
+
+
+def _trace_report(label: str, kernels: dict, wall: float, iters: int, top: int = 12) -> None:
+    """Print a device trace (``{kernel: (launches, device ms)}``, as
+    :func:`_device_kernels` gives it) of ``iters`` fgmres iterations that
+    took ``wall`` seconds unprofiled: kernels per iteration, device busy
+    share of the wall, the two kernels' device time, the top kernels."""
+    busy = sum(t for _, t in kernels.values())
+    count = sum(c for c, _ in kernels.values())
+    named = lambda key: sum(t for k, (_, t) in kernels.items() if key in k)
+    print(f"[{label} profile] {iters} fgmres iterations, wall {wall:.3f} s unprofiled: {count} kernels "
+          f"({count / max(iters, 1):.0f} per fgmres iteration), device busy {busy:.1f} ms = "
+          f"{busy / 1e3 / wall:.1%} of the wall; stencil kernel {named('stencil_matvec_kernel'):.2f} ms, tap "
+          f"kernel {named('tap_matvec_kernel'):.2f} ms; top kernels by device time:")
+    for k, (c, t) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:top]:
+        print(f"    {k[:90]:90s} x{c:8d} {t:9.2f} ms")
+
+
+def _profile_steps(s, vc, label: str, steps: int = 2) -> None:
+    """A device-only ``torch.profiler`` trace of ``steps`` Arnoldi steps of
+    the flexible GMRES that ``s.solve(method="fgmres")`` runs (its
+    equilibrated operator and p-MG; one cycle of ``restart=steps``).  A
+    whole solve launches over a million kernels, whose trace takes minutes
+    to read back (``scripts/profile_torch_pmg.py`` traces one)."""
+    from phifem_tpu_torch.solvers import _eq_context, _pfgmres, lift_rhs
+
+    matvec, active, _, dinv_sqrt, mv_eq, M, _ = _eq_context(s.op, (), vc)
+    b = lift_rhs(s.op, s.b, (), active, raw_matvec=matvec.raw)
+    b_eq = {k: v * dinv_sqrt[k] for k, v in b.items()}
+    x0 = {k: torch.zeros_like(v) for k, v in b_eq.items()}
+    run = lambda: _pfgmres(mv_eq, b_eq, x0, tol=0.0, atol=0.0, maxiter=steps, M=M, restart=steps)
+    _, wall = _sync_time(run)
+    _trace_report(label, _device_kernels(run, 1), wall, steps)
+
+
+def phase_pmg(pt, cs, degree: int, n: int, expect_it, cpu: str = "", trace: bool = False) -> dict:
+    """S1 on the demo's flower at ``degree`` (P2 / P3 level set) and n x n:
+    ``p_multigrid_preconditioner()`` + fgmres to S1_TOL in exactly
+    ``expect_it`` iterations, a cold and a warm solve.  ``cpu="solve"``:
+    held against the CPU lane (tags, b, one matvec, u); ``cpu="operator"``:
+    tags, b and one matvec only.  ``trace``: two Arnoldi steps traced after
+    the path's launches are read."""
+    label = f"s1 P{degree} n={n}"
+    torch.cuda.reset_peak_memory_stats()
+    s, t_tag = _sync_time(_flower_s1, pt, n, DEVICE, degree)
+    _, t_asm = _sync_time(s.assemble)
+    vc, t_pre = _sync_time(s.p_multigrid_preconditioner)
+    kw = dict(method="fgmres", tol=S1_TOL, maxiter=400, precond=vc)
+    r0, t_cold = _sync_time(s.solve, **kw)
+    r, t_warm = _sync_time(s.solve, **kw)
+    counts = _counts(cs)  # the path's own launches, before the trace and the CPU-lane check
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[{label}] ndofs={s.system.num_dofs} (P1 twin {2 * s.grid.num_vertices}): tag {t_tag:.3f} s, "
+          f"assemble {t_asm:.3f} s, p_multigrid_preconditioner() {t_pre:.3f} s ("
+          + ", ".join(f"{k} {v:.3f} s" for k, v in vc.setup_seconds.items()) + f"; {_band(vc)}); fgmres tol "
+          f"{S1_TOL:.0e}: cold {t_cold:.3f} s ({r0.iterations} it), warm {t_warm:.3f} s, {r.iterations} it, "
+          f"recurrence relres {r.recurrence:.3e}, true relres {r.residual:.3e}, "
+          f"{s.system.num_dofs / t_warm / 1e6:.3f} MDoF/s; peak device memory {peak:.2f} GiB; launches {counts}")
+    if trace:
+        _profile_steps(s, vc, label)
+    if cpu:
+        t0 = time.perf_counter()
+        h = _flower_s1(pt, n, "cpu", degree).assemble()
+        _check_tags(s, h, label=f"s1 P{degree}")
+        errs = _against_cpu(s, h, taps=False)
+        if cpu == "solve":
+            rh = h.solve(**{**kw, "precond": h.p_multigrid_preconditioner()})
+            errs["u"] = _rel(r.x["u"], rh.x["u"])
+            print(f"[{label}] CPU solve {rh.iterations} it, relres {rh.residual:.3e}")
+        print(f"[{label}] CPU lane {time.perf_counter() - t0:.1f} s")
+        _hold(label, errs)
+    for res in (r0, r):
+        if not (res.converged and res.recurrence <= S1_TOL and res.iterations == expect_it):
+            raise AssertionError(f"{label}: {res.iterations} it (not {expect_it}), recurrence {res.recurrence}, "
+                                 f"relres {res.residual}")
+    return counts
+
+
+def phase_q3(pt, cs) -> dict:
+    """Q3 on quadrilaterals, the circle problem of tests/test_schemes.py
+    (u = cos x e^{y/2}, P3 level set), p-MG + fgmres to 1e-10 at n=32 and
+    64 in exactly Q3_IT iterations: L2(32) / L2(64) > 10 (O(h^4))."""
+    phi = lambda x: x[..., 0] ** 2 + x[..., 1] ** 2 - 1.0
+    uex = lambda x: torch.cos(x[..., 0]) * torch.exp(x[..., 1] / 2.0)
+    errs = []
+    torch.cuda.reset_peak_memory_stats()
+    for n, it in zip(N_Q3, Q3_IT):
+        g = pt.Grid(n, n, ((-1.5, -1.5), (1.5, 1.5)), pt.CellType.quadrilateral, device=DEVICE)
+        s = pt.WeakDirichletPoisson(g, mode="bg", primal_degree=3, levelset_degree=3)
+        _, t_build = _sync_time(lambda: s.setup(phi, lambda x: 0.75 * uex(x), u_D=uex).assemble())
+        vc, t_pre = _sync_time(s.p_multigrid_preconditioner)
+        kw = dict(method="fgmres", tol=SCHEME_TOL, maxiter=400, precond=vc)
+        r0, t_cold = _sync_time(s.solve, **kw)
+        r, t_warm = _sync_time(s.solve, **kw)
+        e = s.l2_h1_errors(s.u_h, uex, region=(1, 2))
+        errs.append(e["l2"])
+        print(f"[s1 Q3 n={n}] ndofs={s.system.num_dofs}: setup + assemble {t_build:.3f} s, "
+              f"p_multigrid_preconditioner() {t_pre:.3f} s ({_band(vc)}); fgmres tol {SCHEME_TOL:.0e}: cold "
+              f"{t_cold:.3f} s ({r0.iterations} it), warm {t_warm:.3f} s, {r.iterations} it, recurrence relres "
+              f"{r.recurrence:.3e}, true relres {r.residual:.3e}; relative L2 {e['l2']:.4e}, H10 {e['h10']:.4e}")
+        for res in (r0, r):
+            if not (res.converged and res.recurrence <= SCHEME_TOL and res.iterations == it):
+                raise AssertionError(f"S1 Q3 n={n}: {res.iterations} it (not {it}), recurrence {res.recurrence}")
+    counts = _counts(cs)
+    print(f"[s1 Q3] L2({N_Q3[0]}) / L2({N_Q3[1]}) = {errs[0] / errs[1]:.2f} (> 10: O(h^4) is 16); peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {counts}")
+    if not errs[0] / errs[1] > 10.0:
+        raise AssertionError(f"Q3 convergence rate: {errs}")
+    return counts
 
 
 def main() -> int:
@@ -1110,6 +1289,8 @@ def main() -> int:
     _reset(cs)
     s, r_gen = phase_generic(pt)
     phase_lattice(pt, s, r_gen)
+    del s, r_gen
+    phase_ir(pt)
     paths["box Poisson"] = _counts(cs)
     # how many of the path's stencil launches run at the full lattice, how
     # many on the multigrid's coarse levels
@@ -1117,9 +1298,11 @@ def main() -> int:
     print(f"[box Poisson] stencil launches by lattice: {by_lattice}")
     if sum(by_lattice.values()) != paths["box Poisson"]["stencil"]:
         raise AssertionError("the launches by lattice do not add up to the path's launches")
-    del s, r_gen
     _reset(cs)
-    paths[f"S1 n={N_S1}"] = phase_s1_small(pt, cs)
+    paths[f"S1 n={N_S1}"], s1, vc1, r1 = phase_s1_small(pt, cs)
+    _reset(cs)
+    paths[f"S1 n={N_S1} gmres"] = phase_gmres(pt, cs, s1, vc1, r1)
+    del s1, vc1, r1
     _reset(cs)
     paths[f"S1 n={N}"], s1 = phase_s1_large(pt, cs)
     taps_s1 = _tap_kernel_check(ct, s1.op.lattice_form(), f"s1 n={N}")
@@ -1152,6 +1335,20 @@ def main() -> int:
     taps_s5 = phase_s5_taps(pt, ct)
     torch.cuda.empty_cache()
     print(f"[time] S5 tap kernel {time.perf_counter() - t0:.1f} s; S5 phases {time.perf_counter() - t_s5:.1f} s")
+
+    # slice E: degree 2 and 3 through p-multigrid + flexible GMRES
+    t_e = time.perf_counter()
+    for degree, n, it, cpu, trace in ((2, N_PMG, S1_P2_IT, "solve", False),
+                                      (3, N_PMG, S1_P3_IT, "operator", False),
+                                      (2, N_PMG_LARGE, S1_P2_LARGE_IT, "", True)):
+        t0 = time.perf_counter()
+        _reset(cs)
+        paths[f"S1 P{degree} n={n}"] = phase_pmg(pt, cs, degree, n, it, cpu=cpu, trace=trace)
+        torch.cuda.empty_cache()
+        print(f"[time] S1 P{degree} n={n} {time.perf_counter() - t0:.1f} s")
+    _reset(cs)
+    paths["S1 Q3 circle"] = phase_q3(pt, cs)
+    print(f"[time] slice E phases {time.perf_counter() - t_e:.1f} s")
 
     print(f"[main path] kernel launches per path: {paths}")
     if paths["box Poisson"]["stencil"] <= 0:

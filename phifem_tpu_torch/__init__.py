@@ -1,13 +1,14 @@
 """phifem_tpu_torch — the PyTorch + CUDA port of ``phifem_tpu``.
 
 Same module and public names as the JAX package, for the part ported so
-far: grids, P1 spaces, level-set tagging and one-sided measures, assembly
-of cell, facet and boundary terms (stencil batches for uniform P1 terms),
-the tap form of assembled operators, CG and BiCGStab, the geometric and
-lattice multigrid V-cycles with the cut-band interface solve, box Poisson
-and the phi-FEM schemes S1-S4 in bg and sub mode and S5 (two-material
-interface elasticity: sparse direct and deflated, lattice-preconditioned
-BiCGStab).  The P1 cell-stencil
+far: grids, Lagrange spaces of degree 1-3 and DG0, level-set tagging and
+one-sided measures, assembly of cell, facet and boundary terms (stencil
+batches for uniform P1 terms), the tap form of assembled operators, CG,
+BiCGStab, GMRES, flexible GMRES and mixed-precision refinement, the
+geometric and lattice multigrid V-cycles with the cut-band interface solve,
+p-multigrid for degree >= 2 (``pmg``), box Poisson and the phi-FEM schemes
+S1-S4 in bg and sub mode and S5 (two-material interface elasticity: sparse
+direct and deflated, lattice-preconditioned BiCGStab).  The P1 cell-stencil
 matvec (``ops/cuda_stencil.py``) and the tap-form matvec
 (``ops/cuda_taps.py``) run hand-written CUDA kernels for tensors on an
 NVIDIA Hopper card and their plain PyTorch versions for tensors on the
@@ -34,7 +35,7 @@ from .ops.stencil import StencilCellBatch
 from .ops.lattice import LatticeMG, lattice_cg
 from .ops.taps import TapOperator, build_tap_operator
 from .mg import LatticeBulkVCycle, VCycle, attach_interface_solve, build_hierarchy
-from .solvers import DirichletBC, solve
+from .solvers import DirichletBC, solve, solve_ir
 from .models import (
     BoxPoisson,
     InterfaceElasticity,
@@ -72,6 +73,7 @@ __all__ = [
     "build_hierarchy",
     "DirichletBC",
     "solve",
+    "solve_ir",
     "BoxPoisson",
     "WeakDirichletPoisson",
     "StrongDirichletPoisson",

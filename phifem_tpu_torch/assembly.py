@@ -51,6 +51,7 @@ __all__ = [
     "assemble_vector",
     "assemble_scalar",
     "uniform_element_matrices",
+    "assemble_cellwise",
 ]
 
 #: entities per vmapped element-kernel call; larger batches are chunked
@@ -989,3 +990,22 @@ def assemble_scalar(
         total = total + vals.sum()
 
     return total
+
+
+def assemble_cellwise(grid: Grid, term: CellTerm, data: Dict, cell_tags=None) -> torch.Tensor:
+    """Per-cell values of a functional (``integrand(data, x, ctx)``) in a
+    DG0-layout vector of ``grid.num_cells`` entries, zero off the term's
+    region: the reference's DG0 localization of error fields.  Each cell's
+    value is its own quadrature sum, written once (no scatter-add)."""
+    wrapped = CellTerm(
+        integrand=lambda v_ev, d_ev, x, ctx, _t=term: _t.integrand(d_ev, x, ctx),
+        region=term.region,
+        degree=term.degree,
+    )
+    local, cell_data, _, _, _ = _cell_local_fn(System({}), wrapped, grid, _normalize_data(data))
+    cells_t = torch.as_tensor(_region_cells(grid, cell_tags, term.region), device=grid.device)
+    zeros = torch.zeros(0, dtype=grid.dtype, device=grid.device)
+    vals = _entity_map(lambda c: local(None, zeros, c))(cell_data(cells_t))
+    out = torch.zeros(grid.num_cells, dtype=grid.dtype, device=grid.device)
+    out[cells_t] = vals
+    return out

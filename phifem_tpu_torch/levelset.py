@@ -32,6 +32,7 @@ __all__ = [
     "facet_ref_points",
     "evaluate_on_cells",
     "evaluate_at_cell_points",
+    "detection_vector",
     "sign_flags",
     "sign_flags_on_cells",
     "classify",
@@ -139,6 +140,20 @@ def evaluate_at_cell_points(
         phys = (1 - r - s) * verts[:, None, 0, :] + r * verts[:, None, 1, :] + s * verts[:, None, 2, :]
     vals = levelset(phys.reshape(-1, 2))
     return vals.reshape(phys.shape[:2])
+
+
+def detection_vector(grid: Grid, levelset: LevelSet, detection_degree: int) -> torch.Tensor:
+    """Per-cell detection ratio ``d = sum_q phi(x_q) / sum_q |phi(x_q)|``
+    over the boundary detection lattice (the reference's
+    ``_compute_detection_vector``): -1 inside, +1 outside, in between on cut
+    cells; cells where phi vanishes at every point get 0.5 (cut).  For
+    diagnostics: the tagging itself classifies signs directly."""
+    vals = evaluate_on_cells(grid, levelset, detection_points(grid.cell_type, detection_degree))
+    # left-to-right sums over the few points of a cell, as XLA reduces them
+    num, den = vals[:, 0], vals[:, 0].abs()
+    for q in range(1, vals.shape[1]):
+        num, den = num + vals[:, q], den + vals[:, q].abs()
+    return torch.where(den > 0.0, num / torch.where(den > 0.0, den, 1.0), 0.5)
 
 
 def sign_flags(values: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -289,6 +289,40 @@ class SchemeBase:
         self._mg_cache[key] = vc
         return vc
 
+    def _p1_twin(self):
+        """The same scheme with every FE degree field (``primal_degree``,
+        ``flux_degree``, ``auxiliary_degree``) set to 1, level-set and
+        detection degrees untouched: the p-multigrid coarse problem.  As in
+        the JAX package, S3 / S4's ``vector_degree`` is not among them."""
+        degree_fields = {"primal_degree", "flux_degree", "auxiliary_degree"}
+        repl = {f.name: 1 for f in dataclasses.fields(self) if f.name in degree_fields}
+        return dataclasses.replace(self, **repl)
+
+    def p_multigrid_preconditioner(
+        self,
+        min_n: int = 16,
+        dtype: torch.dtype = torch.float32,
+        low_iters: int = 10,
+        refresh: bool = False,
+        **interface_kw,
+    ):
+        """p-multigrid preconditioner of a degree >= 2 system
+        (:func:`phifem_tpu_torch.pmg.build_p_preconditioner`): damped-Jacobi
+        smoothing of the high-degree operator, the P1 twin's
+        ``lattice_preconditioner(min_n, dtype)`` inside ``low_iters``
+        BiCGStab iterations, and the cut-band solve of the high-degree
+        penalty block (``interface_kw``).  Nonstationary: pair it with
+        ``method="fgmres"``.  Memoized per argument set and operator data
+        version; ``refresh=True`` rebuilds."""
+        from ..pmg import build_p_preconditioner
+
+        key = ("pmg", min_n, str(dtype), low_iters, repr(sorted(interface_kw.items())), self.op.data_version)
+        vc = self._mg_cached(key, refresh)
+        if vc is None:
+            vc = build_p_preconditioner(self, min_n=min_n, dtype=dtype, low_iters=low_iters, **interface_kw)
+            self._mg_cache[key] = vc
+        return vc
+
     def _bulk_neumann_fields(self) -> tuple:
         """Fields whose bulk lattice MG must use the free-boundary variable
         stencil (:class:`~phifem_tpu_torch.ops.lattice.LatticeVarMG`):

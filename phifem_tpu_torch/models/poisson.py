@@ -3,13 +3,15 @@
 Counterpart of :mod:`phifem_tpu.models.poisson`.  Not a phi-FEM scheme: no
 level set, no cut cells — every cell is a bulk cell, so the operator is ONE
 maskless uniform P1 stencil batch (the hand-written CUDA kernel on the card)
-and the V-cycle needs no interface correction.  Two solve paths:
+and the V-cycle needs no interface correction.  Three solve paths:
 
 * :meth:`BoxPoisson.solve`: the generic equilibrated CG of
   :mod:`phifem_tpu_torch.solvers`, preconditioned by the re-discretized
   V-cycle of :mod:`phifem_tpu_torch.mg` (every matvec through the kernel);
 * :meth:`BoxPoisson.solve_lattice`: float64 CG with a float32 V-cycle on
-  padded lattices (:mod:`phifem_tpu_torch.ops.lattice`).
+  padded lattices (:mod:`phifem_tpu_torch.ops.lattice`);
+* :meth:`BoxPoisson.solve_ir`: float32 MG-preconditioned CG corrections in a
+  float64 iterative-refinement loop (:func:`phifem_tpu_torch.solvers.solve_ir`).
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from ..ops.lattice import (
     vertex_stencil_weights,
 )
 from ..ops.stencil import StencilCellBatch, orientation_offsets
-from ..solvers import DirichletBC, SolveResult, solve
+from ..solvers import DirichletBC, SolveResult, solve, solve_ir
 from ..spaces import Function, Space, boundary_dof_mask, interpolate
 
 __all__ = ["BoxPoisson"]
@@ -105,6 +107,19 @@ class BoxPoisson:
 
     def solve(self, method: str = "cg", tol: float = 1e-10, **kw) -> SolveResult:
         res = solve(self.op, self.b, bcs=self.bcs, method=method, tol=tol, **kw)
+        self.result = res
+        self.u_h = Function(self.V, res.x["u"])
+        return res
+
+    def solve_ir(self, tol: float = 1e-10, **kw) -> SolveResult:
+        """Mixed-precision solve: float32 MG-preconditioned CG corrections in
+        a float64 iterative-refinement loop (:func:`~phifem_tpu_torch.
+        solvers.solve_ir`); the preconditioner defaults to
+        ``mg_preconditioner(dtype=torch.float32)``."""
+        precond = kw.pop("precond", None)
+        if precond is None:
+            precond = self.mg_preconditioner(dtype=torch.float32)
+        res = solve_ir(self.op, self.b, bcs=self.bcs, precond=precond, tol=tol, **kw)
         self.result = res
         self.u_h = Function(self.V, res.x["u"])
         return res

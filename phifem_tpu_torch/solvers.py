@@ -1,6 +1,8 @@
 """Linear solvers: matrix-free preconditioned CG / BiCGStab (optionally
-deflated by a known null basis), a dense direct solve for small systems, a
-host sparse LU (SuperLU) for larger ones, and Dirichlet BC handling.
+deflated by a known null basis), restarted GMRES and flexible GMRES, a
+mixed-precision iterative refinement loop, a dense direct solve for small
+systems, a host sparse LU (SuperLU) for larger ones, and Dirichlet BC
+handling.
 
 Counterpart of :mod:`phifem_tpu.solvers`.  DoFs with a zero diagonal
 (touched by no active term) and Dirichlet DoFs get identity rows and a unit
@@ -8,11 +10,13 @@ preconditioner entry, so Krylov iterations leave them fixed.  The system is
 symmetrically diagonally equilibrated before the Krylov loop, as in the JAX
 package.  Vectors are dicts of per-field tensors.
 
-The Krylov loops are eager Python; each iteration reads one host value
-(the exit test).  Dots run in the working dtype (float64 for the outer
-solve), where the JAX package computes the recurrence's dots in float32.
-GMRES and flexible GMRES come with slice E (p-multigrid is their first
-user).
+The Krylov loops are eager Python; CG and BiCGStab read one host value per
+iteration (the exit test), GMRES one per Arnoldi step (the breakdown test)
+and flexible GMRES one small (m+1) x m Hessenberg matrix per restart cycle
+(its least-squares problem is solved on the host in float64).  Dots run in
+float64 (the working dtype of the outer solve, and float64 casts in the
+float32 corrections of :func:`solve_ir`), where the JAX package computes
+the CG / BiCGStab recurrences' dots in float32.
 """
 
 from __future__ import annotations
@@ -27,11 +31,17 @@ from .assembly import Operator
 
 Vec = Dict[str, torch.Tensor]
 
-__all__ = ["DirichletBC", "masked_operator", "lift_rhs", "solve", "SolveResult"]
+__all__ = ["DirichletBC", "masked_operator", "lift_rhs", "solve", "solve_ir", "SolveResult"]
 
 
 def tree_dot(a: Vec, b: Vec) -> torch.Tensor:
     return sum(torch.dot(a[k].reshape(-1), b[k].reshape(-1)) for k in a)
+
+
+def tree_dot64(a: Vec, b: Vec) -> torch.Tensor:
+    """:func:`tree_dot` in float64 whatever the vectors' dtype: the dots of
+    the float32 corrections of :func:`solve_ir`."""
+    return sum(torch.dot(a[k].reshape(-1).double(), b[k].reshape(-1).double()) for k in a)
 
 
 def tree_axpy(alpha, x: Vec, y: Vec) -> Vec:
@@ -192,6 +202,137 @@ def _pbicgstab(matvec, b: Vec, x0: Vec, *, tol, atol, maxiter, M, dot=tree_dot):
     return xb, it, float(np.sqrt(rrb_f / max(bnorm2, 1e-300)))
 
 
+def _flat_ops(b: Vec, names=None):
+    """``(fl, unfl)``: a dict vector in ``b``'s layout to one flat tensor
+    (fields in the order of ``names``, by default ``b``'s) and back: the
+    GMRES bases and the deflation basis are stored flat."""
+    names = list(b) if names is None else list(names)
+    shapes = [b[k].shape for k in names]
+    sizes = [b[k].numel() for k in names]
+
+    def fl(t: Vec) -> torch.Tensor:
+        return torch.cat([t[k].reshape(-1) for k in names])
+
+    def unfl(v: torch.Tensor) -> Vec:
+        return {k: c.reshape(sh) for k, c, sh in zip(names, torch.split(v, sizes), shapes)}
+
+    return fl, unfl
+
+
+def _pfgmres(matvec, b: Vec, x0: Vec, *, tol, atol, maxiter, M, restart: int = 20):
+    """Restarted flexible GMRES (Saad 1993; PETSc ``KSPFGMRES``) on dicts of
+    tensors, with JAX's ``_pfgmres`` semantics: the preconditioned basis Z
+    is stored apart from V, so M may change between applications (an inner
+    iterative solve); two classical Gram-Schmidt passes per Arnoldi step;
+    whole cycles of ``restart`` steps, counted ``it += restart``; the loop
+    exits when the least-squares residual estimate ``||beta e1 - H y||``
+    reaches ``max(tol ||b||, atol)``, when it is not finite, or at
+    ``maxiter``.  Memory: ``2 restart + 1`` flat vectors.
+
+    The (m+1) x m least-squares problem is read to the host and solved there
+    in float64 (``numpy.linalg.lstsq``, SVD-based as ``jnp.linalg.lstsq``):
+    one small read per cycle, while the Arnoldi steps run without one.
+    Returns ``(x, iterations, recurrence relative residual at exit)``."""
+    fl, unfl = _flat_ops(b)
+    A = lambda v: fl(matvec(unfl(v)))
+    Mf = lambda v: fl(M(unfl(v)))
+    bf, x = fl(b), fl(x0)
+    m = int(restart)
+    bnorm = float(torch.linalg.vector_norm(bf))
+    target = max(tol * bnorm, atol)
+    V = bf.new_zeros((m + 1, bf.numel()))
+    Z = bf.new_zeros((m, bf.numel()))
+    rnorm = float(torch.linalg.vector_norm(bf - A(x)))
+    it = 0
+    while rnorm > target and it < maxiter and np.isfinite(rnorm):
+        r = bf - A(x)
+        beta = torch.linalg.vector_norm(r)
+        V.zero_()
+        V[0] = r / torch.clamp(beta, min=1e-300)
+        H = bf.new_zeros((m + 1, m))
+        for j in range(m):
+            z = Mf(V[j])
+            w = A(z)
+            Vj = V[: j + 1]
+            h = Vj @ w  # two passes for orthogonality
+            w = w - Vj.T @ h
+            h2 = Vj @ w
+            w = w - Vj.T @ h2
+            hj = torch.linalg.vector_norm(w)
+            V[j + 1] = w / torch.clamp(hj, min=1e-300)
+            H[: j + 1, j] = h + h2
+            H[j + 1, j] = hj
+            Z[j] = z
+        Hh = H.cpu().numpy().astype(np.float64)
+        e1 = np.zeros(m + 1)
+        e1[0] = float(beta)
+        y = np.linalg.lstsq(Hh, e1, rcond=None)[0]
+        x = x + Z.T @ torch.as_tensor(y, dtype=Z.dtype, device=Z.device)
+        rnorm = float(np.linalg.norm(e1 - Hh @ y))
+        it += m
+    return unfl(x), it, rnorm / max(bnorm, 1e-300)
+
+
+def _pgmres(matvec, b: Vec, x0: Vec, *, tol, atol, maxiter, M, restart: int = 50):
+    """Restarted, LEFT-preconditioned GMRES with the contract of
+    ``jax.scipy.sparse.linalg.gmres(..., solve_method="batched")``, which
+    the JAX package's ``solve(method="gmres")`` calls: the Krylov space is
+    built on ``M A``; ``maxiter`` counts restart cycles; each cycle runs all
+    ``restart`` Arnoldi steps unless the new basis vector vanishes (below
+    eps times its norm before orthogonalization: a breakdown ends the
+    cycle); the loop stops when ``||M (b - A x)||`` reaches ``max(tol ||b||,
+    atol)``.  JAX orthogonalizes by iterated classical Gram-Schmidt (a
+    second pass only where the first lost over 1 - 1/sqrt(2) of the norm)
+    and solves the least-squares problem by its normal equations; here
+    always two passes and ``numpy.linalg.lstsq`` on the host, so the
+    iterates agree to the tolerance, not bit for bit.  Each Arnoldi step reads its norm to
+    the host (the breakdown test).  Returns ``(x, cycles, ||M r|| /
+    ||b||)``; :func:`solve` reports -1 iterations, as the JAX package."""
+    fl, unfl = _flat_ops(b)
+    MA = lambda v: fl(M(matvec(unfl(v))))
+    bf, x = fl(b), fl(x0)
+    n = bf.numel()
+    m = min(int(restart), n)
+    eps = float(torch.finfo(bf.dtype).eps)
+    bnorm = float(torch.linalg.vector_norm(bf))
+    target = max(tol * bnorm, atol)
+    r = fl(M(unfl(bf - fl(matvec(unfl(x))))))
+    rnorm = float(torch.linalg.vector_norm(r))
+    V = bf.new_zeros((m + 1, n))
+    k = 0
+    while k < maxiter and rnorm > target:
+        V.zero_()
+        V[0] = r / rnorm if rnorm > eps else 0.0
+        # the Hessenberg matrix, columns of unreached steps as the identity
+        # (JAX's eye(restart, restart + 1) rows)
+        H = np.eye(m + 1, m)
+        for j in range(m):
+            w = MA(V[j])
+            norm0 = float(torch.linalg.vector_norm(w))
+            Vj = V[: j + 1]
+            h = Vj @ w
+            w = w - Vj.T @ h
+            h2 = Vj @ w
+            w = w - Vj.T @ h2
+            hj = float(torch.linalg.vector_norm(w))
+            col = (h + h2).cpu().numpy()
+            breakdown = not hj > eps * norm0
+            H[:, j] = 0.0
+            H[: j + 1, j] = col
+            H[j + 1, j] = 0.0 if breakdown else hj
+            if breakdown:
+                break
+            V[j + 1] = w / hj
+        e1 = np.zeros(m + 1)
+        e1[0] = rnorm
+        y = np.linalg.lstsq(H, e1, rcond=None)[0]
+        x = x + V[:m].T @ torch.as_tensor(y, dtype=V.dtype, device=V.device)
+        r = fl(M(unfl(bf - fl(matvec(unfl(x))))))
+        rnorm = float(torch.linalg.vector_norm(r))
+        k += 1
+    return unfl(x), k, rnorm / max(bnorm, 1e-300)
+
+
 def _eq_context(op: Operator, bcs, precond, defl=None):
     """The symmetric-diagonally-equilibrated (and optionally deflated)
     system the Krylov loop solves.  Returns ``(matvec, active, dsqrt,
@@ -233,20 +374,7 @@ def _eq_context(op: Operator, bcs, precond, defl=None):
         ortho.append({k: t / nrm for k, t in q.items()})
     # the projections run on the stacked flat basis: two (k, n) products
     # per application instead of k * fields separate dots
-    names = sorted(defl[0])
-    shapes = [ortho[0][k].shape for k in names]
-    sizes = [int(np.prod(sh)) for sh in shapes]
-
-    def fl(t: Vec) -> torch.Tensor:
-        return torch.cat([t[k].reshape(-1) for k in names])
-
-    def unfl(vf: torch.Tensor) -> Vec:
-        out, cur = {}, 0
-        for k, sh, sz in zip(names, shapes, sizes):
-            out[k] = vf[cur : cur + sz].reshape(sh)
-            cur += sz
-        return out
-
+    fl, unfl = _flat_ops(ortho[0], sorted(defl[0]))
     Q = torch.stack([fl(o) for o in ortho])  # (k, n_flat)
 
     def proj(v: Vec) -> Vec:
@@ -279,13 +407,17 @@ def solve(
     precond: Optional[Callable] = None,
     deflate: Optional[Tuple[Vec, ...]] = None,
 ) -> SolveResult:
-    """Solve ``A x = b`` with preconditioned CG or BiCGStab on the
-    equilibrated, BC-reduced system, or directly: ``method="dense"`` (host
-    least squares, small systems) and ``method="sparse"`` (host SuperLU of
-    the active submatrix, cached on the operator).  ``precond`` is a
-    preconditioner of the unscaled system (e.g. a
-    :class:`phifem_tpu_torch.mg.VCycle`); the reported residual is the
-    equilibrated one, relative to the equilibrated RHS.
+    """Solve ``A x = b`` with a preconditioned Krylov method on the
+    equilibrated, BC-reduced system (``method``: ``"cg"``, ``"bicgstab"``,
+    ``"gmres"``: left-preconditioned, restart 50, ``maxiter`` counts
+    cycles, iterations reported as -1; ``"fgmres"``: flexible, restart 20,
+    for a nonstationary preconditioner such as p-multigrid, iterations in
+    whole cycles), or directly: ``method="dense"`` (host least squares,
+    small systems) and ``method="sparse"`` (host SuperLU of the active
+    submatrix, cached on the operator).  ``precond`` is a preconditioner of
+    the unscaled system (e.g. a :class:`phifem_tpu_torch.mg.VCycle`); the
+    reported residual is the equilibrated one, relative to the equilibrated
+    RHS.
 
     ``deflate``: vectors (dicts in the system's layout) spanning a known
     null space of the reduced operator, e.g. the collective rigid modes of
@@ -295,17 +427,13 @@ def solve(
     bordered system ``[[A, Q], [Q^T, 0]]`` instead."""
     if method not in ("cg", "bicgstab", "gmres", "fgmres", "dense", "sparse"):
         raise ValueError(f"Unknown method {method!r}.")
-    if method in ("gmres", "fgmres"):
-        raise NotImplementedError(
-            f"method={method!r} is not ported yet: it comes with slice E (p-multigrid)"
-        )
     if method in ("dense", "sparse"):
         matvec, _, active = masked_operator(op, bcs)
         b_l = lift_rhs(op, b, bcs, active, raw_matvec=matvec.raw)
         if method == "dense":
             return _dense_solve(op, b_l, active)
         return _sparse_solve(op, b_l, bcs, active, deflate)
-    runners = {"cg": _pcg, "bicgstab": _pbicgstab}
+    runners = {"cg": _pcg, "bicgstab": _pbicgstab, "gmres": _pgmres, "fgmres": _pfgmres}
     if maxiter is None:
         maxiter = 25 * int(np.sqrt(op.system.num_dofs)) + 1000
     matvec, active, dsqrt, dinv_sqrt, mv_eq, M, proj = _eq_context(op, bcs, precond, deflate)
@@ -320,6 +448,8 @@ def solve(
         if proj is not None:
             x0_eq = proj(x0_eq)
     x, it, rec = runners[method](mv_eq, b_eq, x0_eq, tol=tol, atol=atol, maxiter=maxiter, M=M)
+    if method == "gmres":
+        it = -1  # the count of restart cycles is not reported, as in the JAX package
     r = {k: b_eq[k] - v for k, v in mv_eq(x).items()}
     rel = float(torch.sqrt(tree_dot(r, r)) / torch.clamp(torch.sqrt(tree_dot(b_eq, b_eq)), min=1e-300))
     if proj is not None:
@@ -328,6 +458,78 @@ def solve(
     return SolveResult(
         x=x, residual=rel, iterations=it, converged=rel <= 10 * tol, recurrence=rec
     )
+
+
+def solve_ir(
+    op: Operator,
+    b: Vec,
+    bcs: Tuple[DirichletBC, ...] = (),
+    precond: Optional[Callable] = None,
+    method: str = "cg",
+    tol: float = 1e-10,
+    inner_tol: float = 1e-6,
+    inner_maxiter: int = 100,
+    max_outer: int = 6,
+    inner_dtype: torch.dtype = torch.float32,
+) -> SolveResult:
+    """Mixed-precision iterative refinement: ``inner_dtype`` (float32)
+    equilibrated CG or BiCGStab corrections inside a full-precision residual
+    loop, as :func:`phifem_tpu.solvers.solve_ir`::
+
+        r_k = b - A x_k            (full precision, one matvec a round)
+        solve A e ~= r_k           (float32, preconditioned, to inner_tol)
+        x_{k+1} = x_k + e
+
+    at most ``max_outer`` rounds, until ``||r|| / ||b||`` (the lifted,
+    unequilibrated system) reaches ``tol``.  Each round contracts the
+    residual by about ``max(inner_tol, kappa(A) eps_f32)``: the right tool
+    up to ~1M DoF of 2D Poisson.  ``precond`` should compute in float32
+    (e.g. ``mg_preconditioner(dtype=torch.float32)``).  The inner vectors
+    are float32 and their dots float64 (JAX's ``jax.scipy`` cg / bicgstab
+    reduce in float32).  ``iterations`` counts the rounds."""
+    from .mg import _masked_matvec
+
+    matvec_f, diag, active = masked_operator(op, bcs)
+    b = lift_rhs(op, b, bcs, active, raw_matvec=matvec_f.raw)
+    matvec_i, _, _ = _masked_matvec(op, bcs, inner_dtype)
+    # symmetric diagonal equilibration of the inner system (see solve())
+    dsqrt_i = {
+        k: torch.sqrt(torch.where(torch.abs(d) > 1e-30, torch.abs(d), 1.0)).to(inner_dtype)
+        for k, d in diag.items()
+    }
+    dinv_i = {k: 1.0 / d for k, d in dsqrt_i.items()}
+
+    def matvec_eq(y: Vec) -> Vec:
+        z = matvec_i({k: v * dinv_i[k] for k, v in y.items()})
+        return {k: v * dinv_i[k] for k, v in z.items()}
+
+    if precond is None:
+        M = lambda r: r
+    else:
+        def M(r: Vec) -> Vec:
+            z = precond({k: v * dsqrt_i[k] for k, v in r.items()})
+            return {k: v * dsqrt_i[k] for k, v in z.items()}
+
+    inner = {"cg": _pcg, "bicgstab": _pbicgstab}[method]
+    bnorm = float(torch.sqrt(tree_dot(b, b)))
+
+    def resid(x: Vec):
+        r = {k: b[k] - v for k, v in matvec_f(x).items()}
+        return r, float(torch.sqrt(tree_dot(r, r))) / max(bnorm, 1e-300)
+
+    x = {k: torch.zeros_like(v) for k, v in b.items()}
+    r, rel = resid(x)
+    it = 0
+    while rel > tol and it < max_outer:
+        rs = {k: v.to(inner_dtype) * dinv_i[k] for k, v in r.items()}
+        zero = {k: torch.zeros_like(v) for k, v in rs.items()}
+        es, _, _ = inner(
+            matvec_eq, rs, zero, tol=inner_tol, atol=0.0, maxiter=inner_maxiter, M=M, dot=tree_dot64
+        )
+        x = {k: x[k] + (es[k] * dinv_i[k]).to(x[k].dtype) for k in x}
+        r, rel = resid(x)
+        it += 1
+    return SolveResult(x=x, residual=rel, iterations=it, converged=rel <= tol, recurrence=rel)
 
 
 def _host_layout(op: Operator, b: Vec, active):

@@ -182,12 +182,13 @@ class Space:
         return self.grid._tensor(self.dof_coords_np)
 
     # --------------------------------------------------------- basis values
-    def _basis(self, ref_pts: torch.Tensor) -> torch.Tensor:
-        """(npts, nloc) basis values at reference points.  Powers by
+    def _basis(self, ref_pts: torch.Tensor, deriv: int = 0) -> torch.Tensor:
+        """Basis values (``deriv=0``: (npts, nloc)) or reference gradients
+        (``deriv=1``: (npts, nloc, 2)) at reference points.  Powers by
         repeated multiplication, so ``0**0 == 1`` exactly (as
         ``_basis_jnp``)."""
         e = self.element
-        exps = np.asarray(e._exps)
+        exps = np.asarray(e._exps).astype(np.int64)
         coeffs = torch.as_tensor(e._coeffs, dtype=ref_pts.dtype, device=ref_pts.device)
 
         def powers(base):  # (..., 1) -> (..., kmax+1)
@@ -197,7 +198,22 @@ class Space:
             return torch.cat(cols, dim=-1)
 
         rpow, spow = powers(ref_pts[..., 0:1]), powers(ref_pts[..., 1:2])
-        return (rpow[..., exps[:, 0].tolist()] * spow[..., exps[:, 1].tolist()]) @ coeffs
+
+        def mono(dr: int, ds: int) -> torch.Tensor:
+            # d^dr/dr d^ds/ds of the monomials r^i s^j: factor i (or j) and
+            # exponent i - 1 (clamped at 0, where the factor is 0)
+            ci, ei = np.ones(len(exps)), exps[:, 0].copy()
+            for _ in range(dr):
+                ci, ei = ci * ei, np.maximum(ei - 1, 0)
+            cj, ej = np.ones(len(exps)), exps[:, 1].copy()
+            for _ in range(ds):
+                cj, ej = cj * ej, np.maximum(ej - 1, 0)
+            coef = torch.as_tensor(ci * cj, dtype=ref_pts.dtype, device=ref_pts.device)
+            return coef * rpow[..., ei.tolist()] * spow[..., ej.tolist()]
+
+        if deriv == 0:
+            return (rpow[..., exps[:, 0].tolist()] * spow[..., exps[:, 1].tolist()]) @ coeffs
+        return torch.stack([mono(1, 0) @ coeffs, mono(0, 1) @ coeffs], dim=-1)
 
     def locate(self, pts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Point location on the structured grid: points -> (cell, ref_pt)."""
@@ -228,6 +244,15 @@ class Function:
     space: Space
     data: torch.Tensor
 
+    @staticmethod
+    def zeros(space: Space) -> "Function":
+        g = space.grid
+        return Function(space, torch.zeros(space.dof_shape, dtype=g.dtype, device=g.device))
+
+    def copy(self) -> "Function":
+        """A Function on the same space with its own copy of the data."""
+        return Function(self.space, self.data.clone())
+
     def eval(self, pts: torch.Tensor) -> torch.Tensor:
         """Evaluate at arbitrary physical points (n, 2); points outside the
         bbox extrapolate from the nearest edge cell."""
@@ -235,6 +260,17 @@ class Function:
         basis = self.space._basis(ref)  # (n, nloc)
         nodal = self.data[self.space.cell_dofs[cells]]  # (n, nloc, *vs)
         return torch.einsum("nl,nl...->n...", basis, nodal)
+
+    def eval_grad(self, pts: torch.Tensor) -> torch.Tensor:
+        """Gradient at arbitrary physical points: (n, *value_shape, 2)."""
+        g = self.space.grid
+        cells, ref = self.space.locate(pts)
+        gref = self.space._basis(ref, deriv=1)  # (n, nloc, 2)
+        J, _ = g.cell_jacobians()
+        Jinv = torch.linalg.inv(J)[g.orientation_of(cells).to(torch.int64)]  # (n, 2, 2)
+        gphys = torch.einsum("nlr,nrx->nlx", gref, Jinv)
+        nodal = self.data[self.space.cell_dofs[cells]]
+        return torch.einsum("nlx,nl...->n...x", gphys, nodal)
 
 
 def locate_dofs(space: Space, predicate: Callable) -> torch.Tensor:

@@ -18,7 +18,8 @@ def test_import_leaves_jax_out():
         "phifem_tpu_torch.models.strong_dirichlet, phifem_tpu_torch.models.neumann, "
         "phifem_tpu_torch.models.robin, phifem_tpu_torch.models.neumann_square, "
         "phifem_tpu_torch.models.robin_square, phifem_tpu_torch.models.interface_elasticity, "
-        "phifem_tpu_torch.models.elasticity_disk, phifem_tpu_torch.utils.config; "
+        "phifem_tpu_torch.models.elasticity_disk, phifem_tpu_torch.utils.config, "
+        "phifem_tpu_torch.pmg; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'phifem_tpu')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -39,6 +40,7 @@ def test_every_module_leaves_jax_out():
         "bad = sorted(m for m in set(sys.modules) if m.split('.')[0] in ('jax', 'phifem_tpu'))\n"
         "assert 'phifem_tpu_torch.models.interface_elasticity' in names, names\n"
         "assert 'phifem_tpu_torch.utils.config' in names, names\n"
+        "assert 'phifem_tpu_torch.pmg' in names, names\n"
         "print(len(names), len(new), bad); sys.exit(1 if bad else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True)
@@ -66,12 +68,15 @@ def test_float32_grid_flows_through():
 
 def test_unported_paths_raise():
     import phifem_tpu_torch as pt
+    from phifem_tpu_torch.models import elasticity_disk as disk
 
     g = pt.Grid(4, 4, device="cpu")
     s = pt.BoxPoisson(g).setup(lambda x: x[:, 0]).assemble()
-    # gmres comes with slice E (p-multigrid is its first user)
-    with pytest.raises(NotImplementedError, match="slice E"):
-        pt.solve(s.op, s.b, bcs=s.bcs, method="gmres")
+    # gmres and fgmres are ported (slice E); an unknown method is a ValueError
+    for method in ("gmres", "fgmres"):
+        assert pt.solve(s.op, s.b, bcs=s.bcs, method=method, tol=1e-10).converged
+    with pytest.raises(ValueError, match="Unknown method"):
+        pt.solve(s.op, s.b, bcs=s.bcs, method="minres")
     # the sub mode is ported (slice C); the Ritz modes of the lattice
     # preconditioner wait for a later PR (they did not help S5)
     circle = lambda x: x[:, 0] ** 2 + x[:, 1] ** 2 - 0.2
@@ -79,3 +84,11 @@ def test_unported_paths_raise():
     w.setup(circle, lambda x: x[:, 0]).assemble()
     with pytest.raises(NotImplementedError, match="later PR"):
         w.lattice_preconditioner(ritz_modes=2)
+    # so does the constant block cycle of a vector P1 bulk with a
+    # Dirichlet-masked boundary: S5 with its displacements taken as such
+    e = pt.InterfaceElasticity(pt.Grid(8, 8, ((-1.5, -1.5), (1.5, 1.5)), device="cpu"), E_in=disk.E_in,
+                               nu_in=disk.nu_in, E_out=disk.E_out, nu_out=disk.nu_out)
+    e.setup(disk.levelset, disk.source_term, disk.exact_solution).assemble()
+    e._bulk_neumann_fields = lambda: ()
+    with pytest.raises(NotImplementedError, match="LatticeBlockMG"):
+        e.lattice_preconditioner(coupled=False)

@@ -12,8 +12,9 @@ S5, against the JAX package where it has the same function.
   constant;
 * deflated CG on the same system: zero component along the null vector and
   the same solution as the sparse path;
-* an unknown method raises ``ValueError`` (JAX's error), gmres and fgmres
-  ``NotImplementedError`` naming slice E; ``lattice_preconditioner`` takes
+* an unknown method raises ``ValueError`` (JAX's error); gmres and fgmres
+  solve the deflated singular system as the sparse path does;
+  ``lattice_preconditioner`` takes
   ``ritz_arnoldi`` and routes S5's ``sweeps_coef`` of 0.6 to the
   interface solve; the reference's S5 YAML loads.
 """
@@ -162,12 +163,17 @@ def test_deflated_cg_on_singular_system():
 
 
 def test_unknown_and_unported_methods_raise():
-    _, (op, b, _) = _neumann_pair()
+    _, (op, b, c) = _neumann_pair()
     with pytest.raises(ValueError, match="Unknown method"):
         pt.solve(op, b, method="nope")
+    # gmres and fgmres, ported since, solve the deflated singular system as
+    # the sparse bordered solve does
+    r_sp = pt.solve(op, b, method="sparse", deflate=(c,))
     for m in ("gmres", "fgmres"):
-        with pytest.raises(NotImplementedError, match="slice E"):
-            pt.solve(op, b, method=m)
+        r = pt.solve(op, b, method=m, deflate=(c,), tol=1e-12)
+        assert r.converged, (m, r)
+        assert abs(float(r.x["u"].mean())) < 1e-10, m
+        assert rel(r.x["u"].numpy(), r_sp.x["u"].numpy()) <= 1e-8, m
 
 
 @pytest.fixture(scope="module")
