@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the two hand-written CUDA kernels from the checkout (one nvcc per
+Builds the four hand-written CUDA kernels from the checkout (one nvcc per
 source, in parallel), holds the stencil kernel against its plain PyTorch
 version on the card (both bodies, both cell types, at lattices that are no
 multiple of its tile and at the main path's; the masked one also timed on
@@ -54,7 +54,18 @@ assemble -> solve:
   traced; Q3 on quadrilaterals (the
   circle of ``tests/test_schemes.py``) at n=32 and 64, its L2 error falling
   by more than 10; every count exact.  The degree >= 2 operator runs its
-  entity batches; both kernels run in its P1 twin's cycle.
+  entity batches; both kernels run in its P1 twin's cycle;
+* slice F1 (3D, the sphere R0 = 0.7 of demo/poisson3d in [-1, 1]^3): the
+  masked hex-cell stencil (d = 1, 2, 3) and the 27-point lattice sweep (its
+  three modes, 129^3 and 257^3) against their plain versions, timed beside
+  their bounds, torch.mv of the hex operator's CSR and conv3d; box Poisson
+  3D (bench.py's poisson3d) at n=128 and 256; the weak-Dirichlet scheme at
+  Q1 (n=32 against the CPU lane's whole solve, n=64, n=128 with 4,293,378
+  DoFs against the CPU lane's tags, b and matvec, and a device trace of two
+  iterations), at Q2 n=16 and 32 (low-order-refined cycle) and at Q3 n=12
+  (sparse direct, a cubic reproduced); the strong-Dirichlet scheme at n=64;
+  every count exact.  The 3D paths launch the two 3D kernels and neither
+  2D one.
 
 Every check raises; the script exits non-zero without a result when there
 is no card or no checkout.  The line before the last is a JSON record of
@@ -1262,6 +1273,535 @@ def phase_q3(pt, cs) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- slice F1
+# 3D: box Poisson (bench.py's poisson3d), the weak-Dirichlet scheme on the
+# sphere of demo/poisson3d (Q1-Q3) and the strong-Dirichlet scheme, with the
+# two 3D kernels: the masked hex-cell stencil (hex3) and the 27-point lattice
+# sweep (lattice3)
+BOX3 = ((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0))  # demo/poisson3d's box
+R0_3 = 0.7  # the sphere's radius
+N3_BOX, N3_BOX_LARGE = 128, 256  # 2,146,689 / 16,974,593 DoFs
+# Q3's host SuperLU took 760.358 s at n=16 (235,298 DoFs) on the card's host:
+# the direct solve runs at n=12 (COLAMD fill 1.8e8 at n=12 on the CPU, 35 s)
+N3_Q1, N3_Q1_CPU, N3_Q2, N3_Q3, N3_STRONG = 128, 32, 32, 12, 64
+# the port's iteration counts on the H100 (PERF.md): box Poisson (JAX 6 at
+# n=128, BENCH_r04.json), Q1 at n=32 / 64 / 128 (BiCGStab, tol 1e-10; n=32
+# equals the CPU lane's), Q2 at n=16 / 32 (tol 1e-10, maxiter 2000; JAX on the
+# CPU 76 at n=16: the inner band solve's rounding moves this count, ROADMAP),
+# S2-3D at n=64
+BOX3_IT = {N3_BOX: 6, N3_BOX_LARGE: 6}
+Q1_IT = {N3_Q1_CPU: 6, N3_Q1 // 2: 9, N3_Q1: 10}
+Q2_IT = {N3_Q2 // 2: 101, N3_Q2: 26}
+STRONG3_IT = 93
+# the hex3 kernel checks: (degree, n) on the sphere's mask; the first three
+# are timed; then every other shape the 3D weak paths run (Q1 n=32 / 64, Q2
+# n=16 / 32, Q3 n=12) and the odd lattice n=37
+HEX3_CASES = ((1, N3_Q1), (2, 64), (3, 40), (1, N3_Q1_CPU), (1, N3_Q1 // 2), (2, N3_Q2 // 2), (2, N3_Q2),
+              (3, N3_Q3), (1, 37), (2, 37), (3, 37))
+
+
+def sphere_phi(x):
+    return x[..., 0] ** 2 + x[..., 1] ** 2 + x[..., 2] ** 2 - R0_3**2
+
+
+def u_smooth(x):
+    """demo/poisson3d's weak-scheme solution; -Δu = u / 2."""
+    return torch.cos(x[..., 0]) * torch.exp((x[..., 1] + x[..., 2]) / 2.0)
+
+
+def _strong3_data():
+    """demo/poisson3d's strong-scheme solution u = phi w, w = cos(s),
+    s = x + y/2 - z/4, and f = -Δu in closed form (|grad s|^2 = 21/16)."""
+    s_ = lambda x: x[..., 0] + 0.5 * x[..., 1] - 0.25 * x[..., 2]
+    u = lambda x: sphere_phi(x) * torch.cos(s_(x))
+    f = lambda x: (-6.0 + 21.0 / 16.0 * sphere_phi(x)) * torch.cos(s_(x)) + 4.0 * s_(x) * torch.sin(s_(x))
+    return u, f
+
+
+def _k3():
+    from phifem_tpu_torch.ops import cuda_hex3, cuda_lattice3
+
+    return cuda_hex3, cuda_lattice3
+
+
+def _reset3() -> None:
+    ch, cl = _k3()
+    ch.launches = cl.launches = 0
+
+
+def _counts3() -> dict:
+    ch, cl = _k3()
+    return {"hex3": ch.launches, "lattice3": cl.launches}
+
+
+def _hex3_csr(mask: torch.Tensor, A: torch.Tensor, degree: int) -> torch.Tensor:
+    """The float64 CUDA CSR matrix of the masked hex-cell stencil (the
+    library call's input; the port never builds it)."""
+    from phifem_tpu_torch.ops.cuda_hex3 import hex_offsets
+
+    nz, ny, nx = mask.shape
+    d = degree
+    Rn, Cn = d * ny + 1, d * nx + 1
+    c = torch.nonzero(mask.reshape(nz, ny, nx) != 0)
+    base = (d * c[:, 0] * Rn + d * c[:, 1]) * Cn + d * c[:, 2]
+    off = torch.tensor([(oz * Rn + oy) * Cn + ox for ox, oy, oz in hex_offsets(d)], device=mask.device)
+    nodes = base[:, None] + off[None, :]  # (ne, nloc)
+    nl = off.numel()
+    rows = nodes[:, :, None].expand(-1, nl, nl).reshape(-1)
+    cols = nodes[:, None, :].expand(-1, nl, nl).reshape(-1)
+    vals = (A.to(torch.float64)[None] * mask[c[:, 0], c[:, 1], c[:, 2]].to(torch.float64)[:, None, None])
+    n = (d * nz + 1) * Rn * Cn
+    coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals.reshape(-1), (n, n))
+    del rows, cols, vals
+    return coo.coalesce().to_sparse_csr()
+
+
+def _sphere_mask(pt, n: int, dt) -> torch.Tensor:
+    from phifem_tpu_torch.tagging3 import compute_tags3
+
+    tags = compute_tags3(pt.Grid3(n, n, n, BOX3, device=DEVICE), sphere_phi)
+    return torch.as_tensor(tags.region_mask((1, 2)), dtype=dt, device=DEVICE).contiguous()
+
+
+def phase_kernel_hex3(pt) -> dict:
+    """The masked hex-cell stencil against its plain version on the card:
+    d=1 on the n=128 sphere mask (129^3 nodes), d=2 at n=64 (129^3), d=3 at
+    n=40 (121^3), every other (degree, n) of the 3D weak paths, every degree
+    on the odd lattice n=37, float32 and float64; then the first three
+    shapes' times in float64 beside their bounds, the plain version and
+    torch.mv of the CUDA CSR matrix."""
+    ch, _ = _k3()
+    rng = np.random.default_rng(SEED)
+    tol = {torch.float32: 1e-5, torch.float64: 1e-13}
+    worst, out = 0.0, {}
+    for d, n in HEX3_CASES:
+        nloc = (d + 1) ** 3
+        A64 = torch.as_tensor(rng.standard_normal((nloc, nloc)))
+        for dt in (torch.float32, torch.float64):
+            mask = _sphere_mask(pt, n, dt)
+            nodes = (d * n + 1,) * 3
+            x = torch.as_tensor(rng.standard_normal(nodes), dtype=dt, device=DEVICE)
+            A = A64.to(dt).to(DEVICE)
+            yk = ch.hex_stencil3(x, mask, A, d)
+            yr = ch.hex_stencil3_ref(x, mask, A, d)
+            torch.cuda.synchronize()
+            err = float((yk - yr).abs().max())
+            rel = err / float(yr.abs().max())
+            worst = max(worst, err)
+            print(f"[kernel hex3] d={d} n={n} {str(dt)[6:]:7s} nodes {nodes[0]}^3, {int(mask.sum())} masked cells: "
+                  f"max|dy|/max|y| = {rel:.3e} (tol {tol[dt]:.0e}) {'ok' if rel <= tol[dt] else 'FAIL'}")
+            if rel > tol[dt]:
+                raise AssertionError(f"hex3 kernel disagrees with its plain version: {rel} > {tol[dt]}")
+            if (d, n) not in HEX3_CASES[:3] or dt is not torch.float64:
+                continue
+            # the main-path shape of this degree, float64: time it
+            ncell = int((mask != 0).sum())
+            nbytes = (2 * x.numel() + mask.numel()) * x.element_size()
+            bound = _bound(nbytes, 2 * nloc * nloc * ncell, dt)
+            call = lambda: ch.hex_stencil3(x, mask, A, d)
+            Acsr = _hex3_csr(mask, A, d)
+            yl = torch.mv(Acsr, x.reshape(-1))
+            rel_l = float((yl - yr.reshape(-1)).abs().max()) / float(yr.abs().max())
+            if rel_l > 1e-12:
+                raise AssertionError(f"the hex3 CSR is not the kernel's operator: {rel_l}")
+            t = {
+                "device_ms": _device_ms(call, 20, "hex_stencil3_kernel"),
+                "ms": _event_ms(call, 20),
+                "host_ms": _host_ms(call, 20),
+                "plain_ms": _event_ms(lambda: ch.hex_stencil3_ref(x, mask, A, d), 2),
+                "library_ms": _event_ms(lambda: torch.mv(Acsr, x.reshape(-1)), 10),
+                "bound_ms": bound[0],
+                "bound_by": bound[1],
+                "csr_nnz": int(Acsr._nnz()),
+            }
+            out[d] = t
+            print(f"[kernel hex3] time d={d} n={n} float64: kernel {t['ms']:.4f} ms per call back to back (CUDA "
+                  f"events), {t['device_ms']:.4f} ms device per launch (profiler), {t['host_ms']:.4f} ms host per "
+                  f"call; bound {bound[0]:.4f} ms by {bound[1]} ({nbytes / 1e6:.1f} MB, "
+                  f"{2 * nloc * nloc * ncell / 1e9:.3f} GFLOP), {bound[0] / t['ms']:.1%} of it; plain "
+                  f"{t['plain_ms']:.3f} ms; CSR torch.mv {t['library_ms']:.4f} ms ({t['csr_nnz']} nonzeros, "
+                  f"agrees to {rel_l:.1e})")
+            del Acsr, yl
+            torch.cuda.empty_cache()
+    main = out[1]
+    return {
+        "name": "hex_stencil3",
+        "route": "cuda",
+        "source": "phifem_tpu_torch/csrc/hex_stencil3.cu",
+        "replaces": "phifem_tpu/models/weak_dirichlet3.py:273 (_masked_stencil_apply, XLA-fused; not a Pallas kernel)",
+        "max_abs_err": worst,
+        **{k: main[k] for k in ("ms", "device_ms", "host_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "library": "torch.mv of the operator as a CUDA CSR matrix (cuSPARSE SpMV)",
+        "shape": f"Q1 sphere mask n={N3_Q1} (129^3 nodes), float64",
+        **{f"q{d}_{k}": out[d][k] for d in (2, 3)
+           for k in ("ms", "device_ms", "host_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "q2_shape": "Q2 sphere mask n=64 (129^3 nodes), float64",
+        "q3_shape": "Q3 sphere mask n=40 (121^3 nodes), float64",
+    }
+
+
+def phase_kernel_lattice3(pt) -> dict:
+    """The 27-point lattice sweep against its plain version on the card at
+    129^3 and 257^3 in its three modes, float32 and float64 (the residual
+    and Jacobi modes with a random mask, Jacobi also without one), each
+    timed beside its bound and the plain version, and the matvec beside
+    torch.nn.functional.conv3d with the same 3x3x3 weights."""
+    from phifem_tpu_torch.ops.lattice3 import _terms3, hex_element_matrix, vertex_stencil_weights3
+
+    _, cl = _k3()
+    rng = np.random.default_rng(SEED + 1)
+    tol = {torch.float32: 1e-5, torch.float64: 1e-13}
+    worst, times = 0.0, {}
+    for n in (N3_BOX, N3_BOX_LARGE):
+        D = n + 1
+        h = 1.0 / n
+        w = vertex_stencil_weights3(hex_element_matrix(h, h, h))
+        terms = cl.pack_terms(_terms3(w))
+        od = 0.8 / w[1, 1, 1]
+        for dt in (torch.float32, torch.float64):
+            x = torch.zeros((D + 2,) * 3, dtype=dt, device=DEVICE)
+            x[2:D, 2:D, 2:D] = torch.as_tensor(rng.standard_normal((D - 2,) * 3), dtype=dt, device=DEVICE)
+            b = torch.zeros_like(x)
+            b[2:D, 2:D, 2:D] = torch.as_tensor(rng.standard_normal((D - 2,) * 3), dtype=dt, device=DEVICE)
+            mask = torch.as_tensor(rng.random((D,) * 3) < 0.7, dtype=dt, device=DEVICE)
+            for mode, name, m in ((cl.MATVEC, "matvec", None), (cl.RESIDUAL, "residual", mask),
+                                  (cl.JACOBI, "jacobi masked", mask), (cl.JACOBI, "jacobi", None)):
+                yk = cl.lattice3_sweep(mode, x, terms, b, m, od)
+                yr = cl.lattice3_sweep_ref(mode, x, terms, b, m, od)
+                torch.cuda.synchronize()
+                err = float((yk - yr).abs().max())
+                rel = err / float(yr.abs().max())
+                worst = max(worst, err)
+                if rel > tol[dt]:
+                    raise AssertionError(f"lattice3 kernel ({name}) disagrees with its plain version: {rel}")
+                # bytes: x read, out written, b (and the mask) read in modes 1-2
+                nb = (2 + (mode != cl.MATVEC)) * x.numel() + (0 if m is None else m.numel())
+                bound = _bound(nb * x.element_size(), 2 * len(terms) * (D - 2) ** 3, dt)
+                call = lambda: cl.lattice3_sweep(mode, x, terms, b, m, od)
+                t = {"ms": _event_ms(call, 20), "plain_ms": _event_ms(
+                    lambda: cl.lattice3_sweep_ref(mode, x, terms, b, m, od), 3),
+                     "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+                if name in ("matvec", "jacobi"):
+                    t["device_ms"] = _device_ms(call, 10, "lattice3_sweep_kernel")
+                    t["host_ms"] = _host_ms(call, 20)
+                if mode == cl.MATVEC:
+                    W = torch.as_tensor(w, dtype=dt, device=DEVICE)[None, None]
+                    conv = lambda: torch.nn.functional.conv3d(x[None, None], W)
+                    yl = conv()[0, 0, 1:-1, 1:-1, 1:-1]
+                    rel_l = float((yl - yk[2:D, 2:D, 2:D]).abs().max()) / float(yr.abs().max())
+                    if rel_l > 10 * tol[dt]:
+                        raise AssertionError(f"conv3d is not the kernel's matvec: {rel_l}")
+                    t["library_ms"] = _event_ms(conv, 20)
+                times[n, dt, name] = t
+                extra = "".join(f", {k} {t[k]:.4f}" for k in ("device_ms", "host_ms", "library_ms")
+                                if t.get(k) is not None)
+                print(f"[kernel lattice3] {name:13s} {str(dt)[6:]:7s} {D}^3: max|dy|/max|y| = {rel:.3e} (tol "
+                      f"{tol[dt]:.0e}) ok; ms {t['ms']:.4f} (bound {bound[0]:.4f} by {bound[1]}, "
+                      f"{bound[0] / t['ms']:.1%}), plain {t['plain_ms']:.4f}{extra}")
+            del x, b, mask, yk, yr
+            torch.cuda.empty_cache()
+    f32 = torch.float32
+    main = times[N3_BOX, f32, "jacobi"]
+    keys = ("ms", "device_ms", "host_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    line = {
+        "name": "lattice3_sweep",
+        "route": "cuda",
+        "source": "phifem_tpu_torch/csrc/lattice3_sweep.cu",
+        "replaces": "phifem_tpu/ops/lattice3.py:130 (_conv_interior3 in Lattice3MG._smooth :261, _cycle :271 and "
+                    "lattice3_cg :580; XLA-fused, not a Pallas kernel)",
+        "max_abs_err": worst,
+        **{k: main.get(k) for k in keys},
+        # the one PyTorch call that computes a mode of the kernel: the matvec's
+        "library_ms": times[N3_BOX, f32, "matvec"]["library_ms"],
+        "library": "torch.nn.functional.conv3d with the 3x3x3 weights (matvec mode; cuDNN, TF32 off)",
+        "shape": f"{N3_BOX + 1}^3 Jacobi sweep, float32, unmasked (box Poisson's finest level)",
+    }
+    for (n, dt, name), t in times.items():
+        tag = f"{name.replace(' ', '_')}_{n + 1}_{str(dt)[6:]}"
+        for k in keys:
+            if t.get(k) is not None:
+                line[f"{tag}_{k}"] = t[k]
+    return line
+
+
+def _hold_lattice3_levels(mg, label: str, f64_matvec: bool = False) -> None:
+    """The lattice sweep against its plain version on every smoothed level
+    of a Lattice3MG hierarchy, with that level's own packed stencil, pooled
+    mask and Jacobi factor, in the cycle's dtype: the masked Jacobi sweep
+    and the residual the cycle runs (and, with ``f64_matvec``, the float64
+    matvec of lattice3_cg on the finest level).  Random interior inputs;
+    these launches are not counted."""
+    _, cl = _k3()
+    n0 = cl.launches
+    rng = np.random.default_rng(SEED + 2)
+    tol = {torch.float32: 1e-5, torch.float64: 1e-13}
+    worst = {}
+    for k, lvl in enumerate(mg.levels[:-1]):  # the coarsest level is a dense solve
+        D, R, C = lvl.D, lvl.R, lvl.C
+        m = None if mg.masks is None else mg.masks[k]
+        od = mg.omega * mg._dinv(k)
+        cases = [(cl.JACOBI, mg.dtype), (cl.RESIDUAL, mg.dtype)]
+        if f64_matvec and k == 0:
+            cases.append((cl.MATVEC, torch.float64))
+        for mode, dt in cases:
+            x = torch.zeros((D + 2, R + 2, C + 2), dtype=dt, device=DEVICE)
+            b = torch.zeros_like(x)
+            x[2:D, 2:R, 2:C] = torch.as_tensor(rng.standard_normal((D - 2, R - 2, C - 2)), dtype=dt, device=DEVICE)
+            b[2:D, 2:R, 2:C] = torch.as_tensor(rng.standard_normal((D - 2, R - 2, C - 2)), dtype=dt, device=DEVICE)
+            mm = None if m is None else m.to(dt)
+            yk = cl.lattice3_sweep(mode, x, mg._packed[k], b, mm, od)
+            yr = cl.lattice3_sweep_ref(mode, x, mg._packed[k], b, mm, od)
+            rel = float((yk - yr).abs().max()) / max(float(yr.abs().max()), 1e-300)
+            worst[f"{D}x{R}x{C} mode {mode} {str(dt)[6:]}"] = rel
+            if rel > tol[dt]:
+                raise AssertionError(f"{label}: lattice3 kernel disagrees with its plain version on level {k} "
+                                     f"({D}x{R}x{C}, mode {mode}, {dt}): {rel}")
+    cl.launches = n0
+    print(f"[{label}] lattice3 kernel against its plain version on {len(mg.levels) - 1} smoothed levels "
+          f"({'masked' if mg.masks is not None else 'unmasked'}): max|dy|/max|y| = {max(worst.values()):.3e} "
+          f"over {len(worst)} cases")
+
+
+def _box3(pt, n: int):
+    g = pt.Grid3(n, n, n, ((0.0, 0.0, 0.0), (1.0, 1.0, 1.0)), device=DEVICE)
+    uex = lambda x: torch.sin(math.pi * x[..., 0]) * torch.sin(math.pi * x[..., 1]) * torch.sin(math.pi * x[..., 2])
+    return g, uex, (lambda x: 3.0 * math.pi**2 * uex(x))
+
+
+def phase_box3(pt, n: int) -> None:
+    """bench.py's poisson3d: lattice_solver(min_n=8, float32) and
+    solve_lattice(tol=1e-10, maxiter=40), cold and warm, in exactly
+    BOX3_IT[n] iterations, the nodal error <= 5h^2."""
+    g, uex, f = _box3(pt, n)
+    s = pt.BoxPoisson3(g)
+    _, t_setup = _sync_time(lambda: s.setup(f).assemble())
+    mg, t_mg = _sync_time(s.lattice_solver, min_n=8, dtype=torch.float32)
+    r0, t_cold = _sync_time(s.solve_lattice, tol=TOL, maxiter=40, mg=mg)
+    r, t_warm, runs = _warm_runs(s.solve_lattice, tol=TOL, maxiter=40, mg=mg)
+    _hold_lattice3_levels(mg, f"box3 n={n}", f64_matvec=True)
+    ndofs = g.num_vertices
+    exact = uex(torch.stack(torch.broadcast_tensors(*g.vertex_coords_lattice()), -1))
+    err = float((s.u_lat - exact).abs().max())
+    h = 1.0 / n
+    print(f"[box3 n={n}] ndofs={ndofs} levels={len(mg.levels)}: setup + assemble {t_setup:.3f} s, lattice_solver "
+          f"{t_mg:.3f} s, solve cold {t_cold:.3f} s ({r0.iterations} it) / warm median {t_warm:.4f} s of "
+          f"{_fmt(runs)}, {r.iterations} it, relres {r.residual:.3e}, {ndofs / t_warm / 1e6:.2f} MDoF/s, max nodal "
+          f"err {err:.3e} (5h^2 {5 * h * h:.3e}); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for res in (r0, r):
+        if not (res.converged and res.residual <= TOL):
+            raise AssertionError(f"box3 n={n}: relres {res.residual}")
+        if res.iterations != BOX3_IT[n]:
+            raise AssertionError(f"box3 n={n}: {res.iterations} iterations, not {BOX3_IT[n]}")
+    if err > 5 * h * h:
+        raise AssertionError(f"box3 n={n}: nodal error {err} > 5h^2")
+
+
+def _weak3(pt, n: int, degree: int, device: str, u=None, f=None):
+    g = pt.Grid3(n, n, n, BOX3, device=device)
+    u = u_smooth if u is None else u
+    f = (lambda x: 0.5 * u_smooth(x)) if f is None else f
+    return pt.WeakDirichletPoisson3(g, degree=degree).setup(sphere_phi, f, u_D=u)
+
+
+def _check_tags3(s, h, label: str) -> None:
+    """Card tags equal the CPU lane's except at cells with a vertex where
+    |phi| <= KNIFE_EDGE (rounding decides the sign there)."""
+    bad = np.argwhere(s.tags.cell_tags != h.tags.cell_tags)
+    if bad.size:
+        phi, d = h.phi_lat, h.degree
+        near = [float(phi[d * z : d * z + d + 1 : d, d * y : d * y + d + 1 : d, d * x : d * x + d + 1 : d].abs().min())
+                for z, y, x in bad]
+        if max(near) > KNIFE_EDGE:
+            raise AssertionError(f"{label}: cell tags differ off the knife edge at {bad[:10]}")
+    print(f"[{label}] tags: {len(bad)} cell tags differ from the CPU lane (allowed only at knife-edge cells)")
+
+
+def _against_cpu3(s, h) -> dict:
+    """b and one seeded matvec of the card's scheme against the CPU lane's."""
+    rng = np.random.default_rng(SEED)
+    x = {k: torch.as_tensor(rng.standard_normal(v.numel())) for k, v in h.b.items()}
+    yc = s.matvec({k: v.to(DEVICE) for k, v in x.items()})
+    yh = h.matvec(x)
+    return {"b": max(_rel(s.b[k], h.b[k]) for k in h.b), "matvec": max(_rel(yc[k], yh[k]) for k in yh)}
+
+
+def _solve_weak3(s, label: str, expect, tol=TOL, maxiter=200) -> tuple:
+    """lattice_preconditioner() + BiCGStab, cold and warm; the count pinned."""
+    M, t_pre = _sync_time(s.lattice_preconditioner)
+    kw = dict(method="bicgstab", tol=tol, maxiter=maxiter, precond=M)
+    r0, t_cold = _sync_time(s.solve, **kw)
+    r, t_warm = _sync_time(s.solve, **kw)
+    nd = 2 * s.b["u"].numel()
+    print(f"[{label}] ndofs={nd} ({int(s.active['u'].sum()) + int(s.active['p'].sum())} active): "
+          f"lattice_preconditioner() {t_pre:.3f} s ({_band(s._band)}); bicgstab tol {tol:.0e}: cold {t_cold:.3f} s "
+          f"({r0.iterations} it), warm {t_warm:.3f} s, {r.iterations} it, relres {r.residual:.3e}; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for res in (r0, r):
+        if not (res.converged and res.residual <= 10 * tol):
+            raise AssertionError(f"{label}: not converged, relres {res.residual}, {res.iterations} it")
+        if res.iterations != expect:
+            raise AssertionError(f"{label}: {res.iterations} iterations, not {expect}")
+    _hold_lattice3_levels(M.mg, label)
+    return M, r
+
+
+def phase_weak3_q1(pt) -> dict:
+    """Q1 on the sphere: n=32 held against the CPU lane's whole solve (same
+    count, u to 1e-6); n=64 and n=128 (4,293,378 DoFs, Schwarz branch)
+    solved to 1e-10 in exactly Q1_IT[n] iterations, L2(64) / L2(128) > 3;
+    at n=128 the tags, b and one seeded matvec against the CPU lane's."""
+    errs, counts = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    for n in (N3_Q1_CPU, N3_Q1 // 2, N3_Q1):
+        label = f"weak3 Q1 n={n}"
+        _reset3()
+        s, t_tag = _sync_time(_weak3, pt, n, 1, DEVICE)
+        _, t_asm = _sync_time(s.assemble)
+        print(f"[{label}] tag {t_tag:.3f} s ({s.tags.num_cut_cells} cut cells), assemble {t_asm:.3f} s")
+        M, r = _solve_weak3(s, label, Q1_IT[n])
+        counts[n] = _counts3()
+        errs[n] = s.l2_h1_errors(u_smooth)
+        print(f"[{label}] relative L2 {errs[n]['l2']:.4e}, H10 {errs[n]['h10']:.4e}; launches {counts[n]}")
+        if n == N3_Q1_CPU:
+            h = _weak3(pt, n, 1, "cpu").assemble()
+            rh = h.solve(tol=TOL, maxiter=200, precond=h.lattice_preconditioner())
+            e = _against_cpu3(s, h)
+            e["u"] = _rel(r.x["u"], rh.x["u"])
+            _check_tags3(s, h, label)
+            _hold(label, e)
+            print(f"[{label}] CPU lane: {rh.iterations} it (card {r.iterations})")
+            if rh.iterations != r.iterations:
+                raise AssertionError(f"{label}: {r.iterations} iterations on the card, {rh.iterations} on the CPU")
+        if n == N3_Q1:
+            t0 = time.perf_counter()
+            h = _weak3(pt, n, 1, "cpu").assemble()
+            _check_tags3(s, h, label)
+            _hold(label, _against_cpu3(s, h))
+            del h
+            print(f"[{label}] CPU lane (tag, assemble, one matvec) {time.perf_counter() - t0:.1f} s")
+            kern = _device_kernels(lambda: s.solve(tol=TOL, maxiter=2, precond=M), 1)
+            busy = sum(t for _, t in kern.values())
+            count = sum(c for c, _ in kern.values())
+            _, wall = _sync_time(lambda: s.solve(tol=TOL, maxiter=2, precond=M))
+            print(f"[{label} profile] 2 BiCGStab iterations, wall {wall:.3f} s unprofiled: {count} kernels "
+                  f"({count / 2:.0f} per iteration, set-up of the solve included), device busy {busy:.1f} ms = "
+                  f"{busy / 1e3 / wall:.1%} of the wall; top kernels by device time:")
+            for k, (c, t) in sorted(kern.items(), key=lambda kv: -kv[1][1])[:10]:
+                print(f"    {k[:90]:90s} x{c:8d} {t:9.2f} ms")
+        del s, M, r
+        torch.cuda.empty_cache()
+    ratio = errs[N3_Q1 // 2]["l2"] / errs[N3_Q1]["l2"]
+    print(f"[weak3 Q1] L2(64) / L2(128) = {ratio:.2f} (> 3: O(h^2))")
+    if not ratio > 3.0:
+        raise AssertionError(f"weak3 Q1 convergence: {errs}")
+    return counts
+
+
+def phase_weak3_q2(pt) -> dict:
+    """Q2 on the sphere with the low-order-refined lattice_preconditioner()
+    and BiCGStab to 1e-10 (maxiter 2000) at n=16 and n=32 (549,250 DoFs),
+    the counts pinned, L2(16) / L2(32) > 6; at n=16 the tags, b and one
+    seeded matvec against the CPU lane's; then Q3 at n=N3_Q3 by the sparse
+    direct solve, which reproduces a cubic (L2 and H10 < 1e-9)."""
+    counts, errs = {}, {}
+    for n in (N3_Q2 // 2, N3_Q2):
+        label = f"weak3 Q2 n={n}"
+        _reset3()
+        s, t_build = _sync_time(lambda: _weak3(pt, n, 2, DEVICE).assemble())
+        print(f"[{label}] setup + assemble {t_build:.3f} s")
+        _, r = _solve_weak3(s, label, Q2_IT[n], maxiter=2000)
+        counts[n] = _counts3()
+        e = errs[n] = s.l2_h1_errors(u_smooth)
+        print(f"[{label}] relative L2 {e['l2']:.4e}, H10 {e['h10']:.4e}; launches {counts[n]}")
+        if n == N3_Q2 // 2:
+            h = _weak3(pt, n, 2, "cpu").assemble()
+            _check_tags3(s, h, label)
+            _hold(label, _against_cpu3(s, h))
+            del h
+        del s
+        torch.cuda.empty_cache()
+    ratio = errs[N3_Q2 // 2]["l2"] / errs[N3_Q2]["l2"]
+    print(f"[weak3 Q2] L2(16) / L2(32) = {ratio:.2f} (> 6: O(h^3))")
+    if not ratio > 6.0:
+        raise AssertionError(f"weak3 Q2 convergence: {errs}")
+    uc = lambda x: x[..., 0] ** 3 - 3.0 * x[..., 0] * x[..., 1] ** 2 + x[..., 2] ** 3 + 0.5 * x[..., 1]
+    fc = lambda x: -6.0 * x[..., 2]
+    _reset3()
+    s, t_build = _sync_time(lambda: _weak3(pt, N3_Q3, 3, DEVICE, u=uc, f=fc).assemble())
+    r, t_solve = _sync_time(s.solve, method="sparse")
+    e = s.l2_h1_errors(uc)
+    counts["Q3"] = _counts3()
+    print(f"[weak3 Q3 n={N3_Q3}] ndofs={2 * s.b['u'].numel()}: setup + assemble {t_build:.3f} s, sparse solve "
+          f"{t_solve:.3f} s, relres {r.residual:.3e}; cubic reproduced to L2 {e['l2']:.3e}, H10 {e['h10']:.3e} "
+          f"(< 1e-9); launches {counts['Q3']}")
+    if not (r.converged and e["l2"] < 1e-9 and e["h10"] < 1e-9):
+        raise AssertionError(f"Q3 cubic exactness: {e}, relres {r.residual}")
+    return counts
+
+
+def phase_strong3(pt) -> dict:
+    """S2-3D on the sphere at n=64: Jacobi-equilibrated BiCGStab to 1e-10
+    in exactly STRONG3_IT iterations, the interior error checked."""
+    u, f = _strong3_data()
+    _reset3()
+    g = pt.Grid3(N3_STRONG, N3_STRONG, N3_STRONG, BOX3, device=DEVICE)
+    s, t_build = _sync_time(lambda: pt.StrongDirichletPoisson3(g).setup(sphere_phi, f).assemble())
+    r0, t_cold = _sync_time(s.solve, tol=TOL, maxiter=8000)
+    r, t_warm = _sync_time(s.solve, tol=TOL, maxiter=8000)
+    e = s.l2_h1_errors(u)
+    print(f"[strong3 n={N3_STRONG}] ndofs={g.num_vertices} ({int(s.active['w'].sum())} active): setup + assemble "
+          f"{t_build:.3f} s; bicgstab tol {TOL:.0e}: cold {t_cold:.3f} s ({r0.iterations} it), warm {t_warm:.3f} s, "
+          f"{r.iterations} it, relres {r.residual:.3e}; relative L2 {e['l2']:.4e}, H10 {e['h10']:.4e}")
+    for res in (r0, r):
+        if not (res.converged and res.residual <= 10 * TOL):
+            raise AssertionError(f"strong3: relres {res.residual}")
+        if res.iterations != STRONG3_IT:
+            raise AssertionError(f"strong3: {res.iterations} iterations, not {STRONG3_IT}")
+    if not e["l2"] < 0.05:
+        raise AssertionError(f"strong3 error {e}")
+    return _counts3()
+
+
+def run_slice_f1(pt) -> tuple:
+    """Every 3D phase; returns (the two kernel lines, launches per path)."""
+    t0 = time.perf_counter()
+    hex_line = phase_kernel_hex3(pt)
+    lat_line = phase_kernel_lattice3(pt)
+    print(f"[time] 3D kernel phases {time.perf_counter() - t0:.1f} s")
+    paths = {}
+    for n in (N3_BOX, N3_BOX_LARGE):
+        t0 = time.perf_counter()
+        _reset3()
+        torch.cuda.reset_peak_memory_stats()
+        phase_box3(pt, n)
+        paths[f"box3 n={n}"] = _counts3()
+        torch.cuda.empty_cache()
+        print(f"[time] box3 n={n} {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for n, c in phase_weak3_q1(pt).items():
+        paths[f"weak3 Q1 n={n}"] = c
+    print(f"[time] weak3 Q1 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for n, c in phase_weak3_q2(pt).items():
+        paths[f"weak3 Q2 n={n}" if n != "Q3" else f"weak3 Q3 n={N3_Q3} sparse"] = c
+    print(f"[time] weak3 Q2 / Q3 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths[f"strong3 n={N3_STRONG}"] = phase_strong3(pt)
+    print(f"[time] strong3 {time.perf_counter() - t0:.1f} s")
+    print(f"[main path 3D] kernel launches per path: {paths}")
+    for p, c in paths.items():
+        if p.startswith("weak3") and c["hex3"] <= 0:
+            raise AssertionError(f"{p} never launched the hex3 kernel")
+        if p.startswith(("box3", "weak3 Q1", "weak3 Q2")) and c["lattice3"] <= 0:
+            raise AssertionError(f"{p} never launched the lattice3 kernel")
+    hex_line["launches"] = sum(c["hex3"] for c in paths.values())
+    hex_line["launches_by_path"] = {p: c["hex3"] for p, c in paths.items()}
+    lat_line["launches"] = sum(c["lattice3"] for c in paths.values())
+    lat_line["launches_by_path"] = {p: c["lattice3"] for p, c in paths.items()}
+    return [hex_line, lat_line], paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -1281,7 +1821,9 @@ def main() -> int:
     t_start = time.perf_counter()
     print(SEP)
     name = phase_device()
-    phase_build(cs, ct)
+    from phifem_tpu_torch.ops import cuda_hex3, cuda_lattice3
+
+    phase_build(cs, ct, cuda_hex3, cuda_lattice3)
     kernel = phase_kernel(pt, cs)
 
     # each main path counts its own launches, from 0 just before it
@@ -1350,6 +1892,12 @@ def main() -> int:
     paths["S1 Q3 circle"] = phase_q3(pt, cs)
     print(f"[time] slice E phases {time.perf_counter() - t_e:.1f} s")
 
+    # slice F1: 3D box Poisson, weak Dirichlet Q1-Q3, strong Dirichlet; its
+    # paths count the two 3D kernels (and launch neither 2D kernel)
+    t_f = time.perf_counter()
+    kernels3, paths3 = run_slice_f1(pt)
+    print(f"[time] slice F1 phases {time.perf_counter() - t_f:.1f} s")
+
     print(f"[main path] kernel launches per path: {paths}")
     if paths["box Poisson"]["stencil"] <= 0:
         raise AssertionError("the box-Poisson path never launched the stencil kernel")
@@ -1388,7 +1936,7 @@ def main() -> int:
         "s5_launches_by_path": {p: c["taps"] for p, c in paths.items() if p.startswith("S5")},
     }
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [kernel, taps]}))
+    print(json.dumps({"kernels": [kernel, taps, *kernels3]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -8,18 +8,22 @@ BiCGStab, GMRES, flexible GMRES and mixed-precision refinement, the
 geometric and lattice multigrid V-cycles with the cut-band interface solve,
 p-multigrid for degree >= 2 (``pmg``), box Poisson and the phi-FEM schemes
 S1-S4 in bg and sub mode and S5 (two-material interface elasticity: sparse
-direct and deflated, lattice-preconditioned BiCGStab).  The P1 cell-stencil
-matvec (``ops/cuda_stencil.py``) and the tap-form matvec
-(``ops/cuda_taps.py``) run hand-written CUDA kernels for tensors on an
+direct and deflated, lattice-preconditioned BiCGStab); in 3D, the hex
+grid and its tagging, the lattice multigrid, box Poisson, S1 at Q1-Q3 and
+S2.  The P1 cell-stencil matvec (``ops/cuda_stencil.py``), the tap-form
+matvec (``ops/cuda_taps.py``), the masked hex-cell stencil
+(``ops/cuda_hex3.py``) and the 27-point lattice sweep
+(``ops/cuda_lattice3.py``) run hand-written CUDA kernels for tensors on an
 NVIDIA Hopper card and their plain PyTorch versions for tensors on the
 CPU.
 
-Device and dtype are explicit: a :class:`Grid` takes ``device=`` and
+Device and dtype are explicit: a :class:`Grid` (or :class:`Grid3`) takes ``device=`` and
 ``dtype=`` (default float64), and everything built on it follows.  The
 package sets no global torch default.
 """
 
 from .grid import CellType, Grid
+from .grid3 import Grid3
 from .spaces import Function, Space, interpolate
 from .tagging import Submesh, compute_tags_measures, tag_cells, tag_facets
 from .assembly import (
@@ -38,16 +42,20 @@ from .mg import LatticeBulkVCycle, VCycle, attach_interface_solve, build_hierarc
 from .solvers import DirichletBC, solve, solve_ir
 from .models import (
     BoxPoisson,
+    BoxPoisson3,
     InterfaceElasticity,
     NeumannPoisson,
     RobinPoisson,
     StrongDirichletPoisson,
+    StrongDirichletPoisson3,
     WeakDirichletPoisson,
+    WeakDirichletPoisson3,
 )
 
 __all__ = [
     "CellType",
     "Grid",
+    "Grid3",
     "Space",
     "Function",
     "interpolate",
@@ -80,4 +88,7 @@ __all__ = [
     "NeumannPoisson",
     "RobinPoisson",
     "InterfaceElasticity",
+    "BoxPoisson3",
+    "WeakDirichletPoisson3",
+    "StrongDirichletPoisson3",
 ]

@@ -488,20 +488,27 @@ def data_dependent_selection(op, active) -> Dict[str, np.ndarray]:
     return sel
 
 
-def _blocks_from_ell(
-    ecols: np.ndarray, evals: np.ndarray, bids: np.ndarray, pad: int, chunk: int = 256
-) -> np.ndarray:
-    """Batched dense submatrices ``A[bl][:, bl]`` for the RAS blocks,
-    gathered from the (m+1, nnzmax) ELL layout (row ``pad`` is the zero
-    padding row); vectorized over blocks in chunks."""
+def blocks_from_csr(A_csr, bids: np.ndarray, m: int, chunk: int = 1 << 22) -> np.ndarray:
+    """Batched dense submatrices ``A[bl][:, bl]`` of the (nb, K) blocks
+    ``bids`` (padded with ``m``: zero rows and columns), looked up in the
+    sorted (row, column) keys of the canonical CSR matrix: O(nb K^2 log nnz)
+    in chunks of about ``chunk`` entries, whatever the row lengths (the
+    JAX package slices the CSR matrix once per block)."""
+    A = A_csr.tocsr(copy=True)
+    A.sum_duplicates()
+    A.sort_indices()
+    rows = np.repeat(np.arange(A.shape[0], dtype=np.int64), np.diff(A.indptr))
+    keys = rows * (m + 1) + A.indices
     nb, K = bids.shape
     out = np.zeros((nb, K, K))
-    for s in range(0, nb, chunk):
-        b = bids[s : s + chunk]  # (B, K)
-        rc = ecols[b]  # (B, K, nnzmax)
-        rv = evals[b]
-        for j in range(K):
-            out[s : s + chunk, :, j] = (rv * (rc == b[:, None, j, None])).sum(axis=-1)
+    if keys.size == 0:
+        return out
+    step = max(1, chunk // max(1, K * K))
+    for s in range(0, nb, step):
+        b = bids[s : s + step].astype(np.int64)
+        q = (b[:, :, None] * (m + 1) + b[:, None, :]).reshape(-1)
+        pos = np.minimum(np.searchsorted(keys, q), keys.size - 1)
+        out[s : s + step] = np.where(keys[pos] == q, A.data[pos], 0.0).reshape(b.shape[0], K, K)
     return out
 
 
@@ -530,25 +537,65 @@ def ras_owner(bids: np.ndarray, own: np.ndarray, m: int) -> np.ndarray:
     return out
 
 
-def _entity_blocks(op, off, idx_of: np.ndarray, total: int) -> np.ndarray:
-    """(nb, K) compact band ids of one overlapping block per data-dependent
-    entity (its selected DoFs, ascending, unique), padded with ``total``;
-    entities with no selected DoF make no block."""
-    from .assembly import _is_dynamic
+def set_schwarz_tables(vc: VCycle, A_csr, ids: np.ndarray, bids: np.ndarray, sweeps: int, device) -> VCycle:
+    """Fill the Schwarz branch of ``vc``'s band solve (float64 tables on
+    ``device``): ``A_csr`` is the (m, m) canonical CSR band matrix over the
+    global flat ids ``ids``, ``bids`` the (nb, K) overlapping RAS blocks in
+    compact ids padded with m, ``sweeps`` the inner BiCGStab iterations.
+    Shared by :func:`attach_interface_solve` and the 3D lattice schemes."""
+    m = ids.shape[0]
+    nb, K = bids.shape
+    tab = lambda a, dtype=TABLE_DTYPE: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    # RAS ownership: each band DoF is corrected from the first block that
+    # holds it
+    valid = bids < m
+    blk = np.broadcast_to(np.arange(nb)[:, None], bids.shape)
+    owner = np.full(m + 1, nb, np.int64)
+    np.minimum.at(owner, bids[valid], blk[valid])
+    own = valid & (owner[bids] == blk)
+    ecols, evals, nnz_row = _ell(A_csr, m)
+    mats = blocks_from_csr(A_csr, bids, m)
+    # identity on padded slots and numerically null diagonals
+    d = np.arange(K)
+    dvals = mats[:, d, d]
+    mats[:, d, d] = np.where((np.abs(dvals) < 1e-300) | ~valid, 1.0, dvals)
+    vc.schwarz_ids = tab(bids, torch.int64)
+    vc.schwarz_inv = tab(np.linalg.inv(mats))
+    vc.schwarz_owner = tab(ras_owner(bids, own, m), torch.int64)
+    vc.schwarz_sweeps = int(sweeps)
+    # the band matrix itself, ELL rows 0..m-1; identity on empty rows
+    cols, vals = ecols[:m].copy(), evals[:m].copy()
+    zr = np.where(nnz_row == 0)[0]
+    cols[zr, 0] = zr
+    vals[zr, 0] = 1.0
+    vc.band_ids = tab(ids, torch.int64)
+    vc.band_ell_cols = tab(cols, torch.int64)
+    vc.band_ell_vals = tab(vals)
+    return vc
 
+
+def entity_blocks(entity_dofs, idx_of: np.ndarray, m: int) -> np.ndarray:
+    """(nb, K) compact ids of one overlapping block per entity (its
+    selected DoFs, ascending and unique), padded with ``m``: ``entity_dofs``
+    is a sequence of (ne, r) global id arrays, ``idx_of`` maps a global id
+    to its compact one (-1: not selected).  Families in the order given and
+    entities in their order; entities with no selected DoF make no block.
+    The vectorized form of the JAX package's per-entity ``np.unique`` loop."""
     rows = []
-    for b in op.batches:
-        if not _is_dynamic(b):
+    for dofs in entity_dofs:
+        if dofs.shape[0] == 0:
             continue
-        l = idx_of[b.entity_global_dofs(off)]
-        l = np.sort(np.where(l >= 0, l, total), axis=1)
+        l = idx_of[np.asarray(dofs)]
+        l = np.sort(np.where(l >= 0, l, m), axis=1)
         dup = np.zeros_like(l, bool)
         dup[:, 1:] = l[:, 1:] == l[:, :-1]
-        rows.append(np.sort(np.where(dup, total, l), axis=1))
+        rows.append(np.sort(np.where(dup, m, l), axis=1))
+    if not rows:
+        return np.zeros((0, 1), np.int64)
     K = max(r.shape[1] for r in rows)
-    bl = np.concatenate([np.pad(r, ((0, 0), (0, K - r.shape[1])), constant_values=total) for r in rows])
-    bl = bl[(bl < total).any(axis=1)]
-    K = int((bl < total).sum(axis=1).max())
+    bl = np.concatenate([np.pad(r, ((0, 0), (0, K - r.shape[1])), constant_values=m) for r in rows])
+    bl = bl[(bl < m).any(axis=1)]
+    K = max(1, int((bl < m).sum(axis=1).max())) if bl.shape[0] else 1
     return bl[:, :K]
 
 
@@ -597,37 +644,14 @@ def attach_interface_solve(
         return vc
 
     # ---- Schwarz block path
+    from .assembly import _is_dynamic
+
     A_csr, ids = op.restricted_csr(sel)
     off, _, idx_of = op._selection_ids(sel)
-    bids = _entity_blocks(op, off, idx_of, total)
-    nb, K = bids.shape
-    # RAS ownership: each band DoF is corrected from the first block that
-    # holds it
-    valid = bids < total
-    blk = np.broadcast_to(np.arange(nb)[:, None], bids.shape)
-    owner = np.full(total + 1, nb, np.int64)
-    np.minimum.at(owner, bids[valid], blk[valid])
-    own = valid & (owner[bids] == blk)
-    ecols, evals, nnz_row = _ell(A_csr, total)
-    mats = _blocks_from_ell(ecols, evals, bids, total)
-    # identity on padded slots and numerically null diagonals
-    d = np.arange(K)
-    dvals = mats[:, d, d]
-    mats[:, d, d] = np.where((np.abs(dvals) < 1e-300) | ~valid, 1.0, dvals)
-    vc.schwarz_ids = tab(bids, torch.int64)
-    vc.schwarz_inv = tab(np.linalg.inv(mats))
-    vc.schwarz_owner = tab(ras_owner(bids, own, total), torch.int64)
+    bids = entity_blocks([b.entity_global_dofs(off) for b in op.batches if _is_dynamic(b)], idx_of, total)
     # inner-iteration demand grows slowly with the band size: ~sqrt(m)
-    vc.schwarz_sweeps = sweeps if sweeps is not None else max(10, int(sweeps_coef * total**0.5))
-    # the band matrix itself, ELL rows 0..m-1; identity on empty rows
-    cols, vals = ecols[:total].copy(), evals[:total].copy()
-    zr = np.where(nnz_row == 0)[0]
-    cols[zr, 0] = zr
-    vals[zr, 0] = 1.0
-    vc.band_ids = tab(ids, torch.int64)
-    vc.band_ell_cols = tab(cols, torch.int64)
-    vc.band_ell_vals = tab(vals)
-    return vc
+    n_sweeps = sweeps if sweeps is not None else max(10, int(sweeps_coef * total**0.5))
+    return set_schwarz_tables(vc, A_csr, ids, bids, n_sweeps, dev)
 
 
 def _flat_layout(vc: VCycle, op):

@@ -1,23 +1,30 @@
 """Problem models of the port: box Poisson and the phi-FEM schemes S1
 (weak Dirichlet), S2 (strong Dirichlet), S3 (Neumann), S4 (Robin) and S5
-(two-material interface elasticity)."""
+(two-material interface elasticity); in 3D, box Poisson, S1 at Q1-Q3 and
+S2 on the hex lattice."""
 
 from .base import SchemeBase
 from .interface_elasticity import InterfaceElasticity, s5_forms
 from .neumann import NeumannPoisson, s3_forms
 from .poisson import BoxPoisson
+from .poisson3 import BoxPoisson3
 from .robin import RobinPoisson, s4_forms
 from .strong_dirichlet import StrongDirichletPoisson, s2_forms
+from .strong_dirichlet3 import StrongDirichletPoisson3
 from .weak_dirichlet import WeakDirichletPoisson, s1_forms
+from .weak_dirichlet3 import WeakDirichletPoisson3
 
 __all__ = [
     "BoxPoisson",
+    "BoxPoisson3",
     "InterfaceElasticity",
     "NeumannPoisson",
     "RobinPoisson",
     "SchemeBase",
     "StrongDirichletPoisson",
+    "StrongDirichletPoisson3",
     "WeakDirichletPoisson",
+    "WeakDirichletPoisson3",
     "s1_forms",
     "s2_forms",
     "s3_forms",

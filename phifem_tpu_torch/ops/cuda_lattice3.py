@@ -1,0 +1,165 @@
+"""The 27-point lattice sweep of the 3D lattice multigrid: CUDA kernel
+wrapper and its plain version.
+
+Replaces the XLA-fused ``_conv_interior3`` loops of
+``phifem_tpu/ops/lattice3.py`` (the matvec of ``lattice3_cg``, the residual
+of ``Lattice3MG._cycle`` and the damped-Jacobi sweep of
+``Lattice3MG._smooth``).  The kernel (``phifem_tpu_torch/csrc/
+lattice3_sweep.cu``) is built with ``nvcc`` at first use
+(:mod:`phifem_tpu_torch.ops.nvcc_build`) and loaded with ``ctypes``.
+
+:func:`lattice3_sweep` dispatches on the tensor's device: a CPU tensor goes
+to :func:`lattice3_sweep_ref` (shifted slices), a CUDA tensor to the kernel,
+anything else raises; there is no fallback from the card to the plain
+version.  ``launches`` counts kernel launches.  All three modes write a new
+padded array: ``MATVEC`` ``A x``, ``RESIDUAL`` ``(b - A x) * m`` and
+``JACOBI`` ``x + (s (b - A x)) * m`` on the logical interior, and zero
+(``x`` for ``JACOBI``) elsewhere.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import nvcc_build
+
+__all__ = ["MATVEC", "RESIDUAL", "JACOBI", "lattice3_sweep", "lattice3_sweep_ref", "pack_terms", "build"]
+
+MATVEC, RESIDUAL, JACOBI = 0, 1, 2
+
+#: number of kernel launches made by :func:`lattice3_sweep`
+launches = 0
+
+SOURCE = nvcc_build.PKG / "csrc" / "lattice3_sweep.cu"
+MAX_TERMS = 27
+
+
+def lattice3_sweep_ref(
+    mode: int,
+    x: torch.Tensor,
+    terms: Sequence[Tuple[int, int, int, float]],
+    b: Optional[torch.Tensor] = None,
+    mask: Optional[torch.Tensor] = None,
+    scale: float = 0.0,
+) -> torch.Tensor:
+    """Plain PyTorch version on padded ``(D+2, R+2, C+2)`` arrays, by the
+    shifted slices of :func:`~phifem_tpu_torch.ops.lattice3._conv_interior3`.
+    ``mask``: logical ``(D, R, C)`` or None; ``scale``: the Jacobi factor
+    ``omega / w_center``."""
+    from .lattice3 import _conv_interior3
+
+    D, R, C = (s - 2 for s in x.shape)
+    ax = _conv_interior3(x, terms, D, R, C)
+    if mode == MATVEC:
+        val = ax
+    else:
+        val = b[2:D, 2:R, 2:C] - ax
+        if mode == JACOBI:
+            val = scale * val
+        if mask is not None:
+            val = val * mask[1 : D - 1, 1 : R - 1, 1 : C - 1]
+        if mode == JACOBI:
+            val = x[2:D, 2:R, 2:C] + val
+    out = x.clone() if mode == JACOBI else torch.zeros_like(x)
+    out[2:D, 2:R, 2:C] = val
+    return out
+
+
+class PackedTerms(tuple):
+    """A stencil's terms with their kernel form: ``offs`` (n, 3) int32 and
+    ``w`` (n,) float64 host arrays, made once by :func:`pack_terms`."""
+
+    offs: np.ndarray
+    w: np.ndarray
+
+
+def pack_terms(terms: Sequence[Tuple[int, int, int, float]]) -> PackedTerms:
+    """The terms as a tuple that also carries the kernel's host arrays."""
+    if not 1 <= len(terms) <= MAX_TERMS:
+        raise ValueError(f"lattice3_sweep: 1 to {MAX_TERMS} terms, got {len(terms)}")
+    p = PackedTerms(tuple((int(a), int(b), int(c), float(w)) for a, b, c, w in terms))
+    p.offs = np.ascontiguousarray([t[:3] for t in p], dtype=np.int32)
+    p.w = np.ascontiguousarray([t[3] for t in p], dtype=np.float64)
+    if p.offs.min() < 0 or p.offs.max() > 2:
+        raise ValueError("lattice3_sweep: term offsets must lie in {0, 1, 2}")
+    return p
+
+
+def lattice3_sweep(
+    mode: int,
+    x: torch.Tensor,
+    terms: Sequence[Tuple[int, int, int, float]],
+    b: Optional[torch.Tensor] = None,
+    mask: Optional[torch.Tensor] = None,
+    scale: float = 0.0,
+) -> torch.Tensor:
+    """One sweep (see the module docstring) on padded ``(D+2, R+2, C+2)``
+    arrays; returns a new array.  CPU tensors take the plain version; CUDA
+    tensors the kernel, which takes float32 or float64, contiguous tensors
+    on one card, ``b`` in modes ``RESIDUAL`` / ``JACOBI`` and the mask in
+    x's dtype.  ``terms`` may be a :class:`PackedTerms` (what a cycle
+    keeps per level) or any sequence of ``(oz, oy, ox, w)``."""
+    global launches
+    if mode not in (MATVEC, RESIDUAL, JACOBI):
+        raise ValueError(f"lattice3_sweep: unknown mode {mode}")
+    if mode != MATVEC and b is None:
+        raise ValueError("lattice3_sweep: the residual and Jacobi modes need b")
+    dev = x.device
+    if dev.type == "cpu":
+        return lattice3_sweep_ref(mode, x, terms, b, mask, scale)
+    if dev.type != "cuda":
+        raise ValueError(f"lattice3_sweep: no kernel for device {dev}")
+    if not isinstance(terms, PackedTerms):
+        terms = pack_terms(terms)
+    dt = x.dtype
+    if dt is not torch.float32 and dt is not torch.float64:
+        raise TypeError(f"lattice3_sweep: x must be float32 or float64, got {dt}")
+    if x.dim() != 3 or min(x.shape) < 3 or not x.is_contiguous():
+        raise ValueError(f"lattice3_sweep: x must be a contiguous padded 3D array, got {tuple(x.shape)}")
+    D, R, C = (s - 2 for s in x.shape)
+    bp = mp = None
+    if mode != MATVEC:
+        if b.shape != x.shape or b.dtype is not dt or b.device != dev or not b.is_contiguous():
+            raise ValueError("lattice3_sweep: b must be contiguous and match x in shape, dtype and device")
+        bp = b.data_ptr()
+        if mask is not None:
+            if mask.shape != (D, R, C) or mask.dtype is not dt or mask.device != dev or not mask.is_contiguous():
+                raise ValueError(f"lattice3_sweep: the mask must be a contiguous {(D, R, C)} tensor in x's dtype "
+                                 "on x's device")
+            mp = mask.data_ptr()
+    out = torch.empty_like(x)
+    lib = _library()
+    args = (x.data_ptr(), bp, mp, out.data_ptr(), D, R, C, terms.offs.ctypes.data, terms.w.ctypes.data,
+            len(terms), float(scale), mode, dt is torch.float64, torch._C._cuda_getCurrentRawStream(dev.index))
+    if dev.index == torch.cuda.current_device():
+        err = lib.phifem_lattice3_sweep(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = lib.phifem_lattice3_sweep(*args)
+    if err:
+        msg = lib.phifem_lattice3_error_string(err).decode()
+        raise RuntimeError(f"lattice3_sweep kernel launch failed: CUDA error {err} ({msg})")
+    launches += 1
+    return out
+
+
+def build() -> dict:
+    """Compile the kernel library if it is not built yet (see
+    :func:`phifem_tpu_torch.ops.nvcc_build.build`)."""
+    return nvcc_build.build(SOURCE)
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(build()["path"])
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.phifem_lattice3_sweep.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp, vp, ci, ctypes.c_double, ci, ci, vp]
+    lib.phifem_lattice3_sweep.restype = ci
+    lib.phifem_lattice3_error_string.argtypes = [ci]
+    lib.phifem_lattice3_error_string.restype = ctypes.c_char_p
+    return lib

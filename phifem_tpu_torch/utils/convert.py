@@ -13,6 +13,7 @@ from ..assembly import Batch, Operator, System
 from ..grid import Grid
 from ..mg import TABLE_DTYPE, VCycle, ras_owner
 from ..ops.lattice import LatticeMG, LatticeVarMG, _Level
+from ..ops.lattice3 import Lattice3MG, _Level3
 from ..ops.stencil import StencilCellBatch
 from ..ops.taps import TapOperator, build_tap_operator
 from ..spaces import Function, Space
@@ -30,6 +31,8 @@ __all__ = [
     "interface_tables_from_numpy",
     "tap_operator_from_numpy",
     "scheme_data_from_numpy",
+    "lattice3_mg_from_numpy",
+    "scheme3_data_from_numpy",
 ]
 
 
@@ -201,3 +204,58 @@ def scheme_data_from_numpy(scheme, **arrays) -> None:
     for name, data in arrays.items():
         fn = getattr(scheme, name)
         setattr(scheme, name, function_from_numpy(fn.space, data))
+
+
+def lattice3_mg_from_numpy(
+    levels: Sequence[Tuple[int, int, int, Sequence[Tuple[int, int, int, float]]]],
+    coarse_inv: np.ndarray,
+    masks: Optional[Sequence[np.ndarray]],
+    dtype: torch.dtype,
+    device="cuda",
+    **kw,
+) -> Lattice3MG:
+    """``levels``: ``(D, R, C, terms)`` per level, fine to coarse (the JAX
+    package's ``_Level3`` fields), ``masks`` the per-level logical
+    ``(D, R, C)`` masks or None; the tables go to ``device`` (the card
+    unless the caller asks for the CPU)."""
+    tens = lambda a: torch.tensor(np.asarray(a), dtype=dtype, device=device)
+    return Lattice3MG(
+        [_Level3(int(D), int(R), int(C), tuple((int(a), int(b), int(c), float(w)) for a, b, c, w in terms))
+         for D, R, C, terms in levels],
+        tens(coarse_inv),
+        dtype=dtype,
+        masks=None if masks is None else [tens(m).contiguous() for m in masks],
+        **kw,
+    )
+
+
+def scheme3_data_from_numpy(scheme, **arrays) -> None:
+    """Replace the assembled tables of a 3D lattice scheme
+    (``WeakDirichletPoisson3`` after ``assemble``) by numpy arrays, in place:
+    ``A8``, ``E_uu``, ``E_up``, ``E_pp``, ``bulk_mask`` (float tables in the
+    grid's dtype), ``cut_dofs`` (int64), ``ghost`` / ``bdry`` (lists of
+    ``(dofs, matrix)``), ``b`` / ``diag`` / ``active`` (dicts of per-field
+    flat arrays), so that its matvec and preconditioner run on another
+    implementation's tables.  The ordered scatter plans follow the new ids."""
+    from ..models.lattice_core import OrderedScatter
+
+    g = scheme.grid
+    flt = lambda a: torch.tensor(np.asarray(a), dtype=g.dtype, device=g.device)
+    idx = lambda a: torch.tensor(np.asarray(a), dtype=torch.int64, device=g.device)
+    for name, val in arrays.items():
+        if name in ("ghost", "bdry"):
+            val = [(idx(d), flt(E)) for d, E in val]
+        elif name in ("b", "diag"):
+            val = {k: flt(v) for k, v in val.items()}
+        elif name == "active":
+            val = {k: torch.tensor(np.asarray(v), dtype=torch.bool, device=g.device) for k, v in val.items()}
+        elif name == "cut_dofs":
+            val = idx(val)
+        else:
+            val = flt(val).contiguous()
+        setattr(scheme, name, val)
+    scheme._scatter_u = OrderedScatter(
+        torch.cat([scheme.cut_dofs.reshape(-1)] + [d.reshape(-1) for d, _ in scheme.ghost + scheme.bdry])
+    )
+    scheme._scatter_p = OrderedScatter(scheme.cut_dofs)
+    scheme._solve_cache = {}

@@ -19,7 +19,10 @@ def test_import_leaves_jax_out():
         "phifem_tpu_torch.models.robin, phifem_tpu_torch.models.neumann_square, "
         "phifem_tpu_torch.models.robin_square, phifem_tpu_torch.models.interface_elasticity, "
         "phifem_tpu_torch.models.elasticity_disk, phifem_tpu_torch.utils.config, "
-        "phifem_tpu_torch.pmg; "
+        "phifem_tpu_torch.pmg, phifem_tpu_torch.grid3, phifem_tpu_torch.tagging3, "
+        "phifem_tpu_torch.ops.lattice3, phifem_tpu_torch.ops.cuda_lattice3, phifem_tpu_torch.ops.cuda_hex3, "
+        "phifem_tpu_torch.models.lattice_core, phifem_tpu_torch.models.poisson3, "
+        "phifem_tpu_torch.models.weak_dirichlet3, phifem_tpu_torch.models.strong_dirichlet3; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'phifem_tpu')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -41,6 +44,8 @@ def test_every_module_leaves_jax_out():
         "assert 'phifem_tpu_torch.models.interface_elasticity' in names, names\n"
         "assert 'phifem_tpu_torch.utils.config' in names, names\n"
         "assert 'phifem_tpu_torch.pmg' in names, names\n"
+        "assert {'phifem_tpu_torch.grid3', 'phifem_tpu_torch.models.weak_dirichlet3', "
+        "'phifem_tpu_torch.ops.cuda_hex3', 'phifem_tpu_torch.ops.cuda_lattice3'} <= set(names), names\n"
         "print(len(names), len(new), bad); sys.exit(1 if bad else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True)
