@@ -1368,8 +1368,9 @@ def phase_kernel_hex3(pt) -> dict:
     d=1 on the n=128 sphere mask (129^3 nodes), d=2 at n=64 (129^3), d=3 at
     n=40 (121^3), every other (degree, n) of the 3D weak paths, every degree
     on the odd lattice n=37, float32 and float64; then the first three
-    shapes' times in float64 beside their bounds, the plain version and
-    torch.mv of the CUDA CSR matrix."""
+    shapes' times in float64 and float32 beside their bounds (the share by
+    device time per launch and by ms per call), the plain version and, in
+    float64, torch.mv of the CUDA CSR matrix."""
     ch, _ = _k3()
     rng = np.random.default_rng(SEED)
     tol = {torch.float32: 1e-5, torch.float64: 1e-13}
@@ -1392,51 +1393,65 @@ def phase_kernel_hex3(pt) -> dict:
                   f"max|dy|/max|y| = {rel:.3e} (tol {tol[dt]:.0e}) {'ok' if rel <= tol[dt] else 'FAIL'}")
             if rel > tol[dt]:
                 raise AssertionError(f"hex3 kernel disagrees with its plain version: {rel} > {tol[dt]}")
-            if (d, n) not in HEX3_CASES[:3] or dt is not torch.float64:
+            if (d, n) not in HEX3_CASES[:3]:
                 continue
-            # the main-path shape of this degree, float64: time it
+            # the main-path shape of this degree: time it (the library call in float64 only)
             ncell = int((mask != 0).sum())
             nbytes = (2 * x.numel() + mask.numel()) * x.element_size()
             bound = _bound(nbytes, 2 * nloc * nloc * ncell, dt)
             call = lambda: ch.hex_stencil3(x, mask, A, d)
-            Acsr = _hex3_csr(mask, A, d)
-            yl = torch.mv(Acsr, x.reshape(-1))
-            rel_l = float((yl - yr.reshape(-1)).abs().max()) / float(yr.abs().max())
-            if rel_l > 1e-12:
-                raise AssertionError(f"the hex3 CSR is not the kernel's operator: {rel_l}")
             t = {
-                "device_ms": _device_ms(call, 20, "hex_stencil3_kernel"),
+                "device_ms": _device_ms(call, 20, "stencil3_kernel"),
                 "ms": _event_ms(call, 20),
                 "host_ms": _host_ms(call, 20),
                 "plain_ms": _event_ms(lambda: ch.hex_stencil3_ref(x, mask, A, d), 2),
-                "library_ms": _event_ms(lambda: torch.mv(Acsr, x.reshape(-1)), 10),
+                "library_ms": None,
                 "bound_ms": bound[0],
                 "bound_by": bound[1],
-                "csr_nnz": int(Acsr._nnz()),
             }
-            out[d] = t
-            print(f"[kernel hex3] time d={d} n={n} float64: kernel {t['ms']:.4f} ms per call back to back (CUDA "
+            lib = ""
+            if dt is torch.float64:
+                Acsr = _hex3_csr(mask, A, d)
+                yl = torch.mv(Acsr, x.reshape(-1))
+                rel_l = float((yl - yr.reshape(-1)).abs().max()) / float(yr.abs().max())
+                if rel_l > 1e-12:
+                    raise AssertionError(f"the hex3 CSR is not the kernel's operator: {rel_l}")
+                t["library_ms"] = _event_ms(lambda: torch.mv(Acsr, x.reshape(-1)), 10)
+                t["csr_nnz"] = int(Acsr._nnz())
+                lib = f"; CSR torch.mv {t['library_ms']:.4f} ms ({t['csr_nnz']} nonzeros, agrees to {rel_l:.1e})"
+                del Acsr, yl
+            out[d, dt] = t
+            print(f"[kernel hex3] time d={d} n={n} {str(dt)[6:]}: kernel {t['ms']:.4f} ms per call back to back (CUDA "
                   f"events), {t['device_ms']:.4f} ms device per launch (profiler), {t['host_ms']:.4f} ms host per "
                   f"call; bound {bound[0]:.4f} ms by {bound[1]} ({nbytes / 1e6:.1f} MB, "
-                  f"{2 * nloc * nloc * ncell / 1e9:.3f} GFLOP), {bound[0] / t['ms']:.1%} of it; plain "
-                  f"{t['plain_ms']:.3f} ms; CSR torch.mv {t['library_ms']:.4f} ms ({t['csr_nnz']} nonzeros, "
-                  f"agrees to {rel_l:.1e})")
-            del Acsr, yl
+                  f"{2 * nloc * nloc * ncell / 1e9:.3f} GFLOP), {bound[0] / t['device_ms']:.1%} of it by device time, "
+                  f"{bound[0] / t['ms']:.1%} by ms; plain {t['plain_ms']:.3f} ms{lib}")
             torch.cuda.empty_cache()
-    main = out[1]
+    # the host floor of one launch: the C entry with all its arguments
+    # converted by ctypes but degree 0 (it returns at once, nothing launched)
+    fn = ch._LAUNCH[0]
+    xf = torch.zeros(8, dtype=torch.float64, device=DEVICE)
+    stream = torch.cuda.current_stream().cuda_stream
+    floor = _host_ms(lambda: fn(xf.data_ptr(), xf.data_ptr(), xf.data_ptr(), xf.data_ptr(), 1, 1, 1, 0, 1, stream),
+                     200)
+    print(f"[kernel hex3] host floor per call: the ctypes call alone {floor:.4f} ms")
+    f64, f32 = torch.float64, torch.float32
+    keys = ("ms", "device_ms", "host_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    main = out[1, f64]
     return {
         "name": "hex_stencil3",
         "route": "cuda",
         "source": "phifem_tpu_torch/csrc/hex_stencil3.cu",
         "replaces": "phifem_tpu/models/weak_dirichlet3.py:273 (_masked_stencil_apply, XLA-fused; not a Pallas kernel)",
         "max_abs_err": worst,
-        **{k: main[k] for k in ("ms", "device_ms", "host_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        **{k: main[k] for k in keys},
         "library": "torch.mv of the operator as a CUDA CSR matrix (cuSPARSE SpMV)",
         "shape": f"Q1 sphere mask n={N3_Q1} (129^3 nodes), float64",
-        **{f"q{d}_{k}": out[d][k] for d in (2, 3)
-           for k in ("ms", "device_ms", "host_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        **{f"q{d}_{k}": out[d, f64][k] for d in (2, 3) for k in keys},
+        **{f"q{d}_f32_{k}": out[d, f32][k] for d in (1, 2, 3) for k in keys if k != "library_ms"},
         "q2_shape": "Q2 sphere mask n=64 (129^3 nodes), float64",
         "q3_shape": "Q3 sphere mask n=40 (121^3 nodes), float64",
+        "host_floor_ctypes_ms": floor,
     }
 
 
@@ -1444,8 +1459,9 @@ def phase_kernel_lattice3(pt) -> dict:
     """The 27-point lattice sweep against its plain version on the card at
     129^3 and 257^3 in its three modes, float32 and float64 (the residual
     and Jacobi modes with a random mask, Jacobi also without one), each
-    timed beside its bound and the plain version, and the matvec beside
-    torch.nn.functional.conv3d with the same 3x3x3 weights."""
+    timed beside its bound (the share by device time per launch and by ms
+    per call), the wrapper's host time and the plain version, and the matvec
+    beside torch.nn.functional.conv3d with the same 3x3x3 weights."""
     from phifem_tpu_torch.ops.lattice3 import _terms3, hex_element_matrix, vertex_stencil_weights3
 
     _, cl = _k3()
@@ -1480,10 +1496,8 @@ def phase_kernel_lattice3(pt) -> dict:
                 call = lambda: cl.lattice3_sweep(mode, x, terms, b, m, od)
                 t = {"ms": _event_ms(call, 20), "plain_ms": _event_ms(
                     lambda: cl.lattice3_sweep_ref(mode, x, terms, b, m, od), 3),
-                     "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
-                if name in ("matvec", "jacobi"):
-                    t["device_ms"] = _device_ms(call, 10, "lattice3_sweep_kernel")
-                    t["host_ms"] = _host_ms(call, 20)
+                     "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+                     "device_ms": _device_ms(call, 10, "lattice3_sweep_kernel"), "host_ms": _host_ms(call, 20)}
                 if mode == cl.MATVEC:
                     W = torch.as_tensor(w, dtype=dt, device=DEVICE)[None, None]
                     conv = lambda: torch.nn.functional.conv3d(x[None, None], W)
@@ -1497,9 +1511,21 @@ def phase_kernel_lattice3(pt) -> dict:
                                 if t.get(k) is not None)
                 print(f"[kernel lattice3] {name:13s} {str(dt)[6:]:7s} {D}^3: max|dy|/max|y| = {rel:.3e} (tol "
                       f"{tol[dt]:.0e}) ok; ms {t['ms']:.4f} (bound {bound[0]:.4f} by {bound[1]}, "
-                      f"{bound[0] / t['ms']:.1%}), plain {t['plain_ms']:.4f}{extra}")
+                      f"{bound[0] / t['device_ms']:.1%} by device time, {bound[0] / t['ms']:.1%} by ms), plain "
+                      f"{t['plain_ms']:.4f}{extra}")
             del x, b, mask, yk, yr
             torch.cuda.empty_cache()
+    # the host floor of one launch: the C entry with all its arguments
+    # converted by ctypes but a term count of 0 (it returns at once, nothing
+    # launched), and the output's allocation
+    fn = cl._LAUNCH[0]
+    xf = torch.zeros((N3_BOX + 3,) * 3, device=DEVICE)
+    stream = torch.cuda.current_stream().cuda_stream
+    floor = {"ctypes_ms": _host_ms(lambda: fn(xf.data_ptr(), None, None, xf.data_ptr(), N3_BOX + 1, N3_BOX + 1,
+                                              N3_BOX + 1, terms.offs_ptr, terms.w_ptr, 0, 0.0, 0, 0, stream), 200),
+             "empty_like_ms": _host_ms(lambda: torch.empty_like(xf), 200)}
+    print(f"[kernel lattice3] host floor per call: the ctypes call alone {floor['ctypes_ms']:.4f} ms, "
+          f"torch.empty_like {floor['empty_like_ms']:.4f} ms")
     f32 = torch.float32
     main = times[N3_BOX, f32, "jacobi"]
     keys = ("ms", "device_ms", "host_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1515,6 +1541,8 @@ def phase_kernel_lattice3(pt) -> dict:
         "library_ms": times[N3_BOX, f32, "matvec"]["library_ms"],
         "library": "torch.nn.functional.conv3d with the 3x3x3 weights (matvec mode; cuDNN, TF32 off)",
         "shape": f"{N3_BOX + 1}^3 Jacobi sweep, float32, unmasked (box Poisson's finest level)",
+        "host_floor_ctypes_ms": floor["ctypes_ms"],
+        "host_floor_empty_like_ms": floor["empty_like_ms"],
     }
     for (n, dt, name), t in times.items():
         tag = f"{name.replace(' ', '_')}_{n + 1}_{str(dt)[6:]}"

@@ -19,35 +19,114 @@
 //
 // Bound: device-memory bandwidth.  Per node it must read x once (b and m in
 // modes 1-2) and write out once: 8-16 B in float32, 16-32 B in float64,
-// against 2 x 27 flops.
+// against 2 x 27 flops.  Without FMA contraction those are 54 instructions
+// per node, which in float32 take about 0.7 of the byte bound's time in
+// matvec mode (the mode with the fewest bytes): there the instruction stream,
+// not the bytes, is what is left.  The first version (one thread per padded
+// node in a grid-stride loop) reached 21-58% of the bound: every output paid
+// a 64-bit division for its coordinates, a runtime-length term loop with a
+// double-to-T conversion of each weight, and 27 separate loads through L1.
 //
-// Design (a simple kernel first): one thread per padded node, x fastest, a
-// grid-stride loop over the flattened array.  The 27 neighbours of a warp's
-// 32 consecutive nodes are 27 shifted runs of 32 consecutive values, which L1
-// and L2 serve; there is no shared-memory tile.  The stencil (offsets and
-// weights, 27 x 12 bytes) arrives by value in the launch.
+// Design.
+//  * A CTA of BX x BY threads owns a block of BX RX columns, BY rows and RZ
+//    planes of the padded array: a grid over (x, y, z) blocks, so no output
+//    divides anything, and all indices are 32-bit (the wrapper refuses arrays
+//    of 2^31 elements or more).  A thread owns RX consecutive columns
+//    (x fastest) and a run of RZ planes; the shapes are per value type.
+//  * The block with a one-node halo, (RZ + 2) x (BY + 2) x (BX RX + 2)
+//    values, is read from device memory at clamped coordinates by whole
+//    rows (thread row ty takes block rows ty, ty + BY, ..., lane tx columns
+//    tx, tx + BX, ...: coalesced, and the row's address is worked out once),
+//    all of a thread's loads in flight before the first store, into shared
+//    memory; b and the mask of the thread's outputs are loaded before the
+//    barrier too.  Copying element by element with cp.async instead, to
+//    overlap the next block's loads with this block's sums, was slower at
+//    4-byte elements.  No TMA: the padded rows (131 or 259 values) give
+//    global strides that are no multiple of 16 bytes.  A clamped value only
+//    ever meets a shell output.
+//  * Each thread then reads its window, (RZ + 2) x 3 x (RX + 2) values, from
+//    shared memory into registers (two aligned pair loads a row when RX = 2)
+//    and sums its RZ x RX outputs as independent chains: each value of x is
+//    read from device memory about once, and each neighbour from a register.
+//  * The stencil arrives by value, its weights (and s) already rounded to the
+//    value type on the host, at their canonical positions (oz, oy, ox) with a
+//    bit mask of the terms present; the term loop is unrolled over the 27
+//    positions in ascending order, which is the order of ops/lattice3.py:
+//    _terms3 (the wrapper refuses any other).  Absent terms are skipped by a
+//    branch that is uniform over the launch.
+//  * The padded shell (two nodes thick) is written by the same threads: zero,
+//    or x in Jacobi mode.
+//  * The shipped shapes (ops/cuda_lattice3.py TILE, from
+//    scripts/tune_torch_stencil3.py on an H100): float32 32 x 4 threads, one
+//    column and 8 planes each; float64 16 x 8 threads, two columns and 2
+//    planes each.  A CTA that marched over several runs with the next run's
+//    loads in flight was no faster, nor were 16-plane runs (more registers),
+//    nor a store path without bounds checks for threads whose outputs are
+//    all interior.
+//    Float64 reaches a larger share of its
+//    bound than float32 because the same 54 instructions per node meet twice
+//    the bytes.
 //
 // The sums are those of the plain PyTorch version (ops/cuda_lattice3.py:
 // lattice3_sweep_ref, on ops/lattice3.py:_conv_interior3) bit for bit: the
 // terms in the order given, acc = w_0 x_0, acc = acc + w_t x_t, every product
-// and sum rounded on its own (no FMA contraction: __fmul_rn / __fadd_rn), the
-// weights and s rounded to the value type first, as PyTorch does with a
-// Python scalar.
+// and sum rounded on its own (no FMA contraction: __fmul_rn / __fadd_rn).
+// acc starts at -0, and -0 + v == v for every v, so the first term's product
+// is taken as it is.  Rounding a double to float on the host gives the bits
+// of PyTorch's scalar multiply, which rounds the Python scalar the same way.
 //
 // Plain C interface, loaded with ctypes (phifem_tpu_torch/ops/cuda_lattice3.py):
 // phifem_lattice3_sweep returns cudaGetLastError() after the launch.
 
 #include <cuda_runtime.h>
 
+// The tile shape; phifem_tpu_torch/ops/cuda_lattice3.py (TILE) passes it as
+// -D defines, so the CPU test of the tiling and the kernel share it.
+#ifndef PHIFEM_L3_BX_F32
+#define PHIFEM_L3_BX_F32 32
+#endif
+#ifndef PHIFEM_L3_BY_F32
+#define PHIFEM_L3_BY_F32 4
+#endif
+#ifndef PHIFEM_L3_RX_F32
+#define PHIFEM_L3_RX_F32 1
+#endif
+#ifndef PHIFEM_L3_RZ_F32
+#define PHIFEM_L3_RZ_F32 8
+#endif
+#ifndef PHIFEM_L3_BX_F64
+#define PHIFEM_L3_BX_F64 16
+#endif
+#ifndef PHIFEM_L3_BY_F64
+#define PHIFEM_L3_BY_F64 8
+#endif
+#ifndef PHIFEM_L3_RX_F64
+#define PHIFEM_L3_RX_F64 2
+#endif
+#ifndef PHIFEM_L3_RZ_F64
+#define PHIFEM_L3_RZ_F64 2
+#endif
+
 namespace {
 
 constexpr int kMaxTerms = 27;
-constexpr int kThreads = 256;
+// a CTA of bx x by threads; a thread owns rx consecutive columns and a run of
+// rz planes
+template <typename T> struct Shape;
+template <> struct Shape<float> {
+  static constexpr int bx = PHIFEM_L3_BX_F32, by = PHIFEM_L3_BY_F32, rx = PHIFEM_L3_RX_F32,
+                       rz = PHIFEM_L3_RZ_F32;
+};
+template <> struct Shape<double> {
+  static constexpr int bx = PHIFEM_L3_BX_F64, by = PHIFEM_L3_BY_F64, rx = PHIFEM_L3_RX_F64,
+                       rz = PHIFEM_L3_RZ_F64;
+};
 
-struct Terms {
-  long long off[kMaxTerms];  // linear offsets in the padded array
-  double w[kMaxTerms];
-  int n;
+template <typename T>
+struct Stencil {
+  T w[kMaxTerms];    // weight at canonical position (oz * 3 + oy) * 3 + ox
+  T s;               // the Jacobi factor
+  unsigned present;  // bit p set: position p is a term
 };
 
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
@@ -57,74 +136,173 @@ __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(
 __device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
 
+template <typename T> struct Pair;
+template <> struct Pair<float> { using type = float2; };
+template <> struct Pair<double> { using type = double2; };
+
 template <typename T, int MODE, bool MASKED>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Shape<T>::bx * Shape<T>::by)
 lattice3_sweep_kernel(const T* __restrict__ x, const T* __restrict__ b,
                       const T* __restrict__ mask, T* __restrict__ out,
-                      const Terms terms, int D, int R, int C, double scale) {
-  const long long PC = C + 2, PR = R + 2;
-  const long long plane = PR * PC;
-  const long long total = (long long)(D + 2) * plane;
-  const T s = static_cast<T>(scale);
-  for (long long p = blockIdx.x * (long long)blockDim.x + threadIdx.x; p < total;
-       p += (long long)gridDim.x * blockDim.x) {
-    const int pd = static_cast<int>(p / plane);
-    const long long rem = p - pd * plane;
-    const int pr = static_cast<int>(rem / PC);
-    const int pc = static_cast<int>(rem - pr * PC);
-    const bool interior = pd >= 2 && pd <= D - 1 && pr >= 2 && pr <= R - 1 &&
-                          pc >= 2 && pc <= C - 1;
-    if (!interior) {
-      out[p] = MODE == 2 ? x[p] : T(0);
-      continue;
+                      const Stencil<T> st, int D, int R, int C) {
+  constexpr int BX = Shape<T>::bx, BY = Shape<T>::by, RX = Shape<T>::rx, RZ = Shape<T>::rz;
+  constexpr int SX = BX * RX + 2, SY = BY + 2;  // the block with a one-node halo
+  constexpr int NS = (RZ + 2) * SY * SX;
+  static_assert(RX == 1 || RX == 2, "a thread owns one or two columns");
+  __shared__ __align__(16) T blk[NS];
+  const int PC = C + 2, PR = R + 2, PD = D + 2;
+  const int PLANE = PR * PC;
+  const int x0 = blockIdx.x * BX * RX, y0 = blockIdx.y * BY, z0 = blockIdx.z * RZ;
+  const int px0 = x0 + threadIdx.x * RX, py = y0 + threadIdx.y;
+  const bool live = px0 < PC && py < PR;
+
+  // the block of x at clamped coordinates (a clamped value only ever meets a
+  // shell output), by whole rows: thread row ty takes block rows ty, ty + BY,
+  // ..., lane tx columns tx, tx + BX, ...; every load issued before the
+  // first store
+  {
+    constexpr int NROW = (RZ + 2) * SY, RPT = (NROW + BY - 1) / BY, CPL = (SX + BX - 1) / BX;
+    int gx[CPL];
+#pragma unroll
+    for (int e = 0; e < CPL; ++e) gx[e] = min(max(x0 - 1 + (int)threadIdx.x + e * BX, 0), PC - 1);
+    T v[RPT][CPL];
+#pragma unroll
+    for (int m = 0; m < RPT; ++m) {
+      const int rr = min((int)threadIdx.y + m * BY, NROW - 1);
+      const int a = rr / SY, r = rr - a * SY;
+      const int g = min(max(z0 - 1 + a, 0), PD - 1) * PLANE + min(max(y0 - 1 + r, 0), PR - 1) * PC;
+#pragma unroll
+      for (int e = 0; e < CPL; ++e) v[m][e] = x[g + gx[e]];
     }
-    T acc = mul_rn(static_cast<T>(terms.w[0]), x[p + terms.off[0]]);
-    for (int t = 1; t < terms.n; ++t) {
-      acc = add_rn(acc, mul_rn(static_cast<T>(terms.w[t]), x[p + terms.off[t]]));
+#pragma unroll
+    for (int m = 0; m < RPT; ++m) {
+      const int rr = threadIdx.y + m * BY;
+#pragma unroll
+      for (int e = 0; e < CPL; ++e) {
+        const int c = threadIdx.x + e * BX;
+        if (rr < NROW && c < SX) blk[rr * SX + c] = v[m][e];
+      }
     }
-    if (MODE == 0) {
-      out[p] = acc;
-      continue;
+  }
+  T bv[RZ][RX], mv[RZ][RX];
+  if (MODE != 0 && live) {  // in flight across the barrier
+#pragma unroll
+    for (int k = 0; k < RZ; ++k) {
+#pragma unroll
+      for (int e = 0; e < RX; ++e) {
+        const int pz = min(z0 + k, PD - 1), px = min(px0 + e, PC - 1);
+        bv[k][e] = b[pz * PLANE + py * PC + px];
+        if (MASKED) {
+          const int mz = min(max(pz - 1, 0), D - 1), my = min(max(py - 1, 0), R - 1),
+                    mx = min(max(px - 1, 0), C - 1);
+          mv[k][e] = mask[(mz * R + my) * C + mx];
+        }
+      }
     }
-    T r = sub_rn(b[p], acc);
-    if (MODE == 2) r = mul_rn(s, r);
-    if (MASKED) {
-      const long long m = ((long long)(pd - 1) * R + (pr - 1)) * C + (pc - 1);
-      r = mul_rn(r, mask[m]);
+  }
+  __syncthreads();
+  if (!live) return;
+
+  // the thread's window: planes z0-1 .. z0+RZ, rows py-1 .. py+1, columns
+  // px0-1 .. px0+RX; with two columns, two aligned pair loads per row
+  T win[RZ + 2][3][RX + 2];
+#pragma unroll
+  for (int a = 0; a < RZ + 2; ++a) {
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      const T* row = blk + (a * SY + threadIdx.y + r) * SX + threadIdx.x * RX;
+      if constexpr (RX == 2) {
+        using V = typename Pair<T>::type;
+        const V lo = reinterpret_cast<const V*>(row)[0], hi = reinterpret_cast<const V*>(row)[1];
+        win[a][r][0] = lo.x;
+        win[a][r][1] = lo.y;
+        win[a][r][2] = hi.x;
+        win[a][r][3] = hi.y;
+      } else {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) win[a][r][c] = row[c];
+      }
     }
-    out[p] = MODE == 2 ? add_rn(x[p], r) : r;
+  }
+  T acc[RZ][RX];
+#pragma unroll
+  for (int k = 0; k < RZ; ++k)
+#pragma unroll
+    for (int e = 0; e < RX; ++e) acc[k][e] = T(-0.0);
+#pragma unroll
+  for (int p = 0; p < kMaxTerms; ++p) {
+    if (st.present & (1u << p)) {
+#pragma unroll
+      for (int k = 0; k < RZ; ++k)
+#pragma unroll
+        for (int e = 0; e < RX; ++e)
+          acc[k][e] = add_rn(acc[k][e], mul_rn(st.w[p], win[k + p / 9][(p / 3) % 3][e + p % 3]));
+    }
+  }
+  const bool rowin = py >= 2 && py <= R - 1;
+#pragma unroll
+  for (int k = 0; k < RZ; ++k) {
+    const int pz = z0 + k;
+    if (pz >= PD) break;
+#pragma unroll
+    for (int e = 0; e < RX; ++e) {
+      const int px = px0 + e;
+      if (px >= PC) break;
+      const int idx = pz * PLANE + py * PC + px;
+      const T xc = win[k + 1][1][e + 1];
+      if (!rowin || px < 2 || px > C - 1 || pz < 2 || pz > D - 1) {
+        out[idx] = MODE == 2 ? xc : T(0);
+        continue;
+      }
+      if (MODE == 0) {
+        out[idx] = acc[k][e];
+        continue;
+      }
+      T res = sub_rn(bv[k][e], acc[k][e]);
+      if (MODE == 2) res = mul_rn(st.s, res);
+      if (MASKED) res = mul_rn(res, mv[k][e]);
+      out[idx] = MODE == 2 ? add_rn(xc, res) : res;
+    }
   }
 }
 
 template <typename T, int MODE>
-void launch_mode(const T* x, const T* b, const T* mask, T* out, const Terms& terms,
-                 int D, int R, int C, double scale, cudaStream_t stream) {
-  const long long total = (long long)(D + 2) * (R + 2) * (C + 2);
-  long long blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > 132 * 32) blocks = 132 * 32;  // grid-stride beyond 32 CTAs per SM
+void launch_mode(const T* x, const T* b, const T* mask, T* out, const Stencil<T>& st,
+                 int D, int R, int C, cudaStream_t stream) {
+  using S = Shape<T>;
+  const dim3 block(S::bx, S::by);
+  const dim3 grid((C + 2 + S::bx * S::rx - 1) / (S::bx * S::rx), (R + 2 + S::by - 1) / S::by,
+                  (D + 2 + S::rz - 1) / S::rz);
   if (mask != nullptr) {
-    lattice3_sweep_kernel<T, MODE, true><<<(int)blocks, kThreads, 0, stream>>>(
-        x, b, mask, out, terms, D, R, C, scale);
+    lattice3_sweep_kernel<T, MODE, true><<<grid, block, 0, stream>>>(x, b, mask, out, st, D, R, C);
   } else {
-    lattice3_sweep_kernel<T, MODE, false><<<(int)blocks, kThreads, 0, stream>>>(
-        x, b, nullptr, out, terms, D, R, C, scale);
+    lattice3_sweep_kernel<T, MODE, false><<<grid, block, 0, stream>>>(x, b, nullptr, out, st, D, R, C);
   }
 }
 
 template <typename T>
-void dispatch(const void* x, const void* b, const void* mask, void* out,
-              const Terms& terms, int D, int R, int C, double scale, int mode,
+void dispatch(const void* x, const void* b, const void* mask, void* out, const int* offs,
+              const double* w, int nterms, double scale, int D, int R, int C, int mode,
               cudaStream_t stream) {
+  Stencil<T> st;
+  st.present = 0;
+  for (int p = 0; p < kMaxTerms; ++p) st.w[p] = T(0);
+  for (int t = 0; t < nterms; ++t) {
+    const int p = (offs[3 * t] * 3 + offs[3 * t + 1]) * 3 + offs[3 * t + 2];
+    st.w[p] = static_cast<T>(w[t]);  // rounded once, as PyTorch rounds a Python scalar
+    st.present |= 1u << p;
+  }
+  st.s = static_cast<T>(scale);
   const T* xt = static_cast<const T*>(x);
   const T* bt = static_cast<const T*>(b);
   const T* mt = static_cast<const T*>(mask);
   T* ot = static_cast<T*>(out);
   if (mode == 0) {
-    launch_mode<T, 0>(xt, bt, nullptr, ot, terms, D, R, C, scale, stream);
+    launch_mode<T, 0>(xt, bt, nullptr, ot, st, D, R, C, stream);
   } else if (mode == 1) {
-    launch_mode<T, 1>(xt, bt, mt, ot, terms, D, R, C, scale, stream);
+    launch_mode<T, 1>(xt, bt, mt, ot, st, D, R, C, stream);
   } else {
-    launch_mode<T, 2>(xt, bt, mt, ot, terms, D, R, C, scale, stream);
+    launch_mode<T, 2>(xt, bt, mt, ot, st, D, R, C, stream);
   }
 }
 
@@ -135,35 +313,43 @@ extern "C" {
 // out = sweep(x) on the padded (D+2, R+2, C+2) arrays x, b, out (device
 // pointers; b unused in mode 0) with the optional logical (D, R, C) mask
 // (device pointer or NULL; ignored in mode 0).  offs: HOST pointer to
-// nterms * 3 ints (oz, oy, ox in {0, 1, 2}); w: HOST pointer to nterms
-// doubles.  Returns cudaGetLastError() (cudaErrorInvalidValue for a bad
-// mode or term count).
+// nterms * 3 ints (oz, oy, ox in {0, 1, 2}), strictly ascending in
+// (oz, oy, ox); w: HOST pointer to nterms doubles.  Returns
+// cudaGetLastError() (cudaErrorInvalidValue for a bad mode, term count, term
+// order or an array of 2^31 elements or more).
 int phifem_lattice3_sweep(const void* x, const void* b, const void* mask, void* out,
                           int D, int R, int C, const int* offs, const double* w,
                           int nterms, double scale, int mode, int is_double,
                           void* stream) {
-  if (nterms < 1 || nterms > kMaxTerms || mode < 0 || mode > 2) {
+  if (nterms < 1 || nterms > kMaxTerms || mode < 0 || mode > 2 ||
+      (long long)(D + 2) * (R + 2) * (C + 2) >= (1LL << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Terms terms;
-  const long long PC = C + 2, PR = R + 2;
-  for (int t = 0; t < kMaxTerms; ++t) {
-    if (t < nterms) {
-      terms.off[t] = (offs[3 * t] - 1) * PR * PC + (offs[3 * t + 1] - 1) * PC + (offs[3 * t + 2] - 1);
-      terms.w[t] = w[t];
-    } else {
-      terms.off[t] = 0;
-      terms.w[t] = 0.0;
+  int last = -1;
+  for (int t = 0; t < nterms; ++t) {
+    const int oz = offs[3 * t], oy = offs[3 * t + 1], ox = offs[3 * t + 2];
+    if (oz < 0 || oz > 2 || oy < 0 || oy > 2 || ox < 0 || ox > 2) {
+      return static_cast<int>(cudaErrorInvalidValue);
     }
+    const int p = (oz * 3 + oy) * 3 + ox;
+    if (p <= last) return static_cast<int>(cudaErrorInvalidValue);
+    last = p;
   }
-  terms.n = nterms;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_double) {
-    dispatch<double>(x, b, mask, out, terms, D, R, C, scale, mode, s);
+    dispatch<double>(x, b, mask, out, offs, w, nterms, scale, D, R, C, mode, s);
   } else {
-    dispatch<float>(x, b, mask, out, terms, D, R, C, scale, mode, s);
+    dispatch<float>(x, b, mask, out, offs, w, nterms, scale, D, R, C, mode, s);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The tile shapes this library was built with: BX, BY, RX, RZ for float32,
+// then for float64.
+void phifem_lattice3_constants(int* out) {
+  const int v[] = {Shape<float>::bx, Shape<float>::by, Shape<float>::rx, Shape<float>::rz,
+                   Shape<double>::bx, Shape<double>::by, Shape<double>::rx, Shape<double>::rz};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
 }
 
 const char* phifem_lattice3_error_string(int err) {

@@ -31,6 +31,22 @@ launches = 0
 
 SOURCE = nvcc_build.PKG / "csrc" / "hex_stencil3.cu"
 
+#: the kernels' tilings, passed to nvcc as -D defines (see the source's
+#: note).  d = 1: a CTA of ``BX1`` x ``BY1`` threads, each one (x, y) node
+#: column and a run of ``RZ1[dtype]`` nodes in each of the ``ZCH1`` blocks its
+#: CTA marches over along z (``MB1`` CTAs per SM bound its registers).  d = 2, 3: a CTA of
+#: ``NT<d>`` threads (``MB<d>`` CTAs per SM bound its registers) owns a tile of
+#: ``TC<d>``^3 cells, and a thread computes the row dots of ``ROWS[d]`` rows by
+#: ``KC`` cells at a time
+TILE = {"BX1": 16, "BY1": 8, "RZ1_F32": 4, "RZ1_F64": 2, "ZCH1": 4, "TC2": 4, "TC3": 4, "NT2": 128, "NT3": 512, "KC": 4,
+        "MB2": 2, "MB3": 1, "MB1": 4}
+ROWS = {2: 3, 3: 4}
+
+
+def defines(tile: dict = TILE) -> tuple:
+    """The ``-DPHIFEM_HEX3_*`` flags of a tiling."""
+    return tuple(f"-DPHIFEM_HEX3_{k}={v}" for k, v in tile.items())
+
 
 def hex_offsets(degree: int):
     """Local node offsets ``(ox, oy, oz)`` of the Q_degree hex, x fastest."""
@@ -83,25 +99,38 @@ def hex_stencil3(x: torch.Tensor, mask: torch.Tensor, A: torch.Tensor, degree: i
     if x.numel() >= 2**31:
         raise ValueError("hex_stencil3: lattice too large for 32-bit indexing")
     y = torch.empty_like(x)
-    lib = _library()
+    fn, raw_stream, current = _LAUNCH or _bind()
+    idx = dev.index
     args = (x.data_ptr(), y.data_ptr(), mask.data_ptr(), A.data_ptr(), nx, ny, nz, degree,
-            dt is torch.float64, torch._C._cuda_getCurrentRawStream(dev.index))
-    if dev.index == torch.cuda.current_device():
-        err = lib.phifem_hex_stencil3(*args)
+            dt is torch.float64, raw_stream(idx))
+    if idx == current():
+        err = fn(*args)
     else:
         with torch.cuda.device(dev):
-            err = lib.phifem_hex_stencil3(*args)
+            err = fn(*args)
     if err:
-        msg = lib.phifem_hex3_error_string(err).decode()
+        msg = _library().phifem_hex3_error_string(err).decode()
         raise RuntimeError(f"hex_stencil3 kernel launch failed: CUDA error {err} ({msg})")
     launches += 1
     return y
 
 
+#: (C entry point, current raw stream of a device, current device), bound at
+#: the first launch so that a call reads no attribute chain
+_LAUNCH = None
+
+
+def _bind():
+    global _LAUNCH
+    torch.cuda.init()
+    _LAUNCH = (_library().phifem_hex_stencil3, torch._C._cuda_getCurrentRawStream, torch._C._cuda_getDevice)
+    return _LAUNCH
+
+
 def build() -> dict:
     """Compile the kernel library if it is not built yet (see
     :func:`phifem_tpu_torch.ops.nvcc_build.build`)."""
-    return nvcc_build.build(SOURCE)
+    return nvcc_build.build(SOURCE, defines())
 
 
 @functools.lru_cache(maxsize=None)
@@ -112,4 +141,8 @@ def _library() -> ctypes.CDLL:
     lib.phifem_hex_stencil3.restype = ci
     lib.phifem_hex3_error_string.argtypes = [ci]
     lib.phifem_hex3_error_string.restype = ctypes.c_char_p
+    got = (ctypes.c_int * 13)()
+    lib.phifem_hex3_constants(got)
+    if tuple(got) != tuple(TILE.values()):
+        raise RuntimeError(f"hex_stencil3: the library's tiling {tuple(got)} is not TILE {tuple(TILE.values())}")
     return lib

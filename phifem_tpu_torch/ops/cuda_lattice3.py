@@ -38,6 +38,26 @@ launches = 0
 SOURCE = nvcc_build.PKG / "csrc" / "lattice3_sweep.cu"
 MAX_TERMS = 27
 
+#: the kernel's tiling per value type, passed to nvcc as -D defines (see the
+#: source's note): a CTA of ``BX`` x ``BY`` threads, each owning ``RX``
+#: consecutive (x, y) columns of the padded array and a run of ``RZ`` planes
+TILE = {"BX_F32": 32, "BY_F32": 4, "RX_F32": 1, "RZ_F32": 8, "BX_F64": 16, "BY_F64": 8, "RX_F64": 2, "RZ_F64": 2}
+
+
+def defines(tile: dict = TILE) -> tuple:
+    """The ``-DPHIFEM_L3_*`` flags of a tiling."""
+    return tuple(f"-DPHIFEM_L3_{k}={v}" for k, v in tile.items())
+
+
+def tile_grid(D: int, R: int, C: int, dtype: torch.dtype, tile: dict = TILE) -> Tuple[int, int, int, dict]:
+    """``(CTAs along x, along y, along z, shape)`` of the launch on the padded
+    ``(D+2, R+2, C+2)`` array, ``shape`` the dtype's ``BX``, ``BY``, ``RX``,
+    ``RZ``."""
+    sfx = "_F64" if dtype == torch.float64 else "_F32"
+    sh = {k: tile[k + sfx] for k in ("BX", "BY", "RX", "RZ")}
+    cdiv = lambda a, b: -(-a // b)
+    return cdiv(C + 2, sh["BX"] * sh["RX"]), cdiv(R + 2, sh["BY"]), cdiv(D + 2, sh["RZ"]), sh
+
 
 def lattice3_sweep_ref(
     mode: int,
@@ -72,14 +92,20 @@ def lattice3_sweep_ref(
 
 class PackedTerms(tuple):
     """A stencil's terms with their kernel form: ``offs`` (n, 3) int32 and
-    ``w`` (n,) float64 host arrays, made once by :func:`pack_terms`."""
+    ``w`` (n,) float64 host arrays and their addresses (``offs_ptr``,
+    ``w_ptr``), made once by :func:`pack_terms`."""
 
     offs: np.ndarray
     w: np.ndarray
+    offs_ptr: int
+    w_ptr: int
 
 
 def pack_terms(terms: Sequence[Tuple[int, int, int, float]]) -> PackedTerms:
-    """The terms as a tuple that also carries the kernel's host arrays."""
+    """The terms as a tuple that also carries the kernel's host arrays.  The
+    kernel walks the 27 positions in ascending ``(oz, oy, ox)``, the order of
+    :func:`~phifem_tpu_torch.ops.lattice3._terms3`, so the terms must come in
+    that order, each position once."""
     if not 1 <= len(terms) <= MAX_TERMS:
         raise ValueError(f"lattice3_sweep: 1 to {MAX_TERMS} terms, got {len(terms)}")
     p = PackedTerms(tuple((int(a), int(b), int(c), float(w)) for a, b, c, w in terms))
@@ -87,6 +113,10 @@ def pack_terms(terms: Sequence[Tuple[int, int, int, float]]) -> PackedTerms:
     p.w = np.ascontiguousarray([t[3] for t in p], dtype=np.float64)
     if p.offs.min() < 0 or p.offs.max() > 2:
         raise ValueError("lattice3_sweep: term offsets must lie in {0, 1, 2}")
+    pos = (p.offs[:, 0] * 3 + p.offs[:, 1]) * 3 + p.offs[:, 2]
+    if (np.diff(pos) <= 0).any():
+        raise ValueError("lattice3_sweep: terms must be in strictly ascending (oz, oy, ox) order")
+    p.offs_ptr, p.w_ptr = p.offs.ctypes.data, p.w.ctypes.data
     return p
 
 
@@ -119,12 +149,15 @@ def lattice3_sweep(
     dt = x.dtype
     if dt is not torch.float32 and dt is not torch.float64:
         raise TypeError(f"lattice3_sweep: x must be float32 or float64, got {dt}")
-    if x.dim() != 3 or min(x.shape) < 3 or not x.is_contiguous():
-        raise ValueError(f"lattice3_sweep: x must be a contiguous padded 3D array, got {tuple(x.shape)}")
-    D, R, C = (s - 2 for s in x.shape)
+    shape = x.shape
+    if len(shape) != 3 or min(shape) < 3 or not x.is_contiguous():
+        raise ValueError(f"lattice3_sweep: x must be a contiguous padded 3D array, got {tuple(shape)}")
+    if x.numel() >= 2**31:
+        raise ValueError("lattice3_sweep: array too large for 32-bit indexing")
+    D, R, C = shape[0] - 2, shape[1] - 2, shape[2] - 2
     bp = mp = None
     if mode != MATVEC:
-        if b.shape != x.shape or b.dtype is not dt or b.device != dev or not b.is_contiguous():
+        if b.shape != shape or b.dtype is not dt or b.device != dev or not b.is_contiguous():
             raise ValueError("lattice3_sweep: b must be contiguous and match x in shape, dtype and device")
         bp = b.data_ptr()
         if mask is not None:
@@ -133,25 +166,38 @@ def lattice3_sweep(
                                  "on x's device")
             mp = mask.data_ptr()
     out = torch.empty_like(x)
-    lib = _library()
-    args = (x.data_ptr(), bp, mp, out.data_ptr(), D, R, C, terms.offs.ctypes.data, terms.w.ctypes.data,
-            len(terms), float(scale), mode, dt is torch.float64, torch._C._cuda_getCurrentRawStream(dev.index))
-    if dev.index == torch.cuda.current_device():
-        err = lib.phifem_lattice3_sweep(*args)
+    fn, raw_stream, current = _LAUNCH or _bind()
+    idx = dev.index
+    args = (x.data_ptr(), bp, mp, out.data_ptr(), D, R, C, terms.offs_ptr, terms.w_ptr, len(terms), float(scale),
+            mode, dt is torch.float64, raw_stream(idx))
+    if idx == current():
+        err = fn(*args)
     else:
         with torch.cuda.device(dev):
-            err = lib.phifem_lattice3_sweep(*args)
+            err = fn(*args)
     if err:
-        msg = lib.phifem_lattice3_error_string(err).decode()
+        msg = _library().phifem_lattice3_error_string(err).decode()
         raise RuntimeError(f"lattice3_sweep kernel launch failed: CUDA error {err} ({msg})")
     launches += 1
     return out
 
 
+#: (C entry point, current raw stream of a device, current device), bound at
+#: the first launch so that a call reads no attribute chain
+_LAUNCH = None
+
+
+def _bind():
+    global _LAUNCH
+    torch.cuda.init()
+    _LAUNCH = (_library().phifem_lattice3_sweep, torch._C._cuda_getCurrentRawStream, torch._C._cuda_getDevice)
+    return _LAUNCH
+
+
 def build() -> dict:
     """Compile the kernel library if it is not built yet (see
     :func:`phifem_tpu_torch.ops.nvcc_build.build`)."""
-    return nvcc_build.build(SOURCE)
+    return nvcc_build.build(SOURCE, defines())
 
 
 @functools.lru_cache(maxsize=None)
@@ -162,4 +208,8 @@ def _library() -> ctypes.CDLL:
     lib.phifem_lattice3_sweep.restype = ci
     lib.phifem_lattice3_error_string.argtypes = [ci]
     lib.phifem_lattice3_error_string.restype = ctypes.c_char_p
+    got = (ctypes.c_int * 8)()
+    lib.phifem_lattice3_constants(got)
+    if tuple(got) != tuple(TILE.values()):
+        raise RuntimeError(f"lattice3_sweep: the library's tile {tuple(got)} is not TILE {tuple(TILE.values())}")
     return lib

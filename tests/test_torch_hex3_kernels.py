@@ -28,6 +28,10 @@ from phifem_tpu_torch.ops.lattice3 import _terms3, hex_element_matrix, vertex_st
 HEX_SHAPES = [(3, 4, 5), (7, 5, 6), (1, 1, 1), (9, 2, 4)]  # (nz, ny, nx)
 LATTICE_SHAPES = [(5, 6, 7), (3, 3, 3), (9, 17, 11)]  # padded logical (D, R, C)
 TOL = {torch.float32: 1e-5, torch.float64: 1e-13}
+# the kernels' tilings at risky sizes: sides smaller than a tile, ragged,
+# exact multiples of a tile (hex3: 12 cells; lattice3: a 16 x 8 x 64 padded array)
+HEX_RAGGED = [(3, 4, 3), (5, 5, 5), (12, 12, 12), (13, 7, 9)]
+LATTICE_RAGGED = [(3, 5, 4), (37, 37, 37), (14, 6, 62)]
 
 
 @pytest.fixture
@@ -128,7 +132,7 @@ def test_lattice3_sweep_rejects_bad_inputs():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", [torch.float32, torch.float64], ids=["f32", "f64"])
 @pytest.mark.parametrize("degree", [1, 2, 3])
-@pytest.mark.parametrize("shape", HEX_SHAPES + [(37, 37, 37)], ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("shape", HEX_SHAPES + [(37, 37, 37)] + HEX_RAGGED, ids=lambda s: "x".join(map(str, s)))
 def test_hex_stencil3_kernel_matches_plain(cuda, shape, degree, dt):
     x, mask, A = _hex_inputs(shape, degree, seed=sum(shape) + degree)
     xt, mt, At = (torch.as_tensor(v, dtype=dt, device=cuda).contiguous() for v in (x, mask, A))
@@ -144,7 +148,8 @@ def test_hex_stencil3_kernel_matches_plain(cuda, shape, degree, dt):
 @pytest.mark.parametrize("dt", [torch.float32, torch.float64], ids=["f32", "f64"])
 @pytest.mark.parametrize("mode", [0, 1, 2], ids=["matvec", "residual", "jacobi"])
 @pytest.mark.parametrize("masked", [True, False], ids=["masked", "maskless"])
-@pytest.mark.parametrize("shape", LATTICE_SHAPES + [(129, 65, 33)], ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("shape", LATTICE_SHAPES + [(129, 65, 33)] + LATTICE_RAGGED,
+                         ids=lambda s: "x".join(map(str, s)))
 def test_lattice3_sweep_kernel_matches_plain(cuda, shape, masked, mode, dt):
     x, b, mask, terms = _sweep_inputs(shape, seed=sum(shape), masked=masked)
     xt, bt = (torch.as_tensor(v, dtype=dt, device=cuda) for v in (x, b))
