@@ -65,7 +65,19 @@ assemble -> solve:
   iterations), at Q2 n=16 and 32 (low-order-refined cycle) and at Q3 n=12
   (sparse direct, a cubic reproduced); the strong-Dirichlet scheme at n=64;
   every count exact.  The 3D paths launch the two 3D kernels and neither
-  2D one.
+  2D one;
+* slice F2 (3D): the 3-channel block forms of both 3D kernels (the block
+  hex-cell stencil on S5-3D's sphere masks at n=32 and 64, the block
+  lattice sweep in its modes at 3 x 129^3 and 3 x 65^3) against their plain
+  versions, timed beside their bounds, torch.mv of the block operator's
+  CSR and conv3d with 3 in / 3 out channels; S3-3D (Neumann) on the sphere
+  at n=16 (BiCGStab with lattice_preconditioner(); against the CPU lane),
+  n=32 (Jacobi BiCGStab, the demo's path), n=64 and n=96 (4.5M DoFs,
+  traced) by flexible GMRES with lattice_preconditioner(); S4-3D (Robin) at
+  n=32 and 64; S5-3D (two-material elasticity, contrast 1000) by flexible
+  GMRES with rigid-mode deflation and lattice_preconditioner() at n=8 and
+  16 (against the JAX package's recorded counts and errors) and n=24
+  (421,875 DoFs, traced).  S5-3D launches both block kernels.
 
 Every check raises; the script exits non-zero without a result when there
 is no card or no checkout.  The line before the last is a JSON record of
@@ -251,18 +263,39 @@ def _device_kernels(fn, reps: int) -> dict:
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
+def _bracket_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of one call of ``fn`` (one kernel launch),
+    each call between two CUDA events queued behind a sleeping kernel, so
+    that the host's launch time falls outside them."""
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        total += a.elapsed_time(b)
+    return total / reps
+
+
 def _device_ms(fn, reps: int, kernel: str) -> float:
     """Mean device milliseconds per launch of the kernels named ``kernel``
     over ``reps`` calls of ``fn``: the kernel's own time, whatever the host
     takes between launches.  A trace that lost every launch (it happens,
-    most often to the first traces of a process) is taken again."""
-    for attempt in range(5):
+    most often to the first trace after other work in a long process) is
+    taken again; after 8 such traces ``fn`` (one launch) is timed between
+    CUDA events instead (:func:`_bracket_ms`)."""
+    for attempt in range(8):
         evs = [v for k, v in _device_kernels(fn, reps).items() if kernel in k]
         count = sum(c for c, _ in evs)
         if count:
             return sum(t for _, t in evs) / count
-        print(f"[profiler] the trace held no launch of {kernel} (attempt {attempt + 1} of 5)")
-    raise AssertionError(f"the profiler saw no launch of {kernel} in 5 traces")
+        print(f"[profiler] the trace held no launch of {kernel} (attempt {attempt + 1} of 8)")
+    ms = _bracket_ms(fn, reps)
+    print(f"[profiler] {kernel}: device time by CUDA events around single launches instead, {ms:.4f} ms")
+    return ms
 
 
 def _library_kernels(fn, reps: int = 10) -> str:
@@ -1164,18 +1197,26 @@ def phase_gmres(pt, cs, s, vc, r_bicg) -> dict:
     return counts
 
 
-def _trace_report(label: str, kernels: dict, wall: float, iters: int, top: int = 12) -> None:
+KERNELS_2D = {"stencil": "stencil_matvec_kernel", "tap": "tap_matvec_kernel"}
+KERNELS_3D = {"hex3": "hex1_stencil3", "hex3 block": "hexblock_stencil3", "lattice3": "lattice3_sweep_kernel",
+              "lattice3 block": "lattice3_block_kernel"}
+
+
+def _trace_report(label: str, kernels: dict, wall: float, iters: int, solver: str = "fgmres",
+                  named: dict = KERNELS_2D, top: int = 12) -> None:
     """Print a device trace (``{kernel: (launches, device ms)}``, as
-    :func:`_device_kernels` gives it) of ``iters`` fgmres iterations that
-    took ``wall`` seconds unprofiled: kernels per iteration, device busy
-    share of the wall, the two kernels' device time, the top kernels."""
+    :func:`_device_kernels` gives it) of ``iters`` ``solver`` iterations
+    that took ``wall`` seconds unprofiled (the solve's set-up included):
+    kernels per iteration, device busy share of the wall, the device time of
+    the ``named`` kernels (``{label: part of the kernel's name}``), the top
+    kernels."""
     busy = sum(t for _, t in kernels.values())
     count = sum(c for c, _ in kernels.values())
-    named = lambda key: sum(t for k, (_, t) in kernels.items() if key in k)
-    print(f"[{label} profile] {iters} fgmres iterations, wall {wall:.3f} s unprofiled: {count} kernels "
-          f"({count / max(iters, 1):.0f} per fgmres iteration), device busy {busy:.1f} ms = "
-          f"{busy / 1e3 / wall:.1%} of the wall; stencil kernel {named('stencil_matvec_kernel'):.2f} ms, tap "
-          f"kernel {named('tap_matvec_kernel'):.2f} ms; top kernels by device time:")
+    parts = ", ".join(f"{name} kernel {sum(t for k, (_, t) in kernels.items() if key in k):.2f} ms"
+                      for name, key in named.items())
+    print(f"[{label} profile] {iters} {solver} iterations, wall {wall:.3f} s unprofiled: {count} kernels "
+          f"({count / max(iters, 1):.0f} per {solver} iteration), device busy {busy:.1f} ms = "
+          f"{busy / 1e3 / wall:.1%} of the wall; {parts}; top kernels by device time:")
     for k, (c, t) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:top]:
         print(f"    {k[:90]:90s} x{c:8d} {t:9.2f} ms")
 
@@ -1326,12 +1367,13 @@ def _k3():
 
 def _reset3() -> None:
     ch, cl = _k3()
-    ch.launches = cl.launches = 0
+    ch.launches = cl.launches = ch.block_launches = cl.block_launches = 0
 
 
 def _counts3() -> dict:
     ch, cl = _k3()
-    return {"hex3": ch.launches, "lattice3": cl.launches}
+    return {"hex3": ch.launches, "lattice3": cl.launches, "hex3_block": ch.block_launches,
+            "lattice3_block": cl.block_launches}
 
 
 def _hex3_csr(mask: torch.Tensor, A: torch.Tensor, degree: int) -> torch.Tensor:
@@ -1429,7 +1471,7 @@ def phase_kernel_hex3(pt) -> dict:
             torch.cuda.empty_cache()
     # the host floor of one launch: the C entry with all its arguments
     # converted by ctypes but degree 0 (it returns at once, nothing launched)
-    fn = ch._LAUNCH[0]
+    fn = ch._LAUNCH["phifem_hex_stencil3"][0]
     xf = torch.zeros(8, dtype=torch.float64, device=DEVICE)
     stream = torch.cuda.current_stream().cuda_stream
     floor = _host_ms(lambda: fn(xf.data_ptr(), xf.data_ptr(), xf.data_ptr(), xf.data_ptr(), 1, 1, 1, 0, 1, stream),
@@ -1518,7 +1560,7 @@ def phase_kernel_lattice3(pt) -> dict:
     # the host floor of one launch: the C entry with all its arguments
     # converted by ctypes but a term count of 0 (it returns at once, nothing
     # launched), and the output's allocation
-    fn = cl._LAUNCH[0]
+    fn = cl._LAUNCH["phifem_lattice3_sweep"][0]
     xf = torch.zeros((N3_BOX + 3,) * 3, device=DEVICE)
     stream = torch.cuda.current_stream().cuda_stream
     floor = {"ctypes_ms": _host_ms(lambda: fn(xf.data_ptr(), None, None, xf.data_ptr(), N3_BOX + 1, N3_BOX + 1,
@@ -1646,9 +1688,10 @@ def _check_tags3(s, h, label: str) -> None:
 
 
 def _against_cpu3(s, h) -> dict:
-    """b and one seeded matvec of the card's scheme against the CPU lane's."""
+    """b and one seeded matvec of the card's scheme against the CPU lane's
+    (fields of any shape)."""
     rng = np.random.default_rng(SEED)
-    x = {k: torch.as_tensor(rng.standard_normal(v.numel())) for k, v in h.b.items()}
+    x = {k: torch.as_tensor(rng.standard_normal(tuple(v.shape))) for k, v in h.b.items()}
     yc = s.matvec({k: v.to(DEVICE) for k, v in x.items()})
     yh = h.matvec(x)
     return {"b": max(_rel(s.b[k], h.b[k]) for k in h.b), "matvec": max(_rel(yc[k], yh[k]) for k in yh)}
@@ -1709,14 +1752,8 @@ def phase_weak3_q1(pt) -> dict:
             del h
             print(f"[{label}] CPU lane (tag, assemble, one matvec) {time.perf_counter() - t0:.1f} s")
             kern = _device_kernels(lambda: s.solve(tol=TOL, maxiter=2, precond=M), 1)
-            busy = sum(t for _, t in kern.values())
-            count = sum(c for c, _ in kern.values())
             _, wall = _sync_time(lambda: s.solve(tol=TOL, maxiter=2, precond=M))
-            print(f"[{label} profile] 2 BiCGStab iterations, wall {wall:.3f} s unprofiled: {count} kernels "
-                  f"({count / 2:.0f} per iteration, set-up of the solve included), device busy {busy:.1f} ms = "
-                  f"{busy / 1e3 / wall:.1%} of the wall; top kernels by device time:")
-            for k, (c, t) in sorted(kern.items(), key=lambda kv: -kv[1][1])[:10]:
-                print(f"    {k[:90]:90s} x{c:8d} {t:9.2f} ms")
+            _trace_report(label, kern, wall, 2, "BiCGStab", KERNELS_3D, top=10)
         del s, M, r
         torch.cuda.empty_cache()
     ratio = errs[N3_Q1 // 2]["l2"] / errs[N3_Q1]["l2"]
@@ -1830,6 +1867,534 @@ def run_slice_f1(pt) -> tuple:
     return [hex_line, lat_line], paths
 
 
+# ------------------------------------------------------------- slice F2
+# 3D Neumann and Robin (S3 / S4 on demo/poisson3d's sphere, R0 = 0.7 in
+# [-1, 1]^3, u = cos x e^{(y+z)/2}, f = -Δu + u = 3u/2, tol 1e-10) and S5-3D
+# (the data of tests/test_interface_elasticity3.py: the sphere r = 1 in
+# [-1.5, 1.5]^3, contrast E_in / E_out = 1000, flexible GMRES with the rigid
+# modes deflated and lattice_preconditioner(), tol 1e-8)
+# the Neumann scale run is at n=96 (4.5M DoFs), not the 10.7M of n=128: its
+# preconditioned solve took 98.6 s at n=96 (100 it) on an H100 (PERF.md), and the
+# whole script must stay within its time limit
+N3_NEU_CPU, N3_NEU_JAC, N3_NEU, N3_NEU_LARGE = 16, 32, 64, 96
+# the port's iteration counts on the H100 (PERF.md): Neumann n=16 BiCGStab
+# with lattice_preconditioner() (JAX's ceiling on the CPU: <= 25 at n=16;
+# the CPU lanes take 8-18: the inner band solve's rounding), n=32 Jacobi
+# BiCGStab (the demo's path), n=64 and 96 flexible GMRES with
+# lattice_preconditioner() (BiCGStab with it stalls there: relres 0.22 /
+# 0.028 after 201 / 300 it at n=64, Neumann / Robin; the inner band solve
+# makes the preconditioner nonlinear); Robin n=32 Jacobi, n=64 fgmres
+NEU_IT = {N3_NEU_CPU: 11, N3_NEU_JAC: 496, N3_NEU: 40, N3_NEU_LARGE: 100}
+# n=16 against the CPU lane: the inner band solve (m=5,566) run to
+# convergence, 400 sweeps (within 1e-6 of 1,500 sweeps on a CPU); one
+# application then differs by rounding (the float32 bulk cycle) and what
+# 400 sweeps leave
+NEU_CPU_SWEEPS, NEU_PRECOND_TOL = 400, 1e-5
+ROB_IT = {N3_NEU_JAC: 388, N3_NEU: 40}
+S53D_BOX = ((-1.5, -1.5, -1.5), (1.5, 1.5, 1.5))
+S53D_E_IN, S53D_E_OUT, S53D_NU, S53D_TOL = 1.0, 0.001, 0.3, 1e-8
+# docs/s53d_results.csv (the JAX package on the CPU, contrast 1000): level 0
+# n=8 20 it, L2 0.6558, H10 0.9675; level 1 n=16 L2 0.2942, H10 0.8396 (100
+# it with the round-4 coarse space; 40 with today's harmonic one,
+# tests/test_interface_elasticity3.py, cap 55)
+S53D_REF = {8: (20, 0.6557739137168582, 0.9675130155212593), 16: (55, 0.29418185952797904, 0.8395930040423457)}
+# the S5-3D scale run is at n=24 (421,875 DoFs), not level 2 (n=32, 970,299
+# DoFs, never finished in the JAX package; docs/s53d_convergence.md): n=32
+# took 190 s of fgmres (160 it) on an H100 (PERF.md), n=24 65 s
+# (scripts/profile_torch_s53d.py runs n=32)
+N_S53D_LARGE = 24
+N3_BLOCK_LATTICE = (128, 64)  # the block sweep's checks: the S5-3D bulk at n=128 and 64
+N3_BLOCK_HEX = (32, 64)  # the block hex stencil's checks: S5-3D's masks, timed at the second
+# the port's S5-3D counts on the H100 (PERF.md): n=8 and 16 also held to the
+# CSV's row 1 (20, within max(3, 0.25 it)) and JAX's cap (<= 55)
+S53D_IT = {8: 20, 16: 40, N_S53D_LARGE: 120}
+
+
+def _du_dn(x):
+    """d u_smooth / dn with n = x / |x| (demo/poisson3d's du_dn)."""
+    u = u_smooth(x)
+    g = torch.stack([-torch.sin(x[..., 0]) * torch.exp((x[..., 1] + x[..., 2]) / 2.0), 0.5 * u, 0.5 * u], -1)
+    return torch.sum(g * x / torch.clamp(torch.linalg.norm(x, dim=-1, keepdim=True), min=1e-12), dim=-1)
+
+
+def _neumann3(pt, n: int, device: str, robin: bool = False):
+    g = pt.Grid3(n, n, n, BOX3, device=device)
+    f = lambda x: 1.5 * u_smooth(x)
+    if robin:
+        return pt.RobinPoisson3(g, robin_coef=1.0).setup(sphere_phi, f, lambda x: _du_dn(x) + u_smooth(x))
+    return pt.NeumannPoisson3(g).setup(sphere_phi, f, _du_dn)
+
+
+def _s53d_data():
+    """S5-3D's exact solution (cos r - cos 1) / E per side and its source
+    -div sigma_in(cos r (1, 1, 1)) / E_in (torch.func)."""
+    from torch.func import jacfwd, vmap
+
+    from phifem_tpu_torch.models.interface_elasticity import lame
+
+    lmbda, mu = lame(S53D_E_IN, S53D_NU)
+
+    def exact(x):
+        r = torch.sqrt(x[..., 0] ** 2 + x[..., 1] ** 2 + x[..., 2] ** 2 + 1e-30)
+        val = (torch.cos(r) - math.cos(1.0)) / S53D_E_IN
+        val = torch.where(r < 1.0, val * (S53D_E_IN / S53D_E_OUT), val)
+        return torch.stack([val, val, val], dim=-1)
+
+    def _sigma(p):
+        G = jacfwd(lambda q: torch.cos(torch.sqrt(q[0] ** 2 + q[1] ** 2 + q[2] ** 2 + 1e-30)) * torch.ones_like(q))(p)
+        return lmbda * torch.trace(G) * torch.eye(3, dtype=p.dtype, device=p.device) + mu * (G + G.T)
+
+    def source(x):
+        Dg = vmap(jacfwd(_sigma))(x.reshape(-1, 3))
+        return (-torch.einsum("nijj->ni", Dg) / S53D_E_IN).reshape(x.shape[:-1] + (3,))
+
+    return exact, source
+
+
+def _s53d(pt, n: int, device: str):
+    exact, source = _s53d_data()
+    g = pt.Grid3(n, n, n, S53D_BOX, device=device)
+    s = pt.InterfaceElasticity3(g, E_in=S53D_E_IN, E_out=S53D_E_OUT, nu_in=S53D_NU, nu_out=S53D_NU)
+    return s.setup(lambda x: 1.0 - (x[..., 0] ** 2 + x[..., 1] ** 2 + x[..., 2] ** 2), source, exact), exact
+
+
+def _hex3_block_csr(mask: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """The float64 CUDA CSR matrix of the 3-channel block hex stencil (the
+    library call's input; the port never builds it)."""
+    nz, ny, nx = mask.shape
+    R, C = ny + 1, nx + 1
+    N = (nz + 1) * R * C
+    c = torch.nonzero(mask != 0)
+    base = (c[:, 0] * R + c[:, 1]) * C + c[:, 2]
+    off = torch.tensor([(oz * R + oy) * C + ox for ox, oy, oz in _k3()[0].hex_offsets(1)], device=mask.device)
+    nodes = base[:, None] + off[None, :]  # (ne, 8)
+    dofs = torch.cat([ch * N + nodes for ch in range(3)], dim=1)  # (ne, 24), channel-major
+    rows = dofs[:, :, None].expand(-1, 24, 24).reshape(-1)
+    cols = dofs[:, None, :].expand(-1, 24, 24).reshape(-1)
+    vals = K.to(torch.float64)[None] * mask[c[:, 0], c[:, 1], c[:, 2]].to(torch.float64)[:, None, None]
+    coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals.reshape(-1), (3 * N, 3 * N))
+    del rows, cols, vals
+    return coo.coalesce().to_sparse_csr()
+
+
+def phase_kernel_hex3_block(pt) -> dict:
+    """The 3-channel block hex-cell stencil against its plain version on the
+    card, on both sides' masks of the S5-3D sphere at n=32 and n=64 with
+    their own elasticity cell matrices, float32 and float64; at n=64 timed
+    beside its bound (x read and y written, 3 channels, and the mask read),
+    the plain version and torch.mv of the operator's CSR matrix."""
+    from phifem_tpu_torch.models.interface_elasticity import lame
+    from phifem_tpu_torch.models.interface_elasticity3 import _elastic_element_matrix
+    from phifem_tpu_torch.tagging3 import compute_tags3
+
+    ch, _ = _k3()
+    rng = np.random.default_rng(SEED + 3)
+    tol = {torch.float32: 1e-5, torch.float64: 1e-13}
+    worst, out = 0.0, {}
+    for n in N3_BLOCK_HEX:
+        g = pt.Grid3(n, n, n, S53D_BOX, device=DEVICE)
+        tags = compute_tags3(g, lambda x: 1.0 - (x[..., 0] ** 2 + x[..., 1] ** 2 + x[..., 2] ** 2))
+        for side, region, E in (("in", (1, 2), S53D_E_IN), ("out", (2, 3), S53D_E_OUT)):
+            K64 = torch.as_tensor(_elastic_element_matrix(*g.spacing, *lame(E, S53D_NU)))
+            for dt in (torch.float32, torch.float64):
+                mask = torch.as_tensor(tags.region_mask(region), dtype=dt, device=DEVICE).contiguous()
+                x = torch.as_tensor(rng.standard_normal((3, n + 1, n + 1, n + 1)), dtype=dt, device=DEVICE)
+                K = K64.to(dt).to(DEVICE).contiguous()
+                yk = ch.hex_block_stencil3(x, mask, K)
+                yr = ch.hex_block_stencil3_ref(x, mask, K)
+                torch.cuda.synchronize()
+                err = float((yk - yr).abs().max())
+                rel = err / float(yr.abs().max())
+                worst = max(worst, err)
+                ncell = int((mask != 0).sum())
+                print(f"[kernel hex3 block] n={n} {side:3s} {str(dt)[6:]:7s} {ncell} masked cells: max|dy|/max|y| = "
+                      f"{rel:.3e} (tol {tol[dt]:.0e}) {'ok' if rel <= tol[dt] else 'FAIL'}")
+                if rel > tol[dt]:
+                    raise AssertionError(f"hex3 block kernel disagrees with its plain version: {rel} > {tol[dt]}")
+                if n != N3_BLOCK_HEX[-1]:
+                    continue
+                nbytes = (2 * x.numel() + mask.numel()) * x.element_size()
+                bound = _bound(nbytes, 2 * 24 * 24 * ncell, dt)
+                call = lambda: ch.hex_block_stencil3(x, mask, K)
+                t = {"device_ms": _device_ms(call, 20, "hexblock_stencil3_kernel"), "ms": _event_ms(call, 20),
+                     "host_ms": _host_ms(call, 20), "plain_ms": _event_ms(lambda: ch.hex_block_stencil3_ref(x, mask, K), 2),
+                     "library_ms": None, "bound_ms": bound[0], "bound_by": bound[1]}
+                lib = ""
+                if dt is torch.float64:
+                    A = _hex3_block_csr(mask, K)
+                    yl = torch.mv(A, x.reshape(-1))
+                    rel_l = float((yl - yr.reshape(-1)).abs().max()) / float(yr.abs().max())
+                    if rel_l > 1e-12:
+                        raise AssertionError(f"the hex3 block CSR is not the kernel's operator: {rel_l}")
+                    t["library_ms"] = _event_ms(lambda: torch.mv(A, x.reshape(-1)), 10)
+                    lib = f"; CSR torch.mv {t['library_ms']:.4f} ms ({A._nnz()} nonzeros)"
+                    del A, yl
+                out[side, dt] = t
+                print(f"[kernel hex3 block] time n={n} {side} {str(dt)[6:]}: {t['ms']:.4f} ms per call (CUDA events), "
+                      f"{t['device_ms']:.4f} ms device per launch (profiler), {t['host_ms']:.4f} ms host per call; "
+                      f"bound {bound[0]:.4f} ms by {bound[1]} ({nbytes / 1e6:.1f} MB), {bound[0] / t['device_ms']:.1%} "
+                      f"of it by device time, {bound[0] / t['ms']:.1%} by ms; plain {t['plain_ms']:.3f} ms{lib}")
+        torch.cuda.empty_cache()
+    keys = ("ms", "device_ms", "host_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    f64, f32 = torch.float64, torch.float32
+    return {
+        "name": "hex_block_stencil3",
+        "route": "cuda",
+        "source": "phifem_tpu_torch/csrc/hex_stencil3.cu",
+        "replaces": "phifem_tpu/models/interface_elasticity3.py:122 (_masked_block_stencil_apply, XLA-fused; not a "
+                    "Pallas kernel)",
+        "max_abs_err": worst,
+        **{k: out["in", f64][k] for k in keys},
+        "library": "torch.mv of the operator as a CUDA CSR matrix (cuSPARSE SpMV)",
+        "shape": f"S5-3D in-side mask n={N3_BLOCK_HEX[-1]} (3 x {N3_BLOCK_HEX[-1] + 1}^3 nodes), float64",
+        **{f"out_{k}": out["out", f64][k] for k in keys},
+        **{f"f32_{k}": out["in", f32][k] for k in keys if k != "library_ms"},
+        **{f"out_f32_{k}": out["out", f32][k] for k in keys if k != "library_ms"},
+    }
+
+
+def phase_kernel_lattice3_block(pt) -> dict:
+    """The 3-channel block lattice sweep against its plain version on the
+    card at 129^3 and 65^3 x 3 channels (the S5-3D bulk at n=128 and 64) in
+    its modes, float32 and float64, each timed beside its bound (x and b
+    read, out written, 3 channels, and the mask), the plain version and, for
+    the matvec, torch.nn.functional.conv3d with 3 in and 3 out channels."""
+    from phifem_tpu_torch.models.interface_elasticity import lame
+    from phifem_tpu_torch.models.interface_elasticity3 import _elastic_element_matrix
+    from phifem_tpu_torch.ops.lattice3 import _block_terms3, block_vertex_stencil_weights3
+
+    _, cl = _k3()
+    rng = np.random.default_rng(SEED + 4)
+    tol = {torch.float32: 1e-5, torch.float64: 1e-13}
+    worst, times = 0.0, {}
+    for n in N3_BLOCK_LATTICE:
+        D = n + 1
+        h = 3.0 / n
+        terms = _block_terms3(block_vertex_stencil_weights3(_elastic_element_matrix(h, h, h, *lame(1.0, S53D_NU)), 3))
+        dinv = np.linalg.inv(next(W for a, b, c, W in terms if (a, b, c) == (1, 1, 1)))
+        packed = cl.pack_block_terms(terms, dinv)
+        for dt in (torch.float32, torch.float64):
+            x = torch.zeros((3,) + (D + 2,) * 3, dtype=dt, device=DEVICE)
+            x[:, 2:D, 2:D, 2:D] = torch.as_tensor(rng.standard_normal((3,) + (D - 2,) * 3), dtype=dt, device=DEVICE)
+            b = torch.zeros_like(x)
+            b[:, 2:D, 2:D, 2:D] = torch.as_tensor(rng.standard_normal((3,) + (D - 2,) * 3), dtype=dt, device=DEVICE)
+            mask = torch.as_tensor(rng.random((D,) * 3) < 0.7, dtype=dt, device=DEVICE)
+            for mode, name, m in ((cl.MATVEC, "matvec", None), (cl.RESIDUAL, "residual", mask),
+                                  (cl.JACOBI, "jacobi masked", mask), (cl.JACOBI, "jacobi", None)):
+                yk = cl.lattice3_block_sweep(mode, x, packed, b, m, 0.6)
+                yr = cl.lattice3_block_sweep_ref(mode, x, packed, b, m, 0.6)
+                torch.cuda.synchronize()
+                err = float((yk - yr).abs().max())
+                rel = err / float(yr.abs().max())
+                worst = max(worst, err)
+                if rel > tol[dt]:
+                    raise AssertionError(f"lattice3 block kernel ({name}) disagrees with its plain version: {rel}")
+                nb = (2 + (mode != cl.MATVEC)) * x.numel() + (0 if m is None else m.numel())
+                bound = _bound(nb * x.element_size(), 2 * 9 * len(terms) * (D - 2) ** 3, dt)
+                call = lambda: cl.lattice3_block_sweep(mode, x, packed, b, m, 0.6)
+                t = {"ms": _event_ms(call, 20), "plain_ms": _event_ms(
+                    lambda: cl.lattice3_block_sweep_ref(mode, x, packed, b, m, 0.6), 2),
+                     "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+                     "device_ms": _device_ms(call, 10, "lattice3_block_kernel"), "host_ms": _host_ms(call, 20)}
+                if mode == cl.MATVEC:
+                    Wc = torch.zeros((3, 3, 3, 3, 3), dtype=dt, device=DEVICE)
+                    for a, bb, c, W in terms:
+                        Wc[:, :, a, bb, c] = torch.as_tensor(W, dtype=dt, device=DEVICE)
+                    conv = lambda: torch.nn.functional.conv3d(x[None], Wc)
+                    yl = conv()[0, :, 1:-1, 1:-1, 1:-1]
+                    rel_l = float((yl - yk[:, 2:D, 2:D, 2:D]).abs().max()) / float(yr.abs().max())
+                    if rel_l > 10 * tol[dt]:
+                        raise AssertionError(f"conv3d is not the block kernel's matvec: {rel_l}")
+                    t["library_ms"] = _event_ms(conv, 20)
+                times[n, dt, name] = t
+                extra = "".join(f", {k} {t[k]:.4f}" for k in ("device_ms", "host_ms", "library_ms")
+                                if t.get(k) is not None)
+                print(f"[kernel lattice3 block] {name:13s} {str(dt)[6:]:7s} 3 x {D}^3: max|dy|/max|y| = {rel:.3e} "
+                      f"(tol {tol[dt]:.0e}) ok; ms {t['ms']:.4f} (bound {bound[0]:.4f} by {bound[1]}, "
+                      f"{bound[0] / t['device_ms']:.1%} by device time, {bound[0] / t['ms']:.1%} by ms), plain "
+                      f"{t['plain_ms']:.4f}{extra}")
+            del x, b, mask, yk, yr
+            torch.cuda.empty_cache()
+    keys = ("ms", "device_ms", "host_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    main = times[N3_BLOCK_LATTICE[0], torch.float32, "jacobi masked"]
+    line = {
+        "name": "lattice3_block_sweep",
+        "route": "cuda",
+        "source": "phifem_tpu_torch/csrc/lattice3_sweep.cu",
+        "replaces": "phifem_tpu/ops/lattice3.py:381 (_conv_interior3_block in Lattice3BlockMG._smooth :464 and "
+                    "_cycle :493; XLA-fused, not a Pallas kernel)",
+        "max_abs_err": worst,
+        **{k: main.get(k) for k in keys},
+        "library_ms": times[N3_BLOCK_LATTICE[0], torch.float32, "matvec"]["library_ms"],
+        "library": "torch.nn.functional.conv3d, 3 in / 3 out channels, 3x3x3 weights (matvec mode; cuDNN, TF32 off)",
+        "shape": "3 x 129^3 masked block Jacobi sweep, float32 (the S5-3D bulk cycle's finest level at n=128)",
+    }
+    for (n, dt, name), t in times.items():
+        tag = f"{name.replace(' ', '_')}_{n + 1}_{str(dt)[6:]}"
+        for k in keys:
+            if t.get(k) is not None:
+                line[f"{tag}_{k}"] = t[k]
+    return line
+
+
+def _hold_lattice3_block_levels(mg, label: str) -> None:
+    """The block sweep against its plain version on every smoothed level of
+    a Lattice3BlockMG, with that level's packed blocks and pooled mask, in
+    the cycle's dtype: the masked block Jacobi sweep and the residual.
+    Random interior inputs; these launches are not counted."""
+    _, cl = _k3()
+    n0 = cl.block_launches
+    rng = np.random.default_rng(SEED + 5)
+    tol = {torch.float32: 1e-5, torch.float64: 1e-13}
+    worst = 0.0
+    for k, lvl in enumerate(mg.levels[:-1]):
+        D, R, C = lvl.D, lvl.R, lvl.C
+        m = None if mg.masks is None else mg.masks[k]
+        for mode in (cl.JACOBI, cl.RESIDUAL):
+            x = torch.zeros((3, D + 2, R + 2, C + 2), dtype=mg.dtype, device=DEVICE)
+            b = torch.zeros_like(x)
+            x[:, 2:D, 2:R, 2:C] = torch.as_tensor(rng.standard_normal((3, D - 2, R - 2, C - 2)), dtype=mg.dtype,
+                                                  device=DEVICE)
+            b[:, 2:D, 2:R, 2:C] = torch.as_tensor(rng.standard_normal((3, D - 2, R - 2, C - 2)), dtype=mg.dtype,
+                                                  device=DEVICE)
+            yk = cl.lattice3_block_sweep(mode, x, mg._packed[k], b, m, mg.omega)
+            yr = cl.lattice3_block_sweep_ref(mode, x, mg._packed[k], b, m, mg.omega)
+            rel = float((yk - yr).abs().max()) / max(float(yr.abs().max()), 1e-300)
+            worst = max(worst, rel)
+            if rel > tol[mg.dtype]:
+                raise AssertionError(f"{label}: lattice3 block kernel disagrees with its plain version on level {k}: "
+                                     f"{rel}")
+    cl.block_launches = n0
+    print(f"[{label}] lattice3 block kernel against its plain version on {len(mg.levels) - 1} smoothed levels: "
+          f"max|dy|/max|y| = {worst:.3e}")
+
+
+def _profile_steps3(s, M, label: str, deflate=None, steps: int = 2) -> None:
+    """A device trace of ``steps`` Arnoldi steps of the flexible GMRES that
+    ``s.solve(method="fgmres")`` runs on a 3D scheme (its equilibrated
+    operator, ``M`` and ``deflate``; one cycle of ``restart=steps``)."""
+    from phifem_tpu_torch.models.lattice_core import make_equilibrated_runner
+
+    run_eq = make_equilibrated_runner(s.matvec, s.diag, s.active, method="fgmres", tol=0.0, maxiter=steps,
+                                      precond=M, deflate=deflate, restart=steps)
+    run = lambda: run_eq(s.b)
+    _, wall = _sync_time(run)
+    _trace_report(label, _device_kernels(run, 1), wall, steps, "fgmres", KERNELS_3D, top=10)
+
+
+def _hold_hex3_scheme(label: str, cases) -> None:
+    """hex3 (an 8 x 8 cell matrix, d=1) or the block hex stencil (24 x 24)
+    against its plain version on a scheme's own cell masks and matrices,
+    ``cases = [(mask, A), ...]``, with a seeded x in A's dtype; these
+    launches are not counted."""
+    ch, _ = _k3()
+    n0, nb0 = ch.launches, ch.block_launches
+    rng = np.random.default_rng(SEED + 6)
+    tol = {torch.float32: 1e-5, torch.float64: 1e-13}
+    worst = {}
+    for mask, A in cases:
+        block = A.shape[0] == 24
+        x = torch.as_tensor(rng.standard_normal(((3,) if block else ()) + tuple(k + 1 for k in mask.shape)),
+                            dtype=A.dtype, device=DEVICE)
+        if block:
+            yk, yr = ch.hex_block_stencil3(x, mask, A), ch.hex_block_stencil3_ref(x, mask, A)
+        else:
+            yk, yr = ch.hex_stencil3(x, mask, A, 1), ch.hex_stencil3_ref(x, mask, A, 1)
+        rel = float((yk - yr).abs().max()) / max(float(yr.abs().max()), 1e-300)
+        name = "hex3 block" if block else "hex3"
+        worst[name] = max(worst.get(name, 0.0), rel)
+        if rel > tol[A.dtype]:
+            raise AssertionError(f"{label}: {name} kernel disagrees with its plain version on the scheme's mask "
+                                 f"{tuple(mask.shape)}: {rel}")
+    ch.launches, ch.block_launches = n0, nb0
+    print(f"[{label}] " + ", ".join(f"{k} kernel against its plain version on the scheme's own masks and cell "
+                                     f"matrices: max|dy|/max|y| = {v:.3e}" for k, v in worst.items()))
+
+
+def _pin(label: str, got: int, expect: int) -> None:
+    if got != expect:
+        raise AssertionError(f"{label}: {got} iterations, not {expect}")
+
+
+def _neumann3_against_cpu(pt, s, label: str, robin: bool) -> None:
+    """The card's scheme against the CPU lane's: tags equal, b and one
+    matvec to 1e-12; then lattice_preconditioner(sweeps=NEU_CPU_SWEEPS) on
+    both, one application to a seeded residual to NEU_PRECOND_TOL and the
+    whole BiCGStab solve with it: an equal count, u to 1e-6.  At the default
+    sweeps the inner band solve stops far from convergence, and its rounding
+    moves the count (11 on an H100; 8 and 18 on two CPUs, PERF.md); run to
+    convergence, the preconditioner is a fixed operator up to rounding."""
+    h = _neumann3(pt, s.grid.nx, "cpu", robin).assemble()
+    if not np.array_equal(s.tags.cell_tags, h.tags.cell_tags):
+        raise AssertionError(f"{label}: cell tags differ from the CPU lane's")
+    ec = _against_cpu3(s, h)
+    Mc, Mh = s.lattice_preconditioner(sweeps=NEU_CPU_SWEEPS), h.lattice_preconditioner(sweeps=NEU_CPU_SWEEPS)
+    rng = np.random.default_rng(SEED + 7)
+    r = {k: torch.where(h.active[k], torch.as_tensor(rng.standard_normal(tuple(v.shape))), 0.0) for k, v in h.b.items()}
+    zc, zh = Mc({k: v.to(DEVICE) for k, v in r.items()}), Mh(r)
+    e_pre = max(_rel(zc[k], zh[k]) for k in zh)
+    rc = s.solve(tol=TOL, maxiter=400, precond=Mc)
+    rh = h.solve(tol=TOL, maxiter=400, precond=Mh)
+    ec["u"] = _rel(rc.x["u"], rh.x["u"])
+    _hold(label, ec)
+    print(f"[{label}] tags equal the CPU lane's; lattice_preconditioner(sweeps={NEU_CPU_SWEEPS}) (interface "
+          f"m={Mc.iface.m}): one application max rel diff {e_pre:.3e} (tol {NEU_PRECOND_TOL:.0e}), BiCGStab "
+          f"{rc.iterations} it on the card, {rh.iterations} on the CPU")
+    if e_pre > NEU_PRECOND_TOL:
+        raise AssertionError(f"{label}: the preconditioner on the card disagrees with the CPU lane's: {e_pre}")
+    if not (rc.converged and rc.iterations == rh.iterations):
+        raise AssertionError(f"{label}: {rc.iterations} iterations on the card, {rh.iterations} on the CPU")
+
+
+def phase_neumann3(pt, robin: bool = False) -> dict:
+    """S3-3D (or S4-3D with ``robin``) on the sphere: (Neumann) n=16,
+    BiCGStab with lattice_preconditioner(), and against the CPU lane
+    (:func:`_neumann3_against_cpu`); n=32 Jacobi-equilibrated BiCGStab (the
+    demo's path); n=64 flexible GMRES with lattice_preconditioner();
+    (Neumann) n=96, 4.5M DoFs, the same as the scale run with its set-up and
+    a trace of two fgmres steps; every count pinned; hex3 and the lattice
+    sweep held against their plain versions on each n's own mask, cell
+    matrix and cycle levels; L2(32) / L2(64) > 2^1.3."""
+    name = "robin3" if robin else "neumann3"
+    pins = ROB_IT if robin else NEU_IT
+    ns = (N3_NEU_JAC, N3_NEU) if robin else (N3_NEU_CPU, N3_NEU_JAC, N3_NEU, N3_NEU_LARGE)
+    counts, errs = {}, {}
+    for n in ns:
+        label = f"{name} n={n}"
+        _reset3()
+        torch.cuda.reset_peak_memory_stats()
+        s, t_tag = _sync_time(_neumann3, pt, n, DEVICE, robin)
+        _, t_asm = _sync_time(s.assemble)
+        nd = sum(v.numel() for v in s.b.values())
+        kw = dict(tol=TOL, maxiter=20000 if n == N3_NEU_JAC else 400)
+        if n == N3_NEU_JAC:
+            M, t_pre = None, 0.0
+        else:
+            M, t_pre = _sync_time(s.lattice_preconditioner)
+            kw["precond"] = M
+        if n >= N3_NEU:
+            kw["method"] = "fgmres"
+        r0, t_cold = _sync_time(s.solve, **kw)
+        # the large runs once; the small ones cold and warm
+        r, t_warm = (r0, t_cold) if n >= N3_NEU else _sync_time(s.solve, **kw)
+        counts[n] = _counts3()
+        e = errs[n] = s.l2_h1_errors(u_smooth)
+        band = ""
+        if M is not None:
+            bd = getattr(M.iface, "band", None)
+            band = (f"; interface m={M.iface.m}, " + ("dense inverse" if bd is None else
+                    f"{bd.schwarz_ids.shape[0]} blocks of <= {bd.schwarz_ids.shape[1]}, {bd.schwarz_sweeps} sweeps"))
+        print(f"[{label}] ndofs={nd} ({sum(int(v.sum()) for v in s.active.values())} active, "
+              f"{s.tags.num_cut_cells} cut cells): tag {t_tag:.3f} s, assemble {t_asm:.3f} s, "
+              f"{'Jacobi' if M is None else 'lattice_preconditioner() %.3f s' % t_pre}{band}; "
+              f"{kw.get('method', 'bicgstab')} tol {TOL:.0e}: cold {t_cold:.3f} s ({r0.iterations} it), warm "
+              f"{t_warm:.3f} s, {r.iterations} it, relres "
+              f"{r.residual:.3e}; relative L2 {e['l2']:.4e}, H10 {e['h10']:.4e}; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {counts[n]}")
+        for res in (r0, r):
+            if not (res.converged and res.residual <= 10 * TOL):
+                raise AssertionError(f"{label}: not converged, relres {res.residual}, {res.iterations} it")
+        if r0.iterations != r.iterations:
+            raise AssertionError(f"{label}: cold {r0.iterations} and warm {r.iterations} iterations")
+        _pin(label, r.iterations, pins[n])
+        _hold_hex3_scheme(label, [(s.bulk_mask, s.A8)])
+        if M is not None:
+            _hold_lattice3_levels(M.mg, label)
+        if n == N3_NEU_CPU:
+            _neumann3_against_cpu(pt, s, label, robin)
+        if n == N3_NEU_LARGE and not robin:
+            _profile_steps3(s, M, label)
+        del s, M, r, r0
+        torch.cuda.empty_cache()
+    rate = math.log2(errs[N3_NEU_JAC]["l2"] / errs[N3_NEU]["l2"])
+    print(f"[{name}] L2 rate between n={N3_NEU_JAC} and n={N3_NEU}: {rate:.3f} (> 1.3)")
+    if not rate > 1.3:
+        raise AssertionError(f"{name} convergence: {errs}")
+    return counts
+
+
+def phase_s53d(pt) -> dict:
+    """S5-3D: flexible GMRES to 1e-8 with the rigid modes deflated and the
+    default lattice_preconditioner() (block V-cycles on both bulks, the band
+    solve on per-vertex blocks, the solid-harmonic coarse step) at n=8 and 16
+    (counts and errors against docs/s53d_results.csv) and at n=24 (the scale
+    run), every count pinned; at each n the block hex stencil and hex3 held
+    against their plain versions on the scheme's own masks and cell
+    matrices and the block sweep on every smoothed level of both cycles; at
+    n=24 set-up, solve wall and a trace of two fgmres steps."""
+    counts = {}
+    for n in (8, 16, N_S53D_LARGE):
+        label = f"s53d n={n}"
+        _reset3()
+        torch.cuda.reset_peak_memory_stats()
+        (s, exact), t_tag = _sync_time(_s53d, pt, n, DEVICE)
+        _, t_asm = _sync_time(s.assemble)
+        M, t_pre = _sync_time(s.lattice_preconditioner)
+        modes = s.rigid_modes()
+        kw = dict(method="fgmres", tol=S53D_TOL, maxiter=2000, precond=M, deflate=modes)
+        r, t_solve = _sync_time(s.solve, **kw)
+        counts[n] = _counts3()
+        e = s.l2_h1_errors(exact)
+        nd = sum(v.numel() for v in s.b.values())
+        print(f"[{label}] ndofs={nd} ({sum(int(v.sum()) for v in s.active.values())} active, "
+              f"{s.tags.num_cut_cells} cut cells): tag {t_tag:.3f} s, assemble {t_asm:.3f} s, "
+              f"lattice_preconditioner() {t_pre:.3f} s (interface m={M.iface.m}, "
+              f"{M.iface.band.schwarz_ids.shape[0]} vertex blocks, {M.iface.band.schwarz_sweeps} inner sweeps; "
+              f"coarse basis k={s._coarse_Z.shape[0]}); fgmres tol {S53D_TOL:.0e}: {t_solve:.3f} s, "
+              f"{r.iterations} it, relres {r.residual:.3e}; relative L2 {e['l2']:.4e}, H10 {e['h10']:.4e}; peak "
+              f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {counts[n]}")
+        if not (r.converged and r.residual <= 10 * S53D_TOL):
+            raise AssertionError(f"{label}: not converged, relres {r.residual}, {r.iterations} it")
+        if n in S53D_REF:
+            it_ref, l2, h10 = S53D_REF[n]
+            ok_it = abs(r.iterations - it_ref) <= max(3, 0.25 * it_ref) if n == 8 else r.iterations <= it_ref
+            if not (ok_it and abs(e["l2"] - l2) <= 0.01 * l2 and abs(e["h10"] - h10) <= 0.01 * h10):
+                raise AssertionError(f"{label}: {r.iterations} it, errors {e}, against {S53D_REF[n]}")
+        _pin(label, r.iterations, S53D_IT[n])
+        A8 = torch.as_tensor(np.random.default_rng(SEED + 8).standard_normal((8, 8)), device=DEVICE)
+        _hold_hex3_scheme(label, [(s.mask_in, s.K_in), (s.mask_out, s.K_out), (s.mask_in, A8), (s.mask_out, A8)])
+        for mg in M.mgs.values():
+            _hold_lattice3_block_levels(mg, label)
+        if n == N_S53D_LARGE:
+            _profile_steps3(s, M, label, deflate=modes)
+        del s, M, r, modes
+        torch.cuda.empty_cache()
+    return counts
+
+
+def run_slice_f2(pt) -> tuple:
+    """Every slice-F2 phase; returns (the two block kernels' lines, launches
+    per path)."""
+    t0 = time.perf_counter()
+    hexb = phase_kernel_hex3_block(pt)
+    latb = phase_kernel_lattice3_block(pt)
+    print(f"[time] 3D block kernel phases {time.perf_counter() - t0:.1f} s")
+    paths = {}
+    for robin in (False, True):
+        t0 = time.perf_counter()
+        name = "robin3" if robin else "neumann3"
+        for n, c in phase_neumann3(pt, robin).items():
+            paths[f"{name} n={n}"] = c
+        print(f"[time] {name} {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for n, c in phase_s53d(pt).items():
+        paths[f"s53d n={n}"] = c
+    print(f"[time] s53d {time.perf_counter() - t0:.1f} s")
+    print(f"[main path F2] kernel launches per path: {paths}")
+    for p, c in paths.items():
+        if c["hex3"] <= 0:
+            raise AssertionError(f"{p} never launched the hex3 kernel")
+        if p.startswith(("neumann3", "robin3")) and not p.endswith(f"n={N3_NEU_JAC}") and c["lattice3"] <= 0:
+            raise AssertionError(f"{p} never launched the lattice3 kernel")
+        if p.startswith("s53d") and (c["hex3_block"] <= 0 or c["lattice3_block"] <= 0):
+            raise AssertionError(f"{p} never launched the block kernels")
+    hexb["launches"] = sum(c["hex3_block"] for c in paths.values())
+    hexb["launches_by_path"] = {p: c["hex3_block"] for p, c in paths.items() if c["hex3_block"]}
+    latb["launches"] = sum(c["lattice3_block"] for c in paths.values())
+    latb["launches_by_path"] = {p: c["lattice3_block"] for p, c in paths.items() if c["lattice3_block"]}
+    return [hexb, latb], paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -1926,6 +2491,15 @@ def main() -> int:
     kernels3, paths3 = run_slice_f1(pt)
     print(f"[time] slice F1 phases {time.perf_counter() - t_f:.1f} s")
 
+    # slice F2: 3D Neumann and Robin, S5-3D; the block kernels on S5-3D
+    t_f = time.perf_counter()
+    kernels3b, paths3b = run_slice_f2(pt)
+    print(f"[time] slice F2 phases {time.perf_counter() - t_f:.1f} s")
+    # the F2 paths run the two scalar 3D kernels too: their lines count them
+    for line, key in zip(kernels3, ("hex3", "lattice3")):
+        line["launches"] += sum(c[key] for c in paths3b.values())
+        line["launches_by_path"].update({p: c[key] for p, c in paths3b.items()})
+
     print(f"[main path] kernel launches per path: {paths}")
     if paths["box Poisson"]["stencil"] <= 0:
         raise AssertionError("the box-Poisson path never launched the stencil kernel")
@@ -1964,7 +2538,7 @@ def main() -> int:
         "s5_launches_by_path": {p: c["taps"] for p, c in paths.items() if p.startswith("S5")},
     }
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [kernel, taps, *kernels3]}))
+    print(json.dumps({"kernels": [kernel, taps, *kernels3, *kernels3b]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

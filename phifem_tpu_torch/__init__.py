@@ -9,13 +9,14 @@ geometric and lattice multigrid V-cycles with the cut-band interface solve,
 p-multigrid for degree >= 2 (``pmg``), box Poisson and the phi-FEM schemes
 S1-S4 in bg and sub mode and S5 (two-material interface elasticity: sparse
 direct and deflated, lattice-preconditioned BiCGStab); in 3D, the hex
-grid and its tagging, the lattice multigrid, box Poisson, S1 at Q1-Q3 and
-S2.  The P1 cell-stencil matvec (``ops/cuda_stencil.py``), the tap-form
-matvec (``ops/cuda_taps.py``), the masked hex-cell stencil
-(``ops/cuda_hex3.py``) and the 27-point lattice sweep
-(``ops/cuda_lattice3.py``) run hand-written CUDA kernels for tensors on an
-NVIDIA Hopper card and their plain PyTorch versions for tensors on the
-CPU.
+grid and its tagging, the scalar and block lattice multigrid, box Poisson,
+S1 at Q1-Q3, S2, S3, S4 and S5.  The P1 cell-stencil matvec
+(``ops/cuda_stencil.py``), the tap-form matvec (``ops/cuda_taps.py``), the
+masked hex-cell stencil and its 3-channel block form
+(``ops/cuda_hex3.py``) and the 27-point lattice sweep and its 3-channel
+block form (``ops/cuda_lattice3.py``) run hand-written CUDA kernels for
+tensors on an NVIDIA Hopper card and their plain PyTorch versions for
+tensors on the CPU.
 
 Device and dtype are explicit: a :class:`Grid` (or :class:`Grid3`) takes ``device=`` and
 ``dtype=`` (default float64), and everything built on it follows.  The
@@ -36,7 +37,8 @@ from .assembly import (
     assemble_vector,
 )
 from .ops.stencil import StencilCellBatch
-from .ops.lattice import LatticeMG, lattice_cg
+from .ops.lattice import LatticeBlockMG, LatticeMG, lattice_cg
+from .ops.lattice3 import Lattice3BlockMG, build_lattice3_block_mg
 from .ops.taps import TapOperator, build_tap_operator
 from .mg import LatticeBulkVCycle, VCycle, attach_interface_solve, build_hierarchy
 from .solvers import DirichletBC, solve, solve_ir
@@ -44,8 +46,11 @@ from .models import (
     BoxPoisson,
     BoxPoisson3,
     InterfaceElasticity,
+    InterfaceElasticity3,
     NeumannPoisson,
+    NeumannPoisson3,
     RobinPoisson,
+    RobinPoisson3,
     StrongDirichletPoisson,
     StrongDirichletPoisson3,
     WeakDirichletPoisson,
@@ -72,6 +77,9 @@ __all__ = [
     "assemble_scalar",
     "StencilCellBatch",
     "LatticeMG",
+    "LatticeBlockMG",
+    "Lattice3BlockMG",
+    "build_lattice3_block_mg",
     "lattice_cg",
     "TapOperator",
     "build_tap_operator",
@@ -91,4 +99,7 @@ __all__ = [
     "BoxPoisson3",
     "WeakDirichletPoisson3",
     "StrongDirichletPoisson3",
+    "NeumannPoisson3",
+    "RobinPoisson3",
+    "InterfaceElasticity3",
 ]

@@ -605,6 +605,130 @@ int dispatch(const void* x, void* y, const void* mask, const void* A, int nx, in
   }
 }
 
+
+// ----------------------------------------------- 3-channel blocks, d = 1
+// The block form of the degree-1 stencil, for the (24, 24) channel-major cell
+// matrix K of a 3-vector Q1 field (local dof 8 c + i, channels first):
+//
+//   y[c, n] = sum_{cells containing n, i ascending} mask * sum_{c', j} K[8c+i, 8c'+j] x[c', node(cell, j)]
+//
+// the XLA-fused _masked_block_stencil_apply of
+// phifem_tpu/models/interface_elasticity3.py (:122), run once per side in
+// every S5-3D matvec.  Bound: bytes at the S5-3D masks (x and y, 3 channels,
+// and the cell mask: 56 B per node in float64), against 2 x 576 flops per
+// active cell and channel triple.
+//
+// Design: the node-run body of the scalar d = 1 kernel, simple.  A CTA of
+// BXB x BYB threads owns a column of nodes and a run of RZB planes; it
+// stages the three channels' planes of x its nodes need (one-node halo,
+// clamped coordinates: a clamped value only meets a cell outside the grid,
+// whose mask is 0), the cell masks around them (0 outside the grid) and K
+// (4.6 KB in float64) in static shared memory, 37 KB in float64.  A thread
+// then takes its node column and, per output channel, per node of its run,
+// adds the node's active cells in ascending local index i, each cell's row
+// dot s = sum_{c', j} K[8c+i, 8c'+j] x[c', j] summed in ascending (c', j),
+// every product and sum rounded on its own: the order of the plain version
+// (ops/cuda_hex3.py: hex_block_stencil3_ref).  x is read from shared memory
+// in the dot (no register window: 3 channels of it would not fit).  A run
+// that no active cell touches writes zeros.
+#ifndef PHIFEM_HEX3B_BX
+#define PHIFEM_HEX3B_BX 16
+#endif
+#ifndef PHIFEM_HEX3B_BY
+#define PHIFEM_HEX3B_BY 8
+#endif
+#ifndef PHIFEM_HEX3B_RZ
+#define PHIFEM_HEX3B_RZ 4
+#endif
+constexpr int kBXB = PHIFEM_HEX3B_BX, kBYB = PHIFEM_HEX3B_BY, kRZB = PHIFEM_HEX3B_RZ, kVSZ = 3;
+
+template <typename T>
+__global__ void __launch_bounds__(kBXB * kBYB)
+hexblock_stencil3_kernel(const T* __restrict__ x, T* __restrict__ y,
+                         const T* __restrict__ mask, const T* __restrict__ K,
+                         int nx, int ny, int nz) {
+  constexpr int NT = kBXB * kBYB, NK = 64 * kVSZ * kVSZ;
+  constexpr int SX = kBXB + 2, SY = kBYB + 2, PX = SY * SX, NPX = kRZB + 2;
+  constexpr int MX = kBXB + 1, MY = kBYB + 1, PM = MY * MX, NPM = kRZB + 1;
+  __shared__ __align__(16) T sk[NK];
+  __shared__ __align__(16) T sx[kVSZ * NPX * PX];
+  __shared__ __align__(16) T sm[NPM * PM];
+  const int C = nx + 1, R = ny + 1, D = nz + 1;
+  const long long N = (long long)D * R * C;
+  const int x0 = blockIdx.x * kBXB, y0 = blockIdx.y * kBYB, z0 = blockIdx.z * kRZB;
+  const int tid = threadIdx.y * kBXB + threadIdx.x;
+  for (int k = tid; k < NK; k += NT) sk[k] = K[k];
+  for (int k = tid; k < kVSZ * NPX * PX; k += NT) {
+    const int c = k / (NPX * PX), a = (k / PX) % NPX, r = (k % PX) / SX, q = k % SX;
+    const int gz = min(max(z0 - 1 + a, 0), D - 1), gy = min(max(y0 - 1 + r, 0), R - 1),
+              gx = min(max(x0 - 1 + q, 0), C - 1);
+    sx[k] = x[c * N + ((long long)gz * R + gy) * C + gx];
+  }
+  for (int k = tid; k < NPM * PM; k += NT) {
+    const int cz = z0 - 1 + k / PM, cy = y0 - 1 + (k % PM) / MX, cx = x0 - 1 + k % MX;
+    sm[k] = (cz >= 0 && cz < nz && cy >= 0 && cy < ny && cx >= 0 && cx < nx)
+                ? mask[((long long)cz * ny + cy) * nx + cx] : T(0);
+  }
+  __syncthreads();
+  const int px = x0 + threadIdx.x, py = y0 + threadIdx.y;
+  if (px >= C || py >= R) return;
+  // the cell (z0-1+a, py-1+b, px-1+c) of the thread's column
+  auto mk = [&](int a, int b, int c) -> T { return sm[a * PM + (threadIdx.y + b) * MX + threadIdx.x + c]; };
+  bool any = false;
+#pragma unroll
+  for (int a = 0; a < kRZB + 1; ++a)
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) any = any || mk(a, b, c) != T(0);
+#pragma unroll 1
+  for (int ci = 0; ci < kVSZ; ++ci) {
+    T acc[kRZB];
+#pragma unroll
+    for (int k = 0; k < kRZB; ++k) acc[k] = T(0);
+    if (any) {
+#pragma unroll 1
+      for (int i = 0; i < 8; ++i) {
+        const int oz = i >> 2, oy = (i >> 1) & 1, ox = i & 1;
+        const T* krow = sk + (8 * ci + i) * (8 * kVSZ);
+#pragma unroll
+        for (int k = 0; k < kRZB; ++k) {
+          const T m = mk(k + 1 - oz, 1 - oy, 1 - ox);
+          if (m == T(0)) continue;
+          // the cell's node j of channel c' sits at plane k + 1 - oz + jz,
+          // row ty + 1 - oy + jy, column tx + 1 - ox + jx of the staged block
+          const T* base = sx + (k + 1 - oz) * PX + (threadIdx.y + 1 - oy) * SX + threadIdx.x + 1 - ox;
+          T s = T(0);
+#pragma unroll
+          for (int cj = 0; cj < kVSZ; ++cj) {
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const int jz = j >> 2, jy = (j >> 1) & 1, jx = j & 1;
+              const T t = mul_rn(krow[8 * cj + j], base[cj * NPX * PX + jz * PX + jy * SX + jx]);
+              s = (cj == 0 && j == 0) ? t : add_rn(s, t);
+            }
+          }
+          acc[k] = add_rn(acc[k], mul_rn(m, s));
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kRZB; ++k) {
+      if (z0 + k < D) y[ci * N + ((long long)(z0 + k) * R + py) * C + px] = acc[k];
+    }
+  }
+}
+
+template <typename T>
+void launch_block(const void* x, void* y, const void* mask, const void* K, int nx, int ny, int nz,
+                  cudaStream_t stream) {
+  const dim3 block(kBXB, kBYB);
+  const dim3 grid((nx + 1 + kBXB - 1) / kBXB, (ny + 1 + kBYB - 1) / kBYB, (nz + 1 + kRZB - 1) / kRZB);
+  hexblock_stencil3_kernel<T><<<grid, block, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(y), static_cast<const T*>(mask),
+      static_cast<const T*>(K), nx, ny, nz);
+}
+
 }  // namespace
 
 extern "C" {
@@ -630,6 +754,28 @@ void phifem_hex3_constants(int* out) {
                    Tile<3>::cells, Tile<2>::threads, Tile<3>::threads, kKC, Tile<2>::min_ctas, Tile<3>::min_ctas,
                    PHIFEM_HEX3_MB1};
   for (int i = 0; i < 13; ++i) out[i] = v[i];
+}
+
+// y = K_masked x for a 3-channel Q1 field (see hexblock_stencil3_kernel):
+// x, y: device pointers to 3 (nz + 1) (ny + 1) (nx + 1) values, channels
+// first; mask: nz ny nx cell values; K: the (24, 24) channel-major cell
+// matrix (row-major), all in the same type.  Returns cudaGetLastError().
+int phifem_hex_block_stencil3(const void* x, void* y, const void* mask, const void* K, int nx,
+                              int ny, int nz, int is_double, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_double) {
+    launch_block<double>(x, y, mask, K, nx, ny, nz, s);
+  } else {
+    launch_block<float>(x, y, mask, K, nx, ny, nz, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The block kernel's tiling: BX, BY, RZ.
+void phifem_hexblock_constants(int* out) {
+  out[0] = kBXB;
+  out[1] = kBYB;
+  out[2] = kRZB;
 }
 
 const char* phifem_hex3_error_string(int err) {

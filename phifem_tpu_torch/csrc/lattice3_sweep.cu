@@ -306,6 +306,172 @@ void dispatch(const void* x, const void* b, const void* mask, void* out, const i
   }
 }
 
+
+// ------------------------------------------------- 3-channel block sweep
+// The block form of the sweep, for the channels-first (3, D+2, R+2, C+2)
+// arrays of a 3-vector field (the S5-3D elasticity bulks): the stencil is a
+// 3 x 3 block W_t at each of up to 27 positions, and per interior node
+//
+//   (A x)[i] = sum_t sum_j W_t[i][j] x[j][p + o_t]
+//
+// the XLA-fused _conv_interior3_block of phifem_tpu/ops/lattice3.py (:381)
+// inside Lattice3BlockMG._smooth (:464) and _cycle (:493).  Modes as above,
+// with the block Jacobi update x + (omega Dinv (b - A x)) [* m], Dinv the
+// interior centre block's 3 x 3 inverse, the mask shared by the channels.
+// Bound: bytes (x, b and out, 3 channels, and the mask), against 2 x 243
+// flops per node.
+//
+// Design: simple.  A CTA of BXB x BYB threads owns a block of columns and
+// rows; a thread owns one (x, y) column and a run of RZB planes, and per node
+// reads its 27 x 3 neighbours through the read-only cache (no shared-memory
+// staging: each x value is read by up to 27 nodes, mostly from L1 / L2).  The
+// blocks arrive by value, rounded to the value type on the host, at their
+// canonical positions with the bit mask of the terms present, walked in
+// ascending position; per term and output channel the part
+// ((W[i][0] x0 + W[i][1] x1) + W[i][2] x2) is added to the channel's sum,
+// which starts at -0; every product and sum is rounded on its own.  That is
+// the order of the plain version (ops/cuda_lattice3.py:
+// lattice3_block_sweep_ref) bit for bit.
+#ifndef PHIFEM_L3B_BX
+#define PHIFEM_L3B_BX 32
+#endif
+#ifndef PHIFEM_L3B_BY
+#define PHIFEM_L3B_BY 4
+#endif
+#ifndef PHIFEM_L3B_RZ
+#define PHIFEM_L3B_RZ 4
+#endif
+constexpr int kBXB = PHIFEM_L3B_BX, kBYB = PHIFEM_L3B_BY, kRZB = PHIFEM_L3B_RZ, kVSZ = 3;
+
+template <typename T>
+struct BlockStencil {
+  T w[kMaxTerms][kVSZ * kVSZ];  // the block at canonical position p, row-major
+  T dinv[kVSZ * kVSZ];          // the Jacobi centre-block inverse, row-major
+  T omega;
+  unsigned present;
+};
+
+template <typename T, int MODE, bool MASKED>
+__global__ void __launch_bounds__(kBXB * kBYB)
+lattice3_block_kernel(const T* __restrict__ x, const T* __restrict__ b,
+                      const T* __restrict__ mask, T* __restrict__ out,
+                      const BlockStencil<T> st, int D, int R, int C) {
+  const int PC = C + 2, PR = R + 2, PD = D + 2;
+  const int PLANE = PR * PC, CH = PD * PLANE;
+  const int px = blockIdx.x * kBXB + threadIdx.x, py = blockIdx.y * kBYB + threadIdx.y;
+  if (px >= PC || py >= PR) return;
+  const bool colin = py >= 2 && py <= R - 1 && px >= 2 && px <= C - 1;
+#pragma unroll 1
+  for (int k = 0; k < kRZB; ++k) {
+    const int pz = blockIdx.z * kRZB + k;
+    if (pz >= PD) break;
+    const int idx = pz * PLANE + py * PC + px;
+    if (!colin || pz < 2 || pz > D - 1) {
+#pragma unroll
+      for (int c = 0; c < kVSZ; ++c) out[c * CH + idx] = MODE == 2 ? x[c * CH + idx] : T(0);
+      continue;
+    }
+    T acc[kVSZ];
+#pragma unroll
+    for (int c = 0; c < kVSZ; ++c) acc[c] = T(-0.0);
+#pragma unroll
+    for (int p = 0; p < kMaxTerms; ++p) {
+      if (st.present & (1u << p)) {
+        const int nb = idx + (p / 9 - 1) * PLANE + ((p / 3) % 3 - 1) * PC + (p % 3 - 1);
+        T xv[kVSZ];
+#pragma unroll
+        for (int c = 0; c < kVSZ; ++c) xv[c] = __ldg(x + c * CH + nb);
+#pragma unroll
+        for (int i = 0; i < kVSZ; ++i) {
+          T part = mul_rn(st.w[p][i * kVSZ], xv[0]);
+#pragma unroll
+          for (int j = 1; j < kVSZ; ++j) part = add_rn(part, mul_rn(st.w[p][i * kVSZ + j], xv[j]));
+          acc[i] = add_rn(acc[i], part);
+        }
+      }
+    }
+    if (MODE == 0) {
+#pragma unroll
+      for (int c = 0; c < kVSZ; ++c) out[c * CH + idx] = acc[c];
+      continue;
+    }
+    T m = T(1);
+    if (MASKED) m = mask[((pz - 1) * R + (py - 1)) * C + (px - 1)];
+    T res[kVSZ];
+#pragma unroll
+    for (int c = 0; c < kVSZ; ++c) res[c] = sub_rn(b[c * CH + idx], acc[c]);
+    if (MODE == 1) {
+#pragma unroll
+      for (int c = 0; c < kVSZ; ++c) out[c * CH + idx] = MASKED ? mul_rn(res[c], m) : res[c];
+      continue;
+    }
+#pragma unroll
+    for (int i = 0; i < kVSZ; ++i) {
+      T d = mul_rn(st.dinv[i * kVSZ], res[0]);
+#pragma unroll
+      for (int j = 1; j < kVSZ; ++j) d = add_rn(d, mul_rn(st.dinv[i * kVSZ + j], res[j]));
+      T upd = mul_rn(st.omega, d);
+      if (MASKED) upd = mul_rn(upd, m);
+      out[i * CH + idx] = add_rn(x[i * CH + idx], upd);
+    }
+  }
+}
+
+template <typename T, int MODE>
+void launch_block_mode(const T* x, const T* b, const T* mask, T* out, const BlockStencil<T>& st,
+                       int D, int R, int C, cudaStream_t stream) {
+  const dim3 block(kBXB, kBYB);
+  const dim3 grid((C + 2 + kBXB - 1) / kBXB, (R + 2 + kBYB - 1) / kBYB, (D + 2 + kRZB - 1) / kRZB);
+  if (mask != nullptr) {
+    lattice3_block_kernel<T, MODE, true><<<grid, block, 0, stream>>>(x, b, mask, out, st, D, R, C);
+  } else {
+    lattice3_block_kernel<T, MODE, false><<<grid, block, 0, stream>>>(x, b, nullptr, out, st, D, R, C);
+  }
+}
+
+template <typename T>
+void dispatch_block(const void* x, const void* b, const void* mask, void* out, const int* offs,
+                    const double* w, int nterms, const double* dinv, double omega, int D, int R, int C,
+                    int mode, cudaStream_t stream) {
+  BlockStencil<T> st;
+  st.present = 0;
+  for (int p = 0; p < kMaxTerms; ++p)
+    for (int e = 0; e < kVSZ * kVSZ; ++e) st.w[p][e] = T(0);
+  for (int t = 0; t < nterms; ++t) {
+    const int p = (offs[3 * t] * 3 + offs[3 * t + 1]) * 3 + offs[3 * t + 2];
+    for (int e = 0; e < kVSZ * kVSZ; ++e) st.w[p][e] = static_cast<T>(w[t * kVSZ * kVSZ + e]);
+    st.present |= 1u << p;
+  }
+  for (int e = 0; e < kVSZ * kVSZ; ++e) st.dinv[e] = dinv ? static_cast<T>(dinv[e]) : T(0);
+  st.omega = static_cast<T>(omega);
+  const T* xt = static_cast<const T*>(x);
+  const T* bt = static_cast<const T*>(b);
+  const T* mt = static_cast<const T*>(mask);
+  T* ot = static_cast<T*>(out);
+  if (mode == 0) {
+    launch_block_mode<T, 0>(xt, bt, nullptr, ot, st, D, R, C, stream);
+  } else if (mode == 1) {
+    launch_block_mode<T, 1>(xt, bt, mt, ot, st, D, R, C, stream);
+  } else {
+    launch_block_mode<T, 2>(xt, bt, mt, ot, st, D, R, C, stream);
+  }
+}
+
+// the term list's checks, shared by both entry points: 1 to 27 terms at
+// offsets in {0, 1, 2}, strictly ascending in (oz, oy, ox)
+bool terms_ok(const int* offs, int nterms) {
+  if (nterms < 1 || nterms > kMaxTerms) return false;
+  int last = -1;
+  for (int t = 0; t < nterms; ++t) {
+    const int oz = offs[3 * t], oy = offs[3 * t + 1], ox = offs[3 * t + 2];
+    if (oz < 0 || oz > 2 || oy < 0 || oy > 2 || ox < 0 || ox > 2) return false;
+    const int p = (oz * 3 + oy) * 3 + ox;
+    if (p <= last) return false;
+    last = p;
+  }
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
@@ -350,6 +516,36 @@ void phifem_lattice3_constants(int* out) {
   const int v[] = {Shape<float>::bx, Shape<float>::by, Shape<float>::rx, Shape<float>::rz,
                    Shape<double>::bx, Shape<double>::by, Shape<double>::rx, Shape<double>::rz};
   for (int i = 0; i < 8; ++i) out[i] = v[i];
+}
+
+// The 3-channel block sweep (see lattice3_block_kernel) on channels-first
+// padded (3, D+2, R+2, C+2) arrays x, b, out (device pointers; b unused in
+// mode 0) with the optional logical (D, R, C) mask.  offs: HOST pointer to
+// nterms * 3 ints, strictly ascending in (oz, oy, ox); w: HOST pointer to
+// nterms * 9 doubles (each term's block, row-major); dinv: HOST pointer to 9
+// doubles (mode 2) or NULL.  Returns cudaGetLastError().
+int phifem_lattice3_block_sweep(const void* x, const void* b, const void* mask, void* out,
+                                int D, int R, int C, const int* offs, const double* w,
+                                int nterms, const double* dinv, double omega, int mode,
+                                int is_double, void* stream) {
+  if (!terms_ok(offs, nterms) || mode < 0 || mode > 2 || (mode == 2 && dinv == nullptr) ||
+      3LL * (D + 2) * (R + 2) * (C + 2) >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_double) {
+    dispatch_block<double>(x, b, mask, out, offs, w, nterms, dinv, omega, D, R, C, mode, s);
+  } else {
+    dispatch_block<float>(x, b, mask, out, offs, w, nterms, dinv, omega, D, R, C, mode, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The block kernel's tiling: BX, BY, RZ.
+void phifem_lattice3_block_constants(int* out) {
+  out[0] = kBXB;
+  out[1] = kBYB;
+  out[2] = kRZB;
 }
 
 const char* phifem_lattice3_error_string(int err) {

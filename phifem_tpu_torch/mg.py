@@ -278,6 +278,23 @@ class VCycle:
             rf = rf - self.coarse_AZ.to(rf.dtype).T @ c
         return self._band_correct_flat(xf, rf)
 
+    def _band_ops(self):
+        """``(band_mv, band_ras)`` of the Schwarz branch on flat band vectors
+        in ``TABLE_DTYPE``: the ELL band matvec and the RAS block apply (each
+        band DoF takes its owning block's entry)."""
+        zero = self.band_ell_vals.new_zeros(1)
+
+        def band_mv(v):
+            vpad = torch.cat([v, zero])
+            return (self.band_ell_vals * vpad[self.band_ell_cols]).sum(dim=1)
+
+        def band_ras(v):
+            vpad = torch.cat([v, zero])
+            cb = torch.einsum("bkl,bl->bk", self.schwarz_inv, vpad[self.schwarz_ids])
+            return torch.cat([cb.reshape(-1), zero])[self.schwarz_owner]
+
+        return band_mv, band_ras
+
     def _band_correct_flat(self, xf: torch.Tensor, rf: torch.Tensor) -> Vec:
         """Multiplicative solve on the cut-cell / ghost-facet DoF block, the
         modes pointwise smoothing cannot contract, given the current flat
@@ -289,20 +306,8 @@ class VCycle:
             # inner Krylov solve of A_II e = r_I on the ELL band matrix,
             # preconditioned by the per-entity RAS block inverses: one-level
             # RAS sweeps alone stall on smooth error along the band
-            rb = rf[self.band_ids].to(TABLE_DTYPE)
-            zero = rb.new_zeros(1)
-
-            def band_mv(v):
-                vpad = torch.cat([v, zero])
-                return (self.band_ell_vals * vpad[self.band_ell_cols]).sum(dim=1)
-
-            def band_ras(v):
-                vpad = torch.cat([v, zero])
-                blocks = vpad[self.schwarz_ids]  # (nb, K)
-                cb = torch.einsum("bkl,bl->bk", self.schwarz_inv, blocks)
-                return torch.cat([cb.reshape(-1), zero])[self.schwarz_owner]
-
-            e = _band_bicgstab(band_mv, band_ras, rb, self.schwarz_sweeps)
+            band_mv, band_ras = self._band_ops()
+            e = _band_bicgstab(band_mv, band_ras, rf[self.band_ids].to(TABLE_DTYPE), self.schwarz_sweeps)
             xf.index_add_(0, self.band_ids, e.to(xf.dtype))
         return self._unflatten(xf)
 
@@ -321,14 +326,15 @@ class LatticeBulkVCycle(VCycle):
     Fields without a lattice cycle (phi-FEM auxiliary fields live on cut
     cells only) get damped Jacobi.  A vector field whose cycle is a
     :class:`~phifem_tpu_torch.ops.lattice.LatticeVarMG` (S5's displacements)
-    is cycled on its channels-first block lattice."""
+    or :class:`~phifem_tpu_torch.ops.lattice.LatticeBlockMG` is cycled on its
+    channels-first block lattice."""
 
-    mgs: Optional[Dict[str, object]] = None  # field -> ops.lattice.LatticeMG or LatticeVarMG
+    mgs: Optional[Dict[str, object]] = None  # field -> ops.lattice.LatticeMG, LatticeBlockMG or LatticeVarMG
     lattice_shapes: Optional[Dict[str, Tuple[int, int]]] = None
     bulk_masks: Optional[Dict[str, torch.Tensor]] = None
 
     def _cycle(self, k: int, b: Vec) -> Vec:
-        from .ops.lattice import LatticeVarMG
+        from .ops.lattice import LatticeBlockMG, LatticeVarMG
 
         lvl = self.levels[0]
         out = {}
@@ -342,7 +348,7 @@ class LatticeBulkVCycle(VCycle):
             bulk = self.bulk_masks[f] if self.bulk_masks and f in self.bulk_masks else a
             R, C = self.lattice_shapes[f]
             rmask = torch.where(bulk, v, 0.0)
-            if isinstance(mg2, LatticeVarMG):
+            if isinstance(mg2, (LatticeBlockMG, LatticeVarMG)):
                 # vector P1 field: channels-first block lattice
                 vsz = mg2.vsz
                 rp = torch.zeros((vsz, R + 2, C + 2), dtype=v.dtype, device=v.device)

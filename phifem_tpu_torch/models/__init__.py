@@ -1,14 +1,17 @@
 """Problem models of the port: box Poisson and the phi-FEM schemes S1
 (weak Dirichlet), S2 (strong Dirichlet), S3 (Neumann), S4 (Robin) and S5
-(two-material interface elasticity); in 3D, box Poisson, S1 at Q1-Q3 and
-S2 on the hex lattice."""
+(two-material interface elasticity); in 3D, box Poisson, S1 at Q1-Q3, S2,
+S3, S4 and S5 on the hex lattice."""
 
 from .base import SchemeBase
 from .interface_elasticity import InterfaceElasticity, s5_forms
+from .interface_elasticity3 import InterfaceElasticity3
 from .neumann import NeumannPoisson, s3_forms
+from .neumann3 import NeumannPoisson3
 from .poisson import BoxPoisson
 from .poisson3 import BoxPoisson3
 from .robin import RobinPoisson, s4_forms
+from .robin3 import RobinPoisson3
 from .strong_dirichlet import StrongDirichletPoisson, s2_forms
 from .strong_dirichlet3 import StrongDirichletPoisson3
 from .weak_dirichlet import WeakDirichletPoisson, s1_forms
@@ -18,8 +21,11 @@ __all__ = [
     "BoxPoisson",
     "BoxPoisson3",
     "InterfaceElasticity",
+    "InterfaceElasticity3",
     "NeumannPoisson",
+    "NeumannPoisson3",
     "RobinPoisson",
+    "RobinPoisson3",
     "SchemeBase",
     "StrongDirichletPoisson",
     "StrongDirichletPoisson3",

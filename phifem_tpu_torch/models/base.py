@@ -1,10 +1,8 @@
 """Shared scheme machinery: tagging and measures (bg and sub mode), the
 re-discretized and the lattice preconditioners, error norms.
 
-Counterpart of :mod:`phifem_tpu.models.base`.  Two paths of
-``lattice_preconditioner`` raise ``NotImplementedError``: the constant
-block cycle of a vector field with a Dirichlet-masked bulk
-(``LatticeBlockMG``; no ported scheme reaches it) and the Ritz modes
+Counterpart of :mod:`phifem_tpu.models.base`.  One path of
+``lattice_preconditioner`` raises ``NotImplementedError``: the Ritz modes
 (measured not to help S5).
 """
 
@@ -128,7 +126,9 @@ class SchemeBase:
         (S1's u and p, S3/S4's u) is cycled on the whole box; a field of
         :meth:`_bulk_neumann_fields` (S5's displacements) takes the
         free-boundary variable-stencil block cycle
-        (:class:`~phifem_tpu_torch.ops.lattice.LatticeVarMG`); the other
+        (:class:`~phifem_tpu_torch.ops.lattice.LatticeVarMG`), any other
+        vector P1 field with a uniform cell batch the constant block cycle
+        (:class:`~phifem_tpu_torch.ops.lattice.LatticeBlockMG`); the other
         fields (fluxes, DG0) get damped Jacobi.  The cut-cell couplings are
         handled by the interface solve (``interface_kw``: see
         :func:`~phifem_tpu_torch.mg.attach_interface_solve`; ``sweeps_coef``
@@ -151,6 +151,8 @@ class SchemeBase:
         )
         from ..ops.lattice import (
             build_lattice_mg,
+            block_vertex_stencil_weights,
+            build_lattice_block_mg,
             build_lattice_var_mg,
             orientation_cell_masks,
             vertex_stencil_weights,
@@ -177,6 +179,7 @@ class SchemeBase:
         offs = orientation_offsets(g)
         neum = set(self._bulk_neumann_fields())
         ws: Dict[str, np.ndarray] = {}  # scalar P1 field -> (3, 3) vertex stencil
+        wsb: Dict[str, np.ndarray] = {}  # vector P1 field -> (3, 3, vsz, vsz) block stencil
         wsv: Dict[str, list] = {}  # free-boundary field -> [(mats, cell indicator)]
         for b in self.op.batches:
             if isinstance(b, StencilCellBatch):
@@ -195,17 +198,15 @@ class SchemeBase:
                     covered[b.cells] = True
                     wsv.setdefault(name, []).append((b.matrices.cpu().numpy(), orientation_cell_masks(g, covered)))
                     continue
-                raise NotImplementedError(
-                    f"the constant block cycle LatticeBlockMG of field {name!r} (a vector P1 bulk "
-                    "with a Dirichlet-masked boundary) is not ported yet (ROADMAP queue 1)"
-                )
+                wb = block_vertex_stencil_weights(b.matrices.cpu().numpy(), offs, sp.value_size)
+                wsb[name] = wsb.get(name, 0.0) + wb
         # interface (h^-3 penalty) DoFs are excluded from the bulk cycles:
         # corrections there come from the band solve only
         _, _, active_full = masked_operator(self.op, bcs)
         sel = data_dependent_selection(self.op, active_full)
         R, C = g.ny + 1, g.nx + 1
         bulk_np, vertex_np = {}, {}
-        for f in list(ws) + list(wsv):
+        for f in list(ws) + list(wsb) + list(wsv):
             sp = self.op.system.fields[f]
             act = np.broadcast_to(active_full[f].cpu().numpy(), sp.dof_shape).reshape(-1, sp.value_size)
             m = act & ~sel[f].reshape(-1, sp.value_size)
@@ -215,6 +216,10 @@ class SchemeBase:
         mgs = {}
         for f, w in ws.items():
             mgs[f] = build_lattice_mg(g.nx, g.ny, w, min_n=min_n, dtype=dtype, mask=vertex_np[f], device=g.device)
+        for f, wb in wsb.items():
+            if vertex_np[f].any():  # else no bulk DoF: Jacobi
+                mgs[f] = build_lattice_block_mg(g.nx, g.ny, wb, min_n=min_n, dtype=dtype, mask=vertex_np[f],
+                                                device=g.device)
         for f, contribs in wsv.items():
             if vertex_np[f].any():
                 mgs[f] = build_lattice_var_mg(

@@ -1,8 +1,6 @@
 """Shared machinery of the hand-built 3D lattice schemes.
 
-Counterpart of :mod:`phifem_tpu.models.lattice_core` (without the interface
-apply and the vector error norm of the 3D block schemes, not ported yet).
-The 3D schemes bypass the generic assembly layer: their operators are
+Counterpart of :mod:`phifem_tpu.models.lattice_core`.  The 3D schemes bypass the generic assembly layer: their operators are
 masked uniform stencils (:func:`~phifem_tpu_torch.ops.cuda_hex3.hex_stencil3`,
 a hand-written kernel on the card), static per-orientation face matrices and
 batched cut-cell blocks.  This module holds:
@@ -16,18 +14,23 @@ batched cut-cell blocks.  This module holds:
 * :func:`build_interface_block` / :func:`lattice_sparse_solve`: the sparse
   data-dependent DoF block (its per-entity RAS blocks built vectorized) and
   the host SuperLU direct solve;
-* :func:`lattice_l2_h1_errors` / :func:`lattice_l2_h1_errors_d`: relative
-  L2 / H10 errors against a callable, its gradient by ``torch.func``.
+* :func:`make_interface_apply`: the correction ``A_II^{-1} r_I`` on that
+  block, a dense inverse or the band solve of :class:`~phifem_tpu_torch.mg.
+  VCycle` (fixed-sweep BiCGStab or damped RAS-Richardson);
+* :func:`lattice_l2_h1_errors` / :func:`lattice_l2_h1_errors_d` /
+  :func:`lattice_l2_h1_errors_vec`: relative L2 / H10 errors against a
+  callable, its derivatives by ``torch.func``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..mg import entity_blocks
+from ..mg import TABLE_DTYPE, VCycle, entity_blocks, set_schwarz_tables
 from ..ops.cuda_hex3 import hex_offsets
 from ..ops.scatter import scatter_plan
 
@@ -49,13 +52,18 @@ __all__ = [
     "hexd_quadrature",
     "faced_quadrature",
     "cell_nodes_of",
+    "cut_cell_points",
+    "levelset_and_grad",
+    "touched_vertices",
     "OrderedScatter",
     "lattice_l2_h1_errors_d",
     "lattice_l2_h1_errors",
+    "lattice_l2_h1_errors_vec",
     "make_equilibrated_runner",
     "cached_equilibrated_solve",
     "build_interface_block",
     "lattice_sparse_solve",
+    "make_interface_apply",
 ]
 
 
@@ -221,6 +229,33 @@ def cell_nodes_of(node_shape: Tuple[int, int, int], cells: np.ndarray, degree: i
     return out
 
 
+def levelset_and_grad(levelset: Callable, pts: torch.Tensor):
+    """phi and grad phi (``torch.func``) at points (..., 3)."""
+    from torch.func import grad, vmap
+
+    g = vmap(grad(lambda p: levelset(p[None])[0]))(pts.reshape(-1, 3))
+    return levelset(pts), g.reshape(pts.shape)
+
+
+def cut_cell_points(grid, cells: np.ndarray, Pq: np.ndarray) -> torch.Tensor:
+    """(ne, nq, 3) physical quadrature points of the cells (ne, 3) =
+    (iz, iy, ix), from the reference points ``Pq`` (nq, 3)."""
+    hs = np.array(grid.spacing)
+    (x0, y0, z0), _ = grid.bbox
+    orig = np.stack([x0 + hs[0] * cells[:, 2], y0 + hs[1] * cells[:, 1], z0 + hs[2] * cells[:, 0]], axis=-1)
+    return torch.as_tensor(orig[:, None, :] + (Pq * hs[None, :])[None, :, :], dtype=grid.dtype, device=grid.device)
+
+
+def touched_vertices(ct: np.ndarray, tag: int, DRC) -> np.ndarray:
+    """(D, R, C) bool: the vertices of the cells tagged ``tag``."""
+    nz, ny, nx = ct.shape
+    m = np.zeros(DRC, bool)
+    sel = ct == tag
+    for (dx, dy, dz) in HEX_OFFS:
+        m[dz : dz + nz, dy : dy + ny, dx : dx + nx] |= sel
+    return m
+
+
 # -------------------------------------------------------- ordered scatter
 class OrderedScatter:
     """``y[dofs] += values`` with repeated ids summed in entity order
@@ -318,6 +353,41 @@ def lattice_l2_h1_errors(grid, region_mask: np.ndarray, u_lat: torch.Tensor, exa
     return _error_sums(mask, uqs, gqs, pts, [float(w) for w in W], exact)
 
 
+def lattice_l2_h1_errors_vec(grid, region_mask: np.ndarray, u_lat: torch.Tensor, exact: Callable) -> Dict[str, float]:
+    """Relative L2 / H10 errors of a channels-first vector Q1 lattice field
+    ``u_lat`` (ncf, D, R, C) against ``exact((..., 3)) -> (..., ncf)``, by
+    2x2x2 cellwise Gauss quadrature over the masked cells; the norms sum over
+    the channels, the Jacobian of ``exact`` by ``torch.func``."""
+    from torch.func import jacfwd, vmap
+
+    dt, dev = u_lat.dtype, u_lat.device
+    hx, hy, hz = grid.spacing
+    ncf = u_lat.shape[0]
+    W, V, G = hex_quadrature(2)
+    Pq = hex_quadrature_points(2)
+    mask = torch.as_tensor(region_mask.astype(np.float64), dtype=dt, device=dev)
+    nz, ny, nx = mask.shape
+    x0, y0, z0 = _corner_origins(grid, mask.shape, dt, dev)
+    corners = [[u_lat[c, dz : dz + nz, dy : dy + ny, dx : dx + nx] for (dx, dy, dz) in HEX_OFFS] for c in range(ncf)]
+    Gd = G / np.array([hx, hy, hz])[None, None, :]
+    jac = vmap(jacfwd(lambda p: exact(p[None])[0]))
+    num_l2 = den_l2 = num_h1 = den_h1 = 0.0
+    for q in range(W.shape[0]):
+        w = float(W[q])
+        pe = torch.stack([x0 + float(Pq[q, 0]) * hx, y0 + float(Pq[q, 1]) * hy, z0 + float(Pq[q, 2]) * hz], -1)
+        ue = exact(pe)  # (..., ncf)
+        ge = jac(pe.reshape(-1, 3)).reshape(pe.shape[:-1] + (ncf, 3))
+        for c in range(ncf):
+            uq = sum(float(V[q, i]) * corners[c][i] for i in range(8))
+            num_l2 = num_l2 + w * torch.sum(mask * (uq - ue[..., c]) ** 2)
+            den_l2 = den_l2 + w * torch.sum(mask * ue[..., c] ** 2)
+            for k in range(3):
+                gk = sum(float(Gd[q, i, k]) * corners[c][i] for i in range(8))
+                num_h1 = num_h1 + w * torch.sum(mask * (gk - ge[..., c, k]) ** 2)
+                den_h1 = den_h1 + w * torch.sum(mask * ge[..., c, k] ** 2)
+    return {"l2": float(torch.sqrt(num_l2 / den_l2)), "h10": float(torch.sqrt(num_h1 / den_h1))}
+
+
 # ----------------------------------------------------- equilibrated solve
 def make_equilibrated_runner(
     matvec: Callable[[Vec], Vec],
@@ -328,16 +398,18 @@ def make_equilibrated_runner(
     maxiter: int = 4000,
     precond: Optional[Callable] = None,
     deflate: Optional[Sequence[Vec]] = None,
+    restart: int = 20,
 ):
     """``run(b) -> (x, rel_residual, iterations)``: symmetric diagonal
     equilibration, identity on inactive DoFs, then the port's BiCGStab, CG
-    or flexible GMRES on dict vectors.  ``deflate``: vectors spanning a
-    (near-)null space; the iteration then runs on ``P A P + Q Q^T``, as
-    :func:`phifem_tpu_torch.solvers.solve` does.  The relative residual is
-    that of the equilibrated system, recomputed after the loop."""
+    or flexible GMRES (cycles of ``restart`` steps) on dict vectors.
+    ``deflate``: vectors spanning a (near-)null space; the iteration then
+    runs on ``P A P + Q Q^T``, as :func:`phifem_tpu_torch.solvers.solve`
+    does.  The relative residual is that of the equilibrated system,
+    recomputed after the loop."""
     from ..solvers import _pbicgstab, _pcg, _pfgmres, tree_axpy, tree_dot
 
-    runners = {"cg": _pcg, "fgmres": _pfgmres, "bicgstab": _pbicgstab}
+    runners = {"cg": _pcg, "fgmres": functools.partial(_pfgmres, restart=restart), "bicgstab": _pbicgstab}
     if method not in runners:
         raise ValueError(f"unknown method {method!r}: expected 'bicgstab', 'cg' or 'fgmres'")
     runner = runners[method]
@@ -466,3 +538,68 @@ def lattice_sparse_solve(blocks, b_concat: np.ndarray, active: np.ndarray) -> np
     x = np.zeros(total)
     x[ids] = splu(A.tocsc()).solve(b_concat[ids])
     return x
+
+
+def make_interface_apply(
+    ids: np.ndarray,
+    A_csr,
+    ras_blocks,
+    dense_max: int = 4000,
+    sweeps: Optional[int] = None,
+    inner: str = "krylov",
+    inner_omega: float = 1.0,
+    device="cuda",
+):
+    """The interface-block correction ``apply(rf) -> (ids, corr)``, ``corr ~
+    A_II^{-1} rf[ids]`` for the flat residual ``rf``: a dense inverse when
+    ``m <= dense_max``, else an inner solve on the ELL band matrix with RAS
+    block preconditioning (the tables of :class:`~phifem_tpu_torch.mg.VCycle`,
+    float64, filled by :func:`~phifem_tpu_torch.mg.set_schwarz_tables`; each
+    band DoF is corrected from the first block that holds it).
+
+    ``ras_blocks``: the overlapping blocks in compact ids, a padded (nb, K)
+    array (pad ``m``) or a list of id arrays.  ``inner="krylov"`` runs
+    ``sweeps`` fixed BiCGStab steps (by default ``max(10, 0.3 sqrt(m))``),
+    fast but nonlinear in ``rf`` when it stops on the sweep count;
+    ``inner="richardson"`` runs ``sweeps`` damped RAS-Richardson steps
+    ``z += inner_omega RAS(r - A z)`` from ``inner_omega RAS(r)``, a fixed
+    linear operator.  ``corr`` comes back in ``rf``'s dtype; the tables go to
+    ``device``, the card unless the caller asks for the CPU."""
+    from ..mg import _band_bicgstab
+
+    if inner not in ("krylov", "richardson"):
+        raise ValueError(f"unknown inner solve {inner!r}: expected 'krylov' or 'richardson'")
+    m = ids.shape[0]
+    ids_t = torch.as_tensor(ids, dtype=torch.int64, device=device)
+    if m <= dense_max:
+        inv = torch.as_tensor(np.linalg.inv(A_csr.toarray()), dtype=TABLE_DTYPE, device=device)
+
+        def apply_dense(rf: torch.Tensor):
+            return ids_t, (inv @ rf[ids_t].to(TABLE_DTYPE)).to(rf.dtype)
+
+        apply_dense.m = m
+        return apply_dense
+
+    if not isinstance(ras_blocks, np.ndarray):
+        K = max(len(bl) for bl in ras_blocks)
+        padded = np.full((len(ras_blocks), K), m, np.int64)
+        for i, bl in enumerate(ras_blocks):
+            padded[i, : len(bl)] = bl
+        ras_blocks = padded
+    n_sweeps = sweeps if sweeps is not None else max(10, int(0.3 * m**0.5))
+    band = set_schwarz_tables(VCycle([], ()), A_csr, ids, ras_blocks, n_sweeps, device)
+    band_mv, band_ras = band._band_ops()
+
+    def apply(rf: torch.Tensor):
+        rb = rf[ids_t].to(TABLE_DTYPE)
+        if inner == "richardson":
+            om = float(inner_omega)
+            corr = om * band_ras(rb)
+            for _ in range(n_sweeps):
+                corr = corr + om * band_ras(rb - band_mv(corr))
+        else:
+            corr = _band_bicgstab(band_mv, band_ras, rb, n_sweeps)
+        return ids_t, corr.to(rf.dtype)
+
+    apply.band, apply.m = band, m
+    return apply

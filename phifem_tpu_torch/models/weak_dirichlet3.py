@@ -179,12 +179,7 @@ class WeakDirichletPoisson3:
                 self.bdry.append((self._t(self._cell_dofs(faces), torch.int64), self._t(Eb)))
                 self.bdry_meta.append((faces, ax, sign, area))
 
-        # one ordered scatter for all u contributions of the entity terms
-        # (cut cells, ghost faces, boundary faces, in that order), one for p
-        self._scatter_u = OrderedScatter(
-            torch.cat([self.cut_dofs.reshape(-1)] + [dofs.reshape(-1) for dofs, _ in self.ghost + self.bdry])
-        )
-        self._scatter_p = OrderedScatter(self.cut_dofs)
+        self._make_scatters()
 
         # ---- RHS: masked bulk mass stencil + penalty terms on cut cells
         if d == 1:
@@ -221,6 +216,14 @@ class WeakDirichletPoisson3:
         return hex_stencil3(ones, mask, torch.diag(torch.diagonal(A8)).contiguous(), self.degree)
 
     # ------------------------------------------------------------- matvec
+    def _make_scatters(self) -> None:
+        """One ordered scatter for all u contributions of the entity terms
+        (cut cells, ghost faces, boundary faces, in that order), one for p."""
+        self._scatter_u = OrderedScatter(
+            torch.cat([self.cut_dofs.reshape(-1)] + [dofs.reshape(-1) for dofs, _ in self.ghost + self.bdry])
+        )
+        self._scatter_p = OrderedScatter(self.cut_dofs)
+
     def matvec(self, x: Vec) -> Vec:
         u, p = x["u"], x["p"]
         y_u = hex_stencil3(u.reshape(self._DRC), self.bulk_mask, self.A8, self.degree).reshape(-1)

@@ -1,9 +1,10 @@
 """2D lattice-resident geometric multigrid for uniform P1 box problems.
 
 Counterpart of :mod:`phifem_tpu.ops.lattice`: the scalar cycle
-(:class:`LatticeMG`) and the variable-stencil block cycle of free-boundary
-vector fields (:class:`LatticeVarMG`, S5's displacement bulks); the
-constant block cycle (``LatticeBlockMG``) is not ported yet.  The reduced
+(:class:`LatticeMG`), the constant block cycle of a vector P1 field with a
+Dirichlet-masked bulk (:class:`LatticeBlockMG`) and the variable-stencil
+block cycle of free-boundary vector fields (:class:`LatticeVarMG`, S5's
+displacement bulks).  The reduced
 operator of a uniform single-scalar P1 cell term with Dirichlet conditions
 on the box boundary is EXACTLY a constant-coefficient 9-point vertex stencil
 applied to the zero-extended interior; on the right-triangle split the P1
@@ -30,9 +31,12 @@ import torch
 
 __all__ = [
     "vertex_stencil_weights",
+    "block_vertex_stencil_weights",
     "LatticeMG",
+    "LatticeBlockMG",
     "LatticeVarMG",
     "build_lattice_mg",
+    "build_lattice_block_mg",
     "build_lattice_var_mg",
     "cell_stencil_maps",
     "galerkin_coarsen_stencil",
@@ -271,6 +275,174 @@ def build_lattice_mg(
         masks=lvl_masks,
         **kw,
     )
+
+
+def block_vertex_stencil_weights(mats, offs_per_orient, vsz: int) -> np.ndarray:
+    """Aggregate per-orientation VECTOR element matrices (local layout
+    node-major, component-minor, as the assembly gathers) into the
+    (3, 3, vsz, vsz) block vertex stencil."""
+    w = np.zeros((3, 3, vsz, vsz))
+    mats = np.asarray(mats, np.float64)
+    for o, offs in enumerate(offs_per_orient):
+        for i, (dxi, dyi) in enumerate(offs):
+            for j, (dxj, dyj) in enumerate(offs):
+                w[1 + dyj - dyi, 1 + dxj - dxi] += mats[o, i * vsz : (i + 1) * vsz, j * vsz : (j + 1) * vsz]
+    return w
+
+
+def _block_terms(w: np.ndarray) -> List[Tuple[int, int, np.ndarray]]:
+    """Nonzero (a, b, (vsz, vsz) block) triples of a block stencil."""
+    out = []
+    scale = max(1e-300, np.abs(w).max())
+    for a in range(3):
+        for b in range(3):
+            if np.abs(w[a, b]).max() > 1e-14 * scale:
+                out.append((a, b, w[a, b].copy()))
+    return out
+
+
+def _conv_interior_block(xp: torch.Tensor, terms, W: torch.Tensor, R: int, C: int) -> torch.Tensor:
+    """(A x) at the logical-interior nodes of channels-first block lattices:
+    ``xp`` (vsz, R+2, C+2) -> (vsz, R-2, C-2); ``W`` stacks the terms'
+    (vsz, vsz) blocks in the compute dtype."""
+    acc = None
+    for t, (a, b, _) in enumerate(terms):
+        part = torch.einsum("ij,jrc->irc", W[t], xp[:, a + 1 : a + R - 1, b + 1 : b + C - 1])
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def _dense_coarse_inv_block(terms, R: int, C: int, vsz: int, mask: Optional[np.ndarray] = None) -> np.ndarray:
+    """Exact inverse of the reduced block operator on the coarsest
+    interior; flat index ``(node_row nj + node_col) vsz + comp``."""
+    ni, nj = R - 2, C - 2
+    n = ni * nj
+    A = np.zeros((n * vsz, n * vsz))
+    idx = np.arange(n).reshape(ni, nj)
+    comp = np.arange(vsz)
+    for a, b, Wb in terms:
+        dy, dx = a - 1, b - 1
+        src = idx[max(0, -dy) : ni - max(0, dy), max(0, -dx) : nj - max(0, dx)].reshape(-1)
+        dst = idx[max(0, dy) : ni - max(0, -dy), max(0, dx) : nj - max(0, -dx)].reshape(-1)
+        A[src[:, None, None] * vsz + comp[None, :, None], dst[:, None, None] * vsz + comp[None, None, :]] += Wb[None]
+    if mask is not None:
+        act = np.repeat(np.asarray(mask[1 : R - 1, 1 : C - 1], bool).reshape(-1), vsz)
+        A[~act, :] = 0.0
+        A[:, ~act] = 0.0
+        off = np.where(~act)[0]
+        A[off, off] = 1.0
+    return np.linalg.inv(A)
+
+
+@dataclasses.dataclass
+class LatticeBlockMG:
+    """Block (multi-channel) V-cycle on channels-first padded lattices
+    (vsz, R+2, C+2), the vector-field form of :class:`LatticeMG`: block
+    Jacobi with the constant interior (vsz, vsz) centre-block inverse,
+    channelwise bilinear transfers.  Plain PyTorch (no card path of the port
+    reaches it: S5's bulks are free-boundary fields)."""
+
+    levels: List[_Level]
+    terms: List[Tuple[int, int, np.ndarray]]
+    coarse_inv: torch.Tensor
+    vsz: int
+    dtype: torch.dtype = torch.float32
+    omega: float = 0.8
+    pre_smooth: int = 2
+    post_smooth: int = 2
+    masks: Optional[List[torch.Tensor]] = None  # per-level (R, C), channel-shared
+
+    def __post_init__(self):
+        dev = self.coarse_inv.device
+        d = next(Wb for a, b, Wb in self.terms if a == 1 and b == 1)
+        self._dinv = torch.as_tensor(np.linalg.inv(d), dtype=self.dtype, device=dev)
+        self._W = torch.as_tensor(np.stack([Wb for _, _, Wb in self.terms]), dtype=self.dtype, device=dev)
+
+    def _mask_int(self, k: int, R: int, C: int):
+        if self.masks is None:
+            return None
+        return self.masks[k][1 : R - 1, 1 : C - 1]
+
+    def _smooth(self, xp, bp, lvl: _Level, k: int, sweeps: int):
+        R, C = lvl.R, lvl.C
+        m = self._mask_int(k, R, C)
+        for _ in range(sweeps):
+            r = bp[:, 2:R, 2:C] - _conv_interior_block(xp, self.terms, self._W, R, C)
+            upd = self.omega * torch.einsum("ij,jrc->irc", self._dinv, r)
+            if m is not None:
+                upd = upd * m
+            xp[:, 2:R, 2:C] += upd
+        return xp
+
+    def _cycle(self, k: int, bp):
+        lvl = self.levels[k]
+        R, C = lvl.R, lvl.C
+        if k == len(self.levels) - 1:
+            flat = torch.movedim(bp[:, 2:R, 2:C], 0, -1).reshape(-1)
+            out = torch.zeros_like(bp)
+            out[:, 2:R, 2:C] = torch.movedim((self.coarse_inv @ flat).reshape(R - 2, C - 2, self.vsz), -1, 0)
+            return out
+        xp = self._smooth(torch.zeros_like(bp), bp, lvl, k, self.pre_smooth)
+        r_int = bp[:, 2:R, 2:C] - _conv_interior_block(xp, self.terms, self._W, R, C)
+        m = self._mask_int(k, R, C)
+        if m is not None:
+            r_int = r_int * m
+        nxt = self.levels[k + 1]
+        bc = torch.stack([_restrict(ri, nxt.R, nxt.C) for ri in r_int])
+        if self.masks is not None:
+            bc = bc * _embed_mask(self.masks[k + 1], nxt.R, nxt.C)
+        ec = self._cycle(k + 1, bc)
+        corr = torch.stack([_prolong(e, nxt.R, nxt.C) for e in ec])
+        if self.masks is not None:
+            corr = corr * self.masks[k]
+        xp[:, 2:R, 2:C] += corr[:, 1:-1, 1:-1]
+        return self._smooth(xp, bp, lvl, k, self.post_smooth)
+
+    def __call__(self, bp: torch.Tensor) -> torch.Tensor:
+        return self._cycle(0, bp.to(self.dtype)).to(bp.dtype)
+
+
+def _embed_mask(m: torch.Tensor, R: int, C: int) -> torch.Tensor:
+    """Logical (R, C) mask -> padded (R+2, C+2) with a zero ring and zero
+    logical borders (the reduced-vector convention)."""
+    out = torch.zeros((R + 2, C + 2), dtype=m.dtype, device=m.device)
+    out[2:R, 2:C] = m[1:-1, 1:-1]
+    return out
+
+
+def build_lattice_block_mg(
+    nx: int,
+    ny: int,
+    w: np.ndarray,
+    min_n: int = 16,
+    dtype: torch.dtype = torch.float32,
+    mask: Optional[np.ndarray] = None,
+    device: Union[str, torch.device] = "cuda",
+    **kw,
+) -> LatticeBlockMG:
+    """Build the block V-cycle for an ``nx x ny``-block lattice with the
+    (3, 3, vsz, vsz) block vertex stencil ``w`` (scale-free in 2D, so every
+    level shares it); the tables go to ``device``, the card unless the
+    caller asks for the CPU."""
+    vsz = int(w.shape[-1])
+    levels = [_Level(ny + 1, nx + 1)]
+    while nx % 2 == 0 and ny % 2 == 0 and nx // 2 >= min_n and ny // 2 >= min_n:
+        nx //= 2
+        ny //= 2
+        levels.append(_Level(ny + 1, nx + 1))
+    terms = _block_terms(np.asarray(w))
+    lvl_masks = coarse_mask = None
+    if mask is not None:
+        m = np.asarray(mask, bool)
+        masks_np = [m]
+        for _ in levels[1:]:
+            m = _coarsen_mask(m)
+            masks_np.append(m)
+        coarse_mask = masks_np[-1]
+        lvl_masks = [torch.as_tensor(mm, dtype=dtype, device=device) for mm in masks_np]
+    inv = _dense_coarse_inv_block(terms, levels[-1].R, levels[-1].C, vsz, coarse_mask)
+    return LatticeBlockMG(levels, terms, torch.as_tensor(inv, dtype=dtype, device=device), vsz, dtype=dtype,
+                          masks=lvl_masks, **kw)
 
 
 def orientation_cell_masks(grid, sel: np.ndarray) -> np.ndarray:

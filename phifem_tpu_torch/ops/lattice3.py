@@ -1,7 +1,8 @@
 """3D lattice-resident geometric multigrid (Q1 hexahedra), scalar part.
 
-Counterpart of the scalar half of :mod:`phifem_tpu.ops.lattice3` (the block
-cycle ``Lattice3BlockMG`` is not ported yet).  The reduced operator of a
+Counterpart of :mod:`phifem_tpu.ops.lattice3`: the scalar cycle
+``Lattice3MG`` and the block cycle ``Lattice3BlockMG`` of a 3-vector field
+(the S5-3D elasticity bulks).  The reduced operator of a
 uniform trilinear cell term on a structured hex grid with Dirichlet
 conditions on the box boundary is EXACTLY a constant 27-point vertex stencil
 on the zero-extended interior, so matvec, Jacobi smoothing, residual,
@@ -9,7 +10,9 @@ full-weighting restriction and trilinear prolongation are shifted-slice
 arithmetic on ``(depth, rows, cols)`` tensors.  The matvec, the residual and
 the Jacobi sweep run the hand-written kernel of
 :mod:`phifem_tpu_torch.ops.cuda_lattice3` on the card (its plain version on
-the CPU); the transfers and the dense coarse solve are plain PyTorch.
+the CPU); so do the block cycle's through the kernel's 3-channel block form
+(:func:`~phifem_tpu_torch.ops.cuda_lattice3.lattice3_block_sweep`).  The
+transfers and the dense coarse solves are plain PyTorch.
 
 The 3D stiffness stencil is not refinement-invariant (it scales like h), so
 each level carries its own stencil, re-assembled from one host 8x8 element
@@ -30,13 +33,16 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from .cuda_lattice3 import JACOBI, MATVEC, RESIDUAL, lattice3_sweep, pack_terms
+from .cuda_lattice3 import JACOBI, MATVEC, RESIDUAL, lattice3_block_sweep, lattice3_sweep, pack_block_terms, pack_terms
 
 __all__ = [
     "hex_element_matrix",
     "vertex_stencil_weights3",
+    "block_vertex_stencil_weights3",
     "Lattice3MG",
+    "Lattice3BlockMG",
     "build_lattice3_mg",
+    "build_lattice3_block_mg",
     "lattice3_cg",
 ]
 
@@ -291,6 +297,192 @@ def build_lattice3_mg(
     lvl = levels[-1]
     inv = _dense_coarse_inv3(lvl.terms, lvl.D, lvl.R, lvl.C, coarse_mask)
     return Lattice3MG(levels, torch.as_tensor(inv, dtype=dtype, device=device), dtype=dtype, masks=lvl_masks, **kw)
+
+
+# ----------------------------------------------------------- block cycle
+def block_vertex_stencil_weights3(K: np.ndarray, vsz: int) -> np.ndarray:
+    """Aggregate an (8 vsz, 8 vsz) CHANNEL-MAJOR vector hex element matrix
+    (local dof = 8 channel + node) into the (3, 3, 3, vsz, vsz) block vertex
+    stencil."""
+    w = np.zeros((3, 3, 3, vsz, vsz))
+    K = np.asarray(K, np.float64)
+    for i, (dxi, dyi, dzi) in enumerate(_HEX_OFFS):
+        for j, (dxj, dyj, dzj) in enumerate(_HEX_OFFS):
+            w[1 + dzj - dzi, 1 + dyj - dyi, 1 + dxj - dxi] += K[i::8, j::8][:vsz, :vsz]
+    return w
+
+
+def _block_terms3(w: np.ndarray) -> List[Tuple[int, int, int, np.ndarray]]:
+    """Nonzero ``(a, b, c, block)`` terms in ascending (a, b, c) order."""
+    out = []
+    scale = max(1e-300, np.abs(w).max())
+    for a in range(3):
+        for b in range(3):
+            for c in range(3):
+                if np.abs(w[a, b, c]).max() > 1e-14 * scale:
+                    out.append((a, b, c, w[a, b, c].copy()))
+    return out
+
+
+def _conv_interior3_block(xp: torch.Tensor, offs, W, D: int, R: int, C: int) -> torch.Tensor:
+    """(A x) at the logical-interior nodes of a channels-first block lattice:
+    ``xp`` (vsz, D+2, R+2, C+2) -> (vsz, D-2, R-2, C-2); ``offs`` the terms'
+    ``(a, b, c, ...)`` positions and ``W`` their (nterms, vsz, vsz) blocks
+    (read on the host).  Per term and output channel the part ``sum_j W[i, j]
+    x_j`` in ascending j, added to the channel's sum in the order of the
+    terms: the JAX package's einsum, in the order of the block sweep kernel."""
+    Wl = (W.cpu().numpy() if torch.is_tensor(W) else np.asarray(W, np.float64)).tolist()
+    vsz = xp.shape[0]
+    acc = [None] * vsz
+    for t, o in enumerate(offs):
+        a, b, c = o[0], o[1], o[2]
+        xs = [xp[j, a + 1 : a + D - 1, b + 1 : b + R - 1, c + 1 : c + C - 1] for j in range(vsz)]
+        for i in range(vsz):
+            part = Wl[t][i][0] * xs[0]
+            for j in range(1, vsz):
+                part = part + Wl[t][i][j] * xs[j]
+            acc[i] = part if acc[i] is None else acc[i] + part
+    return torch.stack(acc)
+
+
+def _dense_coarse_inv3_block(terms, D: int, R: int, C: int, vsz: int, mask: Optional[np.ndarray] = None) -> np.ndarray:
+    """Pseudo-inverse (rcond 1e-10) of the reduced block operator on the
+    coarsest interior; flat index ``((i nr + j) nc + k) vsz + comp``.  A
+    floating masked elasticity block is exactly singular along its rigid
+    modes, hence the pseudo-inverse."""
+    nd, nr, nc = D - 2, R - 2, C - 2
+    n = nd * nr * nc
+    A = np.zeros((n * vsz, n * vsz))
+    idx = np.arange(n).reshape(nd, nr, nc)
+    comp = np.arange(vsz)
+    for a, b, c, Wb in terms:
+        dz, dy, dx = a - 1, b - 1, c - 1
+        src = idx[max(0, -dz) : nd - max(0, dz), max(0, -dy) : nr - max(0, dy), max(0, -dx) : nc - max(0, dx)]
+        dst = idx[max(0, dz) : nd - max(0, -dz), max(0, dy) : nr - max(0, -dy), max(0, dx) : nc - max(0, -dx)]
+        rows = (src.reshape(-1)[:, None, None] * vsz + comp[None, :, None])
+        cols = (dst.reshape(-1)[:, None, None] * vsz + comp[None, None, :])
+        A[rows, cols] += np.asarray(Wb)[None]
+    if mask is not None:
+        act = np.repeat(np.asarray(mask[1 : D - 1, 1 : R - 1, 1 : C - 1], bool).reshape(-1), vsz)
+        A[~act, :] = 0.0
+        A[:, ~act] = 0.0
+        off = np.where(~act)[0]
+        A[off, off] = 1.0
+    return np.linalg.pinv(A, rcond=1e-10)
+
+
+@dataclasses.dataclass
+class Lattice3BlockMG:
+    """Block (multi-channel) 3D V-cycle on channels-first padded lattices
+    (vsz, D+2, R+2, C+2): one block stencil per level, block-Jacobi smoothing
+    with the interior centre-block inverse, channelwise trilinear transfers.
+    ``Ws`` / ``dinvs`` are per-level host float64 tables ((nterms, vsz, vsz)
+    and (vsz, vsz)); each sweep and residual is one launch of the block sweep
+    kernel on the card, the tables rounded to ``dtype`` there as in the plain
+    version."""
+
+    levels: List[_Level3]
+    offs: Tuple[Tuple[int, int, int], ...]
+    Ws: List[np.ndarray]
+    dinvs: List[np.ndarray]
+    coarse_inv: torch.Tensor
+    vsz: int
+    dtype: torch.dtype = torch.float32
+    # block Jacobi on the Q1 elasticity stencil has lam_max(D^-1 A) ~ 2.64
+    # (nu = 0.3): omega = 0.8 amplifies, 0.6 damps the upper spectrum
+    omega: float = 0.6
+    pre_smooth: int = 2
+    post_smooth: int = 2
+    masks: Optional[List[torch.Tensor]] = None  # per-level logical (D, R, C)
+
+    def __post_init__(self):
+        self._packed = [
+            pack_block_terms([(a, b, c, W[t]) for t, (a, b, c) in enumerate(self.offs)], dinv)
+            for W, dinv in zip(self.Ws, self.dinvs)
+        ]
+
+    def _smooth(self, xp, bp, k: int, sweeps: int):
+        m = None if self.masks is None else self.masks[k]
+        for _ in range(sweeps):
+            xp = lattice3_block_sweep(JACOBI, xp, self._packed[k], bp, m, self.omega)
+        return xp
+
+    def _cycle(self, k: int, bp):
+        lvl = self.levels[k]
+        D, R, C = lvl.D, lvl.R, lvl.C
+        if k == len(self.levels) - 1:
+            flat = torch.movedim(bp[:, 2:D, 2:R, 2:C], 0, -1).reshape(-1)
+            sol = self.coarse_inv @ flat
+            out = torch.zeros_like(bp)
+            out[:, 2:D, 2:R, 2:C] = torch.movedim(sol.reshape(D - 2, R - 2, C - 2, self.vsz), -1, 0)
+            return out
+        xp = self._smooth(torch.zeros_like(bp), bp, k, self.pre_smooth)
+        m = None if self.masks is None else self.masks[k]
+        r = lattice3_block_sweep(RESIDUAL, xp, self._packed[k], bp, m)
+        nxt = self.levels[k + 1]
+        bc = torch.stack([_restrict3(r[c, 2:D, 2:R, 2:C], nxt.D, nxt.R, nxt.C) for c in range(self.vsz)])
+        if self.masks is not None:
+            bc = bc * _embed3(self.masks[k + 1][1:-1, 1:-1, 1:-1], nxt.D, nxt.R, nxt.C)
+        ec = self._cycle(k + 1, bc.contiguous())
+        corr = torch.stack([_prolong3(ec[c], nxt.D, nxt.R, nxt.C) for c in range(self.vsz)])
+        if self.masks is not None:
+            corr = corr * self.masks[k]
+        xp[:, 2:D, 2:R, 2:C] += corr[:, 1:-1, 1:-1, 1:-1]
+        return self._smooth(xp, bp, k, self.post_smooth)
+
+    def __call__(self, bp: torch.Tensor) -> torch.Tensor:
+        return self._cycle(0, bp.to(self.dtype).contiguous()).to(bp.dtype)
+
+
+def build_lattice3_block_mg(
+    nx: int,
+    ny: int,
+    nz: int,
+    spacing: Tuple[float, float, float],
+    elem_fn,
+    vsz: int,
+    min_n: int = 4,
+    dtype: torch.dtype = torch.float32,
+    mask: Optional[np.ndarray] = None,
+    device: Union[str, torch.device] = "cuda",
+    **kw,
+) -> Lattice3BlockMG:
+    """Build the block 3D V-cycle for the uniform vector cell term whose
+    channel-major element matrix at spacing (hx, hy, hz) is
+    ``elem_fn(hx, hy, hz) -> (8 vsz, 8 vsz)`` (e.g. Q1 linear elasticity);
+    each level re-assembles its own element matrix (host, closed form).
+    ``mask``: optional (nz+1, ny+1, nx+1) bool of active logical vertices,
+    pooled on coarser levels.  The tables go to ``device``, the card unless
+    the caller asks for the CPU."""
+    hx, hy, hz = spacing
+    dims = [(nx, ny, nz)]
+    while nx % 2 == 0 and ny % 2 == 0 and nz % 2 == 0 and min(nx, ny, nz) // 2 >= min_n:
+        nx, ny, nz = nx // 2, ny // 2, nz // 2
+        dims.append((nx, ny, nz))
+    levels, terms_per_level = [], []
+    for k, (lx, ly, lz) in enumerate(dims):
+        K = elem_fn(hx * 2**k, hy * 2**k, hz * 2**k)
+        terms_per_level.append(_block_terms3(block_vertex_stencil_weights3(K, vsz)))
+        levels.append(_Level3(lz + 1, ly + 1, lx + 1, ()))
+    offs = tuple((a, b, c) for a, b, c, _ in terms_per_level[0])
+    Ws, dinvs = [], []
+    for terms in terms_per_level:
+        by_off = {(a, b, c): Wb for a, b, c, Wb in terms}
+        Ws.append(np.stack([by_off[o] for o in offs]))
+        dinvs.append(np.linalg.inv(by_off[(1, 1, 1)]))
+    lvl_masks = coarse_mask = None
+    if mask is not None:
+        m = np.asarray(mask, bool)
+        masks_np = [m]
+        for _ in levels[1:]:
+            m = _coarsen_mask3(m)
+            masks_np.append(m)
+        coarse_mask = masks_np[-1]
+        lvl_masks = [torch.as_tensor(mm, dtype=dtype, device=device).contiguous() for mm in masks_np]
+    lvl = levels[-1]
+    inv = _dense_coarse_inv3_block(terms_per_level[-1], lvl.D, lvl.R, lvl.C, vsz, coarse_mask)
+    return Lattice3BlockMG(levels, offs, Ws, dinvs, torch.as_tensor(inv, dtype=dtype, device=device), vsz,
+                           dtype=dtype, masks=lvl_masks, **kw)
 
 
 def lattice3_cg(

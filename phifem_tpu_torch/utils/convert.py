@@ -13,7 +13,7 @@ from ..assembly import Batch, Operator, System
 from ..grid import Grid
 from ..mg import TABLE_DTYPE, VCycle, ras_owner
 from ..ops.lattice import LatticeMG, LatticeVarMG, _Level
-from ..ops.lattice3 import Lattice3MG, _Level3
+from ..ops.lattice3 import Lattice3BlockMG, Lattice3MG, _Level3
 from ..ops.stencil import StencilCellBatch
 from ..ops.taps import TapOperator, build_tap_operator
 from ..spaces import Function, Space
@@ -32,6 +32,7 @@ __all__ = [
     "tap_operator_from_numpy",
     "scheme_data_from_numpy",
     "lattice3_mg_from_numpy",
+    "lattice3_block_mg_from_numpy",
     "scheme3_data_from_numpy",
 ]
 
@@ -229,33 +230,63 @@ def lattice3_mg_from_numpy(
     )
 
 
-def scheme3_data_from_numpy(scheme, **arrays) -> None:
-    """Replace the assembled tables of a 3D lattice scheme
-    (``WeakDirichletPoisson3`` after ``assemble``) by numpy arrays, in place:
-    ``A8``, ``E_uu``, ``E_up``, ``E_pp``, ``bulk_mask`` (float tables in the
-    grid's dtype), ``cut_dofs`` (int64), ``ghost`` / ``bdry`` (lists of
-    ``(dofs, matrix)``), ``b`` / ``diag`` / ``active`` (dicts of per-field
-    flat arrays), so that its matvec and preconditioner run on another
-    implementation's tables.  The ordered scatter plans follow the new ids."""
-    from ..models.lattice_core import OrderedScatter
+def lattice3_block_mg_from_numpy(
+    levels: Sequence[Tuple[int, int, int]],
+    offs: Sequence[Tuple[int, int, int]],
+    Ws: Sequence[np.ndarray],
+    dinvs: Sequence[np.ndarray],
+    coarse_inv: np.ndarray,
+    vsz: int,
+    masks: Optional[Sequence[np.ndarray]],
+    dtype: torch.dtype,
+    device="cuda",
+    **kw,
+) -> Lattice3BlockMG:
+    """The block 3D cycle from another implementation's tables: ``levels``
+    ``(D, R, C)`` fine to coarse, the terms' positions ``offs``, per level
+    ``Ws`` (nterms, vsz, vsz) and ``dinvs`` (vsz, vsz) (kept on the host in
+    float64, as the cycle keeps them), the coarsest pseudo-inverse and the
+    per-level logical masks or None, on ``device`` (the card unless the
+    caller asks for the CPU)."""
+    tens = lambda a: torch.tensor(np.asarray(a), dtype=dtype, device=device)
+    return Lattice3BlockMG(
+        [_Level3(int(D), int(R), int(C), ()) for D, R, C in levels],
+        tuple(tuple(int(v) for v in o) for o in offs),
+        [np.asarray(w, np.float64) for w in Ws],
+        [np.asarray(d, np.float64) for d in dinvs],
+        tens(coarse_inv),
+        int(vsz),
+        dtype=dtype,
+        masks=None if masks is None else [tens(m).contiguous() for m in masks],
+        **kw,
+    )
 
+
+def scheme3_data_from_numpy(scheme, **arrays) -> None:
+    """Replace the assembled tables of a 3D lattice scheme (after
+    ``assemble``) by numpy arrays, in place, so that its matvec and
+    preconditioner run on another implementation's tables: float tables in
+    the grid's dtype (``A8``, ``E_uu``, ``E_up``, ``E_pp``, ``E_stat``,
+    ``E_phi``, ``K_in``, ``K_out``, masks, ...), int64 index tables
+    (``cut_dofs``, ``cut_cells_flat``, ``idxU``, ``idxY``), entity lists
+    ``ghost`` / ``bdry`` / ``flux`` (tuples whose first item is the dofs and
+    second the matrix; the rest, an axis or a field name, kept as given) and
+    per-field dicts ``b`` / ``diag`` / ``x_bc`` / ``active``.  The ordered
+    scatter plans follow the new ids."""
     g = scheme.grid
     flt = lambda a: torch.tensor(np.asarray(a), dtype=g.dtype, device=g.device)
     idx = lambda a: torch.tensor(np.asarray(a), dtype=torch.int64, device=g.device)
     for name, val in arrays.items():
-        if name in ("ghost", "bdry"):
-            val = [(idx(d), flt(E)) for d, E in val]
-        elif name in ("b", "diag"):
+        if name in ("ghost", "bdry", "flux"):
+            val = [(idx(e[0]), flt(e[1])) + tuple(e[2:]) for e in val]
+        elif name in ("b", "diag", "x_bc"):
             val = {k: flt(v) for k, v in val.items()}
         elif name == "active":
             val = {k: torch.tensor(np.asarray(v), dtype=torch.bool, device=g.device) for k, v in val.items()}
-        elif name == "cut_dofs":
+        elif name in ("cut_dofs", "cut_cells_flat", "idxU", "idxY"):
             val = idx(val)
         else:
             val = flt(val).contiguous()
         setattr(scheme, name, val)
-    scheme._scatter_u = OrderedScatter(
-        torch.cat([scheme.cut_dofs.reshape(-1)] + [d.reshape(-1) for d, _ in scheme.ghost + scheme.bdry])
-    )
-    scheme._scatter_p = OrderedScatter(scheme.cut_dofs)
+    scheme._make_scatters()
     scheme._solve_cache = {}

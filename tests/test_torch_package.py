@@ -22,7 +22,9 @@ def test_import_leaves_jax_out():
         "phifem_tpu_torch.pmg, phifem_tpu_torch.grid3, phifem_tpu_torch.tagging3, "
         "phifem_tpu_torch.ops.lattice3, phifem_tpu_torch.ops.cuda_lattice3, phifem_tpu_torch.ops.cuda_hex3, "
         "phifem_tpu_torch.models.lattice_core, phifem_tpu_torch.models.poisson3, "
-        "phifem_tpu_torch.models.weak_dirichlet3, phifem_tpu_torch.models.strong_dirichlet3; "
+        "phifem_tpu_torch.models.weak_dirichlet3, phifem_tpu_torch.models.strong_dirichlet3, "
+        "phifem_tpu_torch.models.neumann3, phifem_tpu_torch.models.robin3, "
+        "phifem_tpu_torch.models.interface_elasticity3; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'phifem_tpu')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -45,7 +47,9 @@ def test_every_module_leaves_jax_out():
         "assert 'phifem_tpu_torch.utils.config' in names, names\n"
         "assert 'phifem_tpu_torch.pmg' in names, names\n"
         "assert {'phifem_tpu_torch.grid3', 'phifem_tpu_torch.models.weak_dirichlet3', "
-        "'phifem_tpu_torch.ops.cuda_hex3', 'phifem_tpu_torch.ops.cuda_lattice3'} <= set(names), names\n"
+        "'phifem_tpu_torch.ops.cuda_hex3', 'phifem_tpu_torch.ops.cuda_lattice3', "
+        "'phifem_tpu_torch.models.neumann3', 'phifem_tpu_torch.models.robin3', "
+        "'phifem_tpu_torch.models.interface_elasticity3'} <= set(names), names\n"
         "print(len(names), len(new), bad); sys.exit(1 if bad else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True)
@@ -89,11 +93,12 @@ def test_unported_paths_raise():
     w.setup(circle, lambda x: x[:, 0]).assemble()
     with pytest.raises(NotImplementedError, match="later PR"):
         w.lattice_preconditioner(ritz_modes=2)
-    # so does the constant block cycle of a vector P1 bulk with a
-    # Dirichlet-masked boundary: S5 with its displacements taken as such
+    # the constant block cycle of a vector P1 bulk with a Dirichlet-masked
+    # boundary is ported (slice F2): S5 with its displacements taken as such
+    # gets a LatticeBlockMG per displacement field
     e = pt.InterfaceElasticity(pt.Grid(8, 8, ((-1.5, -1.5), (1.5, 1.5)), device="cpu"), E_in=disk.E_in,
                                nu_in=disk.nu_in, E_out=disk.E_out, nu_out=disk.nu_out)
     e.setup(disk.levelset, disk.source_term, disk.exact_solution).assemble()
     e._bulk_neumann_fields = lambda: ()
-    with pytest.raises(NotImplementedError, match="LatticeBlockMG"):
-        e.lattice_preconditioner(coupled=False)
+    vc = e.lattice_preconditioner(coupled=False, min_n=4)
+    assert {type(m).__name__ for m in vc.mgs.values()} == {"LatticeBlockMG"}

@@ -17,7 +17,12 @@ bit (``torch.equal``) and write every output exactly once:
   side, tiles with no active cell writing zeros, work items of a block of
   rows by a block of cells that cover every (row, cell) once, the row dots
   kept only for the nodes the tile owns (in slots that start as NaN), and
-  each owned node adding its slots in ascending local index.
+  each owned node adding its slots in ascending local index;
+* the 3-channel block forms: the block sweep by the same column-and-run
+  threads, each node's 3 x 3 block parts added per term in ascending
+  position from -0; the block hex stencil by a thread per node column and a
+  run of nodes, each node adding, per output channel, its active cells in
+  ascending local index, each cell's row dot in ascending (channel, node).
 
 Shapes: ragged lattices, sides smaller than one tile and exact multiples of
 one, the sphere mask, float32 and float64.
@@ -303,11 +308,163 @@ def test_hex3_inactive_tiles_read_no_x():
 
 
 def test_tile_constants_reach_the_kernels():
-    """The wrappers build their sources with their TILE as -D defines, so a
-    change of a constant rebuilds the kernel that the tests describe."""
-    assert cl.defines() == tuple(f"-DPHIFEM_L3_{k}={v}" for k, v in cl.TILE.items())
-    assert cuda_hex3.defines() == tuple(f"-DPHIFEM_HEX3_{k}={v}" for k, v in cuda_hex3.TILE.items())
-    for mod, prefix in ((cl, "PHIFEM_L3_"), (cuda_hex3, "PHIFEM_HEX3_")):
+    """The wrappers build their sources with their TILE and BLOCK_TILE as -D
+    defines, so a change of a constant rebuilds the kernel that the tests
+    describe."""
+    assert cl.defines() == tuple(f"-DPHIFEM_L3_{k}={v}" for k, v in cl.TILE.items()) + tuple(
+        f"-DPHIFEM_L3B_{k}={v}" for k, v in cl.BLOCK_TILE.items())
+    assert cuda_hex3.defines() == tuple(f"-DPHIFEM_HEX3_{k}={v}" for k, v in cuda_hex3.TILE.items()) + tuple(
+        f"-DPHIFEM_HEX3B_{k}={v}" for k, v in cuda_hex3.BLOCK_TILE.items())
+    for mod, prefix, bprefix in ((cl, "PHIFEM_L3_", "PHIFEM_L3B_"), (cuda_hex3, "PHIFEM_HEX3_", "PHIFEM_HEX3B_")):
         src = mod.SOURCE.read_text()
         for k in mod.TILE:
             assert f"#ifndef {prefix}{k}" in src
+        for k in mod.BLOCK_TILE:
+            assert f"#ifndef {bprefix}{k}" in src
+
+
+# ------------------------------------------------------ 3-channel blocks
+def _block_sweep_inputs(shape, dt, seed):
+    from phifem_tpu_torch.models.interface_elasticity import lame
+    from phifem_tpu_torch.models.interface_elasticity3 import _elastic_element_matrix
+    from phifem_tpu_torch.ops.lattice3 import _block_terms3, block_vertex_stencil_weights3
+
+    rng = np.random.default_rng(seed)
+    D, R, C = shape
+    x = torch.zeros((3, D + 2, R + 2, C + 2), dtype=dt)
+    b = torch.zeros_like(x)
+    x[:, 2:D, 2:R, 2:C] = torch.as_tensor(rng.standard_normal((3, D - 2, R - 2, C - 2)), dtype=dt)
+    b[:, 2:D, 2:R, 2:C] = torch.as_tensor(rng.standard_normal((3, D - 2, R - 2, C - 2)), dtype=dt)
+    x[:, 0], x[:, :, -1] = 1.5, -2.5
+    mask = torch.as_tensor(rng.random(shape) < 0.7, dtype=dt)
+    terms = _block_terms3(block_vertex_stencil_weights3(_elastic_element_matrix(0.3, 0.2, 0.25, *lame(1.0, 0.3)), 3))
+    dinv = np.linalg.inv(next(W for a, bb, c, W in terms if (a, bb, c) == (1, 1, 1)))
+    return x, b, mask, cl.pack_block_terms(terms, dinv)
+
+
+def lattice_block_traversal(mode, x, packed, b, mask, omega, tile=cl.BLOCK_TILE):
+    """The block sweep by the kernel's threads: a CTA of BX x BY threads,
+    each one (x, y) column of the padded array and a run of RZ planes; per
+    node, per term in ascending canonical position, per output channel the
+    part ((w0 x0 + w1 x1) + w2 x2) added to the channel's sum from -0, every
+    weight rounded once to T.  Returns the output and how often each node
+    was written."""
+    dt = x.dtype
+    vsz, PD, PR, PC = x.shape
+    D, R, C = PD - 2, PR - 2, PC - 2
+    BX, BY, RZ = tile["BX"], tile["BY"], tile["RZ"]
+    cdiv = lambda a, q: -(-a // q)
+    nbx, nby, nbz = cdiv(PC, BX), cdiv(PR, BY), cdiv(PD, RZ)
+    w = {(a * 3 + bb) * 3 + c: torch.tensor(W, dtype=dt) for a, bb, c, W in packed}
+    dinv, om = torch.tensor(packed.dinv, dtype=dt), torch.tensor(omega, dtype=dt)
+    out = torch.full_like(x, float("nan"))
+    written = torch.zeros((PD, PR, PC), dtype=torch.int64)
+    py, px = torch.meshgrid(torch.arange(nby * BY), torch.arange(nbx * BX), indexing="ij")
+    live = (py < PR) & (px < PC)
+    py, px = py[live], px[live]
+    for bz in range(nbz):
+        for k in range(RZ):
+            pz = bz * RZ + k
+            if pz >= PD:
+                break
+            written[pz, py, px] += 1
+            inner = (py >= 2) & (py <= R - 1) & (px >= 2) & (px <= C - 1) & (2 <= pz <= D - 1)
+            zi, yi, xi = pz, py[inner], px[inner]
+            for c in range(vsz):  # the shell: zero, or x in Jacobi mode
+                shell = x[c, pz, py[~inner], px[~inner]]
+                out[c, pz, py[~inner], px[~inner]] = shell if mode == cl.JACOBI else torch.zeros_like(shell)
+            if not inner.any():
+                continue
+            acc = [torch.full(yi.shape, -0.0, dtype=dt) for _ in range(vsz)]
+            for p in sorted(w):
+                xv = [x[c, zi + p // 9 - 1, yi + (p // 3) % 3 - 1, xi + p % 3 - 1] for c in range(vsz)]
+                for i in range(vsz):
+                    part = w[p][i, 0] * xv[0]
+                    for j in range(1, vsz):
+                        part = part + w[p][i, j] * xv[j]
+                    acc[i] = acc[i] + part
+            for i in range(vsz):
+                if mode == cl.MATVEC:
+                    out[i, zi, yi, xi] = acc[i]
+                    continue
+                res = [b[c, zi, yi, xi] - acc[c] for c in range(vsz)]
+                m = None if mask is None else mask[zi - 1, yi - 1, xi - 1]
+                if mode == cl.RESIDUAL:
+                    out[i, zi, yi, xi] = res[i] if m is None else res[i] * m
+                    continue
+                d = dinv[i, 0] * res[0]
+                for j in range(1, vsz):
+                    d = d + dinv[i, j] * res[j]
+                upd = om * d
+                if m is not None:
+                    upd = upd * m
+                out[i, zi, yi, xi] = x[i, zi, yi, xi] + upd
+    return out, written
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("shape", LATTICE_SHAPES[:3] + LATTICE_SHAPES[4:], ids=_ids)
+def test_lattice3_block_tiles_match_plain_version(shape, mode, dt):
+    md, masked = MODES[mode]
+    x, b, mask, packed = _block_sweep_inputs(shape, DTYPES[dt], seed=len(shape) + md)
+    m = mask if masked else None
+    y, written = lattice_block_traversal(md, x, packed, b, m, 0.6)
+    assert bool((written == 1).all())
+    assert torch.equal(y, cl.lattice3_block_sweep_ref(md, x, packed, b, m, 0.6))
+
+
+def hexblock_traversal(x, mask, K, tile=cuda_hex3.BLOCK_TILE):
+    """The block hex stencil by the kernel's threads: a CTA of BX x BY
+    threads, each a node column and a run of RZ nodes; x staged at clamped
+    coordinates, cell masks 0 outside the grid; per output channel and node
+    the cells in ascending local index i, skipped where the mask is 0, each
+    row dot summed in ascending (channel, node) from its first product, then
+    acc + m s from +0."""
+    dt = x.dtype
+    vsz, D, R, C = x.shape
+    nz, ny, nx = mask.shape
+    BX, BY, RZ = tile["BX"], tile["BY"], tile["RZ"]
+    cdiv = lambda a, q: -(-a // q)
+    nbx, nby, nbz = cdiv(C, BX), cdiv(R, BY), cdiv(D, RZ)
+    assert nbx * BX >= C and nby * BY >= R and nbz * RZ >= D
+    Kt = K.to(dt)
+    xp = torch.nn.functional.pad(x[None], (1, 1, 1, 1, 1, 1), mode="replicate")[0]  # clamped coordinates
+    mp = torch.zeros((nz + 2, ny + 2, nx + 2), dtype=dt)
+    mp[1:-1, 1:-1, 1:-1] = mask  # 0 outside the grid
+    y = torch.full_like(x, float("nan"))
+    written = torch.zeros((D, R, C), dtype=torch.int64)
+    z, yy, xx = torch.meshgrid(torch.arange(D), torch.arange(R), torch.arange(C), indexing="ij")
+    for bz in range(nbz):  # each (CTA, thread, k) writes its node once
+        for k in range(RZ):
+            if bz * RZ + k < D:
+                written[bz * RZ + k] += 1
+    for ci in range(vsz):
+        acc = torch.zeros((D, R, C), dtype=dt)
+        for i in range(8):
+            oz, oy, ox = i >> 2, (i >> 1) & 1, i & 1
+            m = mp[z - oz + 1, yy - oy + 1, xx - ox + 1]
+            s = None
+            for cj in range(vsz):
+                for j in range(8):
+                    jz, jy, jx = j >> 2, (j >> 1) & 1, j & 1
+                    t = Kt[8 * ci + i, 8 * cj + j] * xp[cj, z - oz + jz + 1, yy - oy + jy + 1, xx - ox + jx + 1]
+                    s = t if s is None else s + t
+            acc = torch.where(m != 0, acc + m * s, acc)
+        y[ci] = acc
+    return y, written
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("case", list(HEX_CASES))
+def test_hex_block_tiles_match_plain_version(case, dt):
+    tdt = DTYPES[dt]
+    rng = np.random.default_rng(len(case))
+    mask = _sphere_mask(10, tdt) if HEX_CASES[case] is None else torch.as_tensor(
+        rng.random(HEX_CASES[case]) < 0.4, dtype=tdt)
+    nz, ny, nx = mask.shape
+    x = torch.as_tensor(rng.standard_normal((3, nz + 1, ny + 1, nx + 1)), dtype=tdt)
+    K = torch.as_tensor(rng.standard_normal((24, 24)), dtype=tdt)
+    y, written = hexblock_traversal(x, mask, K)
+    assert bool((written == 1).all())
+    assert torch.equal(y, cuda_hex3.hex_block_stencil3_ref(x, mask, K))
