@@ -69,14 +69,14 @@ assemble -> solve:
 * slice F2 (3D): the 3-channel block forms of both 3D kernels (the block
   hex-cell stencil on S5-3D's sphere masks at n=32 and 64, the block
   lattice sweep in its modes at 3 x 129^3 and 3 x 65^3) against their plain
-  versions, timed beside their bounds, torch.mv of the block operator's
-  CSR and conv3d with 3 in / 3 out channels; S3-3D (Neumann) on the sphere
+  versions, timed beside their bounds and no-FMA floors, torch.mv of the
+  block operator's CSR and conv3d with 3 in / 3 out channels; S3-3D (Neumann) on the sphere
   at n=16 (BiCGStab with lattice_preconditioner(); against the CPU lane),
   n=32 (Jacobi BiCGStab, the demo's path), n=64 and n=96 (4.5M DoFs,
   traced) by flexible GMRES with lattice_preconditioner(); S4-3D (Robin) at
   n=32 and 64; S5-3D (two-material elasticity, contrast 1000) by flexible
-  GMRES with rigid-mode deflation and lattice_preconditioner() at n=8 and
-  16 (against the JAX package's recorded counts and errors) and n=24
+  GMRES with rigid-mode deflation and lattice_preconditioner() at n=8, 12
+  and 16 (against the JAX package's recorded counts and errors) and n=24
   (421,875 DoFs, traced).  S5-3D launches both block kernels.
 
 Every check raises; the script exits non-zero without a result when there
@@ -215,6 +215,14 @@ def _bound(nbytes: float, flops: float, dt):
     return 1e3 * max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
 
+def _floor(flops: float, dt) -> float:
+    """The no-FMA floor (ms) of a kernel that does ``flops`` in ``dt`` with
+    every product and sum an instruction of its own (the 3D kernels round
+    each one for the bits of their plain versions): half the data sheet's
+    rate, which counts a fused multiply-add as two operations."""
+    return 1e3 * flops / (FLOP_PER_S[dt] / 2)
+
+
 def _stencil_csr(g, mats: torch.Tensor, masks=None) -> torch.Tensor:
     """The float64 CSR matrix on the card of the stencil operator with
     per-orientation matrices ``mats`` on grid ``g``, over every cell or
@@ -280,21 +288,34 @@ def _bracket_ms(fn, reps: int) -> float:
     return total / reps
 
 
-def _device_ms(fn, reps: int, kernel: str) -> float:
+def _device_ms(fn, reps: int, kernel: str, also: str = None) -> float:
     """Mean device milliseconds per launch of the kernels named ``kernel``
     over ``reps`` calls of ``fn``: the kernel's own time, whatever the host
-    takes between launches.  A trace that lost every launch (it happens,
-    most often to the first trace after other work in a long process) is
-    taken again; after 8 such traces ``fn`` (one launch) is timed between
-    CUDA events instead (:func:`_bracket_ms`)."""
+    takes between launches, plus that of the device operations named
+    ``also`` that ``fn`` issues with it (K3's copy of its cell matrix).  A
+    trace that lost launches (it happens, most often to the first trace
+    after other work in a long process: none, some, or their times) is
+    taken again: it must hold a whole number of launches per call and a
+    mean of at least 0.6 of one call's time between CUDA events
+    (:func:`_bracket_ms`), which adds only the events' own few
+    microseconds.  After 8 such traces that bracketed time is returned
+    instead."""
+    bracket = _bracket_ms(fn, 3)
     for attempt in range(8):
-        evs = [v for k, v in _device_kernels(fn, reps).items() if kernel in k]
+        trace = _device_kernels(fn, reps)
+        evs = [v for k, v in trace.items() if kernel in k]
         count = sum(c for c, _ in evs)
-        if count:
-            return sum(t for _, t in evs) / count
-        print(f"[profiler] the trace held no launch of {kernel} (attempt {attempt + 1} of 8)")
+        if count and count % reps == 0:
+            extra = sum(t for k, (_, t) in trace.items() if also is not None and also in k)
+            ms = (sum(t for _, t in evs) + extra) / count
+            if ms >= 0.6 * bracket:
+                return ms
+            print(f"[profiler] the trace of {kernel} gave {ms:.4f} ms per launch against {bracket:.4f} between "
+                  f"CUDA events (attempt {attempt + 1} of 8)")
+            continue
+        print(f"[profiler] the trace held {count} launches of {kernel} for {reps} calls (attempt {attempt + 1} of 8)")
     ms = _bracket_ms(fn, reps)
-    print(f"[profiler] {kernel}: device time by CUDA events around single launches instead, {ms:.4f} ms")
+    print(f"[profiler] {kernel}: device time by CUDA events around single calls instead, {ms:.4f} ms")
     return ms
 
 
@@ -1198,8 +1219,9 @@ def phase_gmres(pt, cs, s, vc, r_bicg) -> dict:
 
 
 KERNELS_2D = {"stencil": "stencil_matvec_kernel", "tap": "tap_matvec_kernel"}
+# the device-to-device copies include hex3 block's copy of K, one per launch
 KERNELS_3D = {"hex3": "hex1_stencil3", "hex3 block": "hexblock_stencil3", "lattice3": "lattice3_sweep_kernel",
-              "lattice3 block": "lattice3_block_kernel"}
+              "lattice3 block": "lattice3_block_kernel", "device-to-device copies": "Memcpy DtoD"}
 
 
 def _trace_report(label: str, kernels: dict, wall: float, iters: int, solver: str = "fgmres",
@@ -1212,8 +1234,8 @@ def _trace_report(label: str, kernels: dict, wall: float, iters: int, solver: st
     kernels."""
     busy = sum(t for _, t in kernels.values())
     count = sum(c for c, _ in kernels.values())
-    parts = ", ".join(f"{name} kernel {sum(t for k, (_, t) in kernels.items() if key in k):.2f} ms"
-                      for name, key in named.items())
+    parts = ", ".join(f"{name} {sum(t for k, (_, t) in kernels.items() if key in k):.2f} ms in "
+                      f"{sum(c for k, (c, _) in kernels.items() if key in k)}" for name, key in named.items())
     print(f"[{label} profile] {iters} {solver} iterations, wall {wall:.3f} s unprofiled: {count} kernels "
           f"({count / max(iters, 1):.0f} per {solver} iteration), device busy {busy:.1f} ms = "
           f"{busy / 1e3 / wall:.1%} of the wall; {parts}; top kernels by device time:")
@@ -1451,6 +1473,7 @@ def phase_kernel_hex3(pt) -> dict:
                 "bound_ms": bound[0],
                 "bound_by": bound[1],
             }
+            floor_ms = _floor(2 * nloc * nloc * ncell, dt)
             lib = ""
             if dt is torch.float64:
                 Acsr = _hex3_csr(mask, A, d)
@@ -1467,7 +1490,8 @@ def phase_kernel_hex3(pt) -> dict:
                   f"events), {t['device_ms']:.4f} ms device per launch (profiler), {t['host_ms']:.4f} ms host per "
                   f"call; bound {bound[0]:.4f} ms by {bound[1]} ({nbytes / 1e6:.1f} MB, "
                   f"{2 * nloc * nloc * ncell / 1e9:.3f} GFLOP), {bound[0] / t['device_ms']:.1%} of it by device time, "
-                  f"{bound[0] / t['ms']:.1%} by ms; plain {t['plain_ms']:.3f} ms{lib}")
+                  f"{bound[0] / t['ms']:.1%} by ms; no-FMA floor {floor_ms:.4f} ms; plain {t['plain_ms']:.3f} "
+                  f"ms{lib}")
             torch.cuda.empty_cache()
     # the host floor of one launch: the C entry with all its arguments
     # converted by ctypes but degree 0 (it returns at once, nothing launched)
@@ -1893,11 +1917,15 @@ NEU_CPU_SWEEPS, NEU_PRECOND_TOL = 400, 1e-5
 ROB_IT = {N3_NEU_JAC: 388, N3_NEU: 40}
 S53D_BOX = ((-1.5, -1.5, -1.5), (1.5, 1.5, 1.5))
 S53D_E_IN, S53D_E_OUT, S53D_NU, S53D_TOL = 1.0, 0.001, 0.3, 1e-8
-# docs/s53d_results.csv (the JAX package on the CPU, contrast 1000): level 0
-# n=8 20 it, L2 0.6558, H10 0.9675; level 1 n=16 L2 0.2942, H10 0.8396 (100
-# it with the round-4 coarse space; 40 with today's harmonic one,
-# tests/test_interface_elasticity3.py, cap 55)
-S53D_REF = {8: (20, 0.6557739137168582, 0.9675130155212593), 16: (55, 0.29418185952797904, 0.8395930040423457)}
+# the JAX package on the CPU, contrast 1000, as (its count or None, its cap
+# or None, L2, H10 or None): docs/s53d_results.csv level 0, n=8 20 it, L2
+# 0.6558, H10 0.9675; docs/s53d_convergence.md:31-33, n=12 40 it (cap 55,
+# tests/test_interface_elasticity3.py), L2 0.4281; the CSV's level 1, n=16
+# L2 0.2942, H10 0.8396 (100 it with the round-4 coarse space; 40 with
+# today's harmonic one, cap 55).  A count is held within max(3, 0.25 it),
+# the errors within 1%
+S53D_REF = {8: (20, None, 0.6557739137168582, 0.9675130155212593), 12: (40, 55, 0.4281, None),
+            16: (None, 55, 0.29418185952797904, 0.8395930040423457)}
 # the S5-3D scale run is at n=24 (421,875 DoFs), not level 2 (n=32, 970,299
 # DoFs, never finished in the JAX package; docs/s53d_convergence.md): n=32
 # took 190 s of fgmres (160 it) on an H100 (PERF.md), n=24 65 s
@@ -1905,9 +1933,9 @@ S53D_REF = {8: (20, 0.6557739137168582, 0.9675130155212593), 16: (55, 0.29418185
 N_S53D_LARGE = 24
 N3_BLOCK_LATTICE = (128, 64)  # the block sweep's checks: the S5-3D bulk at n=128 and 64
 N3_BLOCK_HEX = (32, 64)  # the block hex stencil's checks: S5-3D's masks, timed at the second
-# the port's S5-3D counts on the H100 (PERF.md): n=8 and 16 also held to the
-# CSV's row 1 (20, within max(3, 0.25 it)) and JAX's cap (<= 55)
-S53D_IT = {8: 20, 16: 40, N_S53D_LARGE: 120}
+# the port's S5-3D counts on the H100 (PERF.md), n=8, 12 and 16 also held to
+# the JAX package's records (S53D_REF)
+S53D_IT = {8: 20, 12: 40, 16: 40, N_S53D_LARGE: 120}
 
 
 def _du_dn(x):
@@ -1982,7 +2010,8 @@ def phase_kernel_hex3_block(pt) -> dict:
     card, on both sides' masks of the S5-3D sphere at n=32 and n=64 with
     their own elasticity cell matrices, float32 and float64; at n=64 timed
     beside its bound (x read and y written, 3 channels, and the mask read),
-    the plain version and torch.mv of the operator's CSR matrix."""
+    its no-FMA floor, the plain version and torch.mv of the operator's CSR
+    matrix in the value type."""
     from phifem_tpu_torch.models.interface_elasticity import lame
     from phifem_tpu_torch.models.interface_elasticity3 import _elastic_element_matrix
     from phifem_tpu_torch.tagging3 import compute_tags3
@@ -2016,24 +2045,31 @@ def phase_kernel_hex3_block(pt) -> dict:
                 nbytes = (2 * x.numel() + mask.numel()) * x.element_size()
                 bound = _bound(nbytes, 2 * 24 * 24 * ncell, dt)
                 call = lambda: ch.hex_block_stencil3(x, mask, K)
-                t = {"device_ms": _device_ms(call, 20, "hexblock_stencil3_kernel"), "ms": _event_ms(call, 20),
+                # the device time of a launch counts its copy of K into the constant bank
+                t = {"device_ms": _device_ms(call, 20, "hexblock_stencil3_kernel", also="Memcpy"),
+                     "kernel_only_device_ms": _device_ms(call, 20, "hexblock_stencil3_kernel"),
+                     "ms": _event_ms(call, 20),
                      "host_ms": _host_ms(call, 20), "plain_ms": _event_ms(lambda: ch.hex_block_stencil3_ref(x, mask, K), 2),
                      "library_ms": None, "bound_ms": bound[0], "bound_by": bound[1]}
-                lib = ""
-                if dt is torch.float64:
-                    A = _hex3_block_csr(mask, K)
-                    yl = torch.mv(A, x.reshape(-1))
-                    rel_l = float((yl - yr.reshape(-1)).abs().max()) / float(yr.abs().max())
-                    if rel_l > 1e-12:
-                        raise AssertionError(f"the hex3 block CSR is not the kernel's operator: {rel_l}")
-                    t["library_ms"] = _event_ms(lambda: torch.mv(A, x.reshape(-1)), 10)
-                    lib = f"; CSR torch.mv {t['library_ms']:.4f} ms ({A._nnz()} nonzeros)"
-                    del A, yl
+                floor_ms = _floor(2 * 24 * 24 * ncell, dt)
+                # the library call: the operator as a CUDA CSR matrix in the value type
+                A = _hex3_block_csr(mask, K)
+                if dt is not torch.float64:
+                    A = torch.sparse_csr_tensor(A.crow_indices(), A.col_indices(), A.values().to(dt), A.shape)
+                yl = torch.mv(A, x.reshape(-1))
+                rel_l = float((yl - yr.reshape(-1)).abs().max()) / float(yr.abs().max())
+                if rel_l > {torch.float32: 1e-5, torch.float64: 1e-12}[dt]:
+                    raise AssertionError(f"the hex3 block CSR is not the kernel's operator: {rel_l}")
+                t["library_ms"] = _event_ms(lambda: torch.mv(A, x.reshape(-1)), 10)
+                lib = f"; CSR torch.mv {t['library_ms']:.4f} ms ({A._nnz()} nonzeros)"
+                del A, yl
                 out[side, dt] = t
                 print(f"[kernel hex3 block] time n={n} {side} {str(dt)[6:]}: {t['ms']:.4f} ms per call (CUDA events), "
-                      f"{t['device_ms']:.4f} ms device per launch (profiler), {t['host_ms']:.4f} ms host per call; "
+                      f"{t['device_ms']:.4f} ms device per launch with its copy of K (profiler; the kernel alone "
+                      f"{t['kernel_only_device_ms']:.4f}), {t['host_ms']:.4f} ms host per call; "
                       f"bound {bound[0]:.4f} ms by {bound[1]} ({nbytes / 1e6:.1f} MB), {bound[0] / t['device_ms']:.1%} "
-                      f"of it by device time, {bound[0] / t['ms']:.1%} by ms; plain {t['plain_ms']:.3f} ms{lib}")
+                      f"of it by device time, {bound[0] / t['ms']:.1%} by ms; no-FMA floor {floor_ms:.4f} ms, "
+                      f"{floor_ms / t['device_ms']:.1%} of it; plain {t['plain_ms']:.3f} ms{lib}")
         torch.cuda.empty_cache()
     keys = ("ms", "device_ms", "host_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     f64, f32 = torch.float64, torch.float32
@@ -2048,8 +2084,8 @@ def phase_kernel_hex3_block(pt) -> dict:
         "library": "torch.mv of the operator as a CUDA CSR matrix (cuSPARSE SpMV)",
         "shape": f"S5-3D in-side mask n={N3_BLOCK_HEX[-1]} (3 x {N3_BLOCK_HEX[-1] + 1}^3 nodes), float64",
         **{f"out_{k}": out["out", f64][k] for k in keys},
-        **{f"f32_{k}": out["in", f32][k] for k in keys if k != "library_ms"},
-        **{f"out_f32_{k}": out["out", f32][k] for k in keys if k != "library_ms"},
+        **{f"f32_{k}": out["in", f32][k] for k in keys},
+        **{f"out_f32_{k}": out["out", f32][k] for k in keys},
     }
 
 
@@ -2057,8 +2093,9 @@ def phase_kernel_lattice3_block(pt) -> dict:
     """The 3-channel block lattice sweep against its plain version on the
     card at 129^3 and 65^3 x 3 channels (the S5-3D bulk at n=128 and 64) in
     its modes, float32 and float64, each timed beside its bound (x and b
-    read, out written, 3 channels, and the mask), the plain version and, for
-    the matvec, torch.nn.functional.conv3d with 3 in and 3 out channels."""
+    read, out written, 3 channels, and the mask), its no-FMA floor, the
+    plain version and, for the matvec, torch.nn.functional.conv3d with 3 in
+    and 3 out channels."""
     from phifem_tpu_torch.models.interface_elasticity import lame
     from phifem_tpu_torch.models.interface_elasticity3 import _elastic_element_matrix
     from phifem_tpu_torch.ops.lattice3 import _block_terms3, block_vertex_stencil_weights3
@@ -2090,12 +2127,14 @@ def phase_kernel_lattice3_block(pt) -> dict:
                 if rel > tol[dt]:
                     raise AssertionError(f"lattice3 block kernel ({name}) disagrees with its plain version: {rel}")
                 nb = (2 + (mode != cl.MATVEC)) * x.numel() + (0 if m is None else m.numel())
-                bound = _bound(nb * x.element_size(), 2 * 9 * len(terms) * (D - 2) ** 3, dt)
+                ops = 2 * 9 * len(terms) * (D - 2) ** 3
+                bound = _bound(nb * x.element_size(), ops, dt)
                 call = lambda: cl.lattice3_block_sweep(mode, x, packed, b, m, 0.6)
                 t = {"ms": _event_ms(call, 20), "plain_ms": _event_ms(
                     lambda: cl.lattice3_block_sweep_ref(mode, x, packed, b, m, 0.6), 2),
                      "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
                      "device_ms": _device_ms(call, 10, "lattice3_block_kernel"), "host_ms": _host_ms(call, 20)}
+                floor_ms = _floor(ops, dt)
                 if mode == cl.MATVEC:
                     Wc = torch.zeros((3, 3, 3, 3, 3), dtype=dt, device=DEVICE)
                     for a, bb, c, W in terms:
@@ -2111,7 +2150,8 @@ def phase_kernel_lattice3_block(pt) -> dict:
                                 if t.get(k) is not None)
                 print(f"[kernel lattice3 block] {name:13s} {str(dt)[6:]:7s} 3 x {D}^3: max|dy|/max|y| = {rel:.3e} "
                       f"(tol {tol[dt]:.0e}) ok; ms {t['ms']:.4f} (bound {bound[0]:.4f} by {bound[1]}, "
-                      f"{bound[0] / t['device_ms']:.1%} by device time, {bound[0] / t['ms']:.1%} by ms), plain "
+                      f"{bound[0] / t['device_ms']:.1%} by device time, {bound[0] / t['ms']:.1%} by ms; no-FMA floor "
+                      f"{floor_ms:.4f}, {floor_ms / t['device_ms']:.1%} of it), plain "
                       f"{t['plain_ms']:.4f}{extra}")
             del x, b, mask, yk, yr
             torch.cuda.empty_cache()
@@ -2316,14 +2356,14 @@ def phase_neumann3(pt, robin: bool = False) -> dict:
 def phase_s53d(pt) -> dict:
     """S5-3D: flexible GMRES to 1e-8 with the rigid modes deflated and the
     default lattice_preconditioner() (block V-cycles on both bulks, the band
-    solve on per-vertex blocks, the solid-harmonic coarse step) at n=8 and 16
-    (counts and errors against docs/s53d_results.csv) and at n=24 (the scale
-    run), every count pinned; at each n the block hex stencil and hex3 held
+    solve on per-vertex blocks, the solid-harmonic coarse step) at n=8, 12
+    and 16 (counts and errors against the JAX package's records, S53D_REF)
+    and at n=24 (the scale run), every count pinned; at each n the block hex stencil and hex3 held
     against their plain versions on the scheme's own masks and cell
     matrices and the block sweep on every smoothed level of both cycles; at
     n=24 set-up, solve wall and a trace of two fgmres steps."""
     counts = {}
-    for n in (8, 16, N_S53D_LARGE):
+    for n in (8, 12, 16, N_S53D_LARGE):
         label = f"s53d n={n}"
         _reset3()
         torch.cuda.reset_peak_memory_stats()
@@ -2346,9 +2386,14 @@ def phase_s53d(pt) -> dict:
         if not (r.converged and r.residual <= 10 * S53D_TOL):
             raise AssertionError(f"{label}: not converged, relres {r.residual}, {r.iterations} it")
         if n in S53D_REF:
-            it_ref, l2, h10 = S53D_REF[n]
-            ok_it = abs(r.iterations - it_ref) <= max(3, 0.25 * it_ref) if n == 8 else r.iterations <= it_ref
-            if not (ok_it and abs(e["l2"] - l2) <= 0.01 * l2 and abs(e["h10"] - h10) <= 0.01 * h10):
+            it_ref, cap, l2, h10 = S53D_REF[n]
+            ok_it = ((it_ref is None or abs(r.iterations - it_ref) <= max(3, 0.25 * it_ref))
+                     and (cap is None or r.iterations <= cap))
+            ok_e = abs(e["l2"] - l2) <= 0.01 * l2 and (h10 is None or abs(e["h10"] - h10) <= 0.01 * h10)
+            h10_vs = "" if h10 is None else f", H10 {e['h10']:.4f} (JAX {h10:.4f})"
+            print(f"[{label}] against the JAX package: {r.iterations} it (JAX {it_ref}, cap {cap}), L2 {e['l2']:.4f} "
+                  f"(JAX {l2:.4f}){h10_vs}")
+            if not (ok_it and ok_e):
                 raise AssertionError(f"{label}: {r.iterations} it, errors {e}, against {S53D_REF[n]}")
         _pin(label, r.iterations, S53D_IT[n])
         A8 = torch.as_tensor(np.random.default_rng(SEED + 8).standard_normal((8, 8)), device=DEVICE)

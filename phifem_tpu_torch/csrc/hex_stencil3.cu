@@ -614,23 +614,49 @@ int dispatch(const void* x, void* y, const void* mask, const void* A, int nx, in
 //
 // the XLA-fused _masked_block_stencil_apply of
 // phifem_tpu/models/interface_elasticity3.py (:122), run once per side in
-// every S5-3D matvec.  Bound: bytes at the S5-3D masks (x and y, 3 channels,
-// and the cell mask: 56 B per node in float64), against 2 x 576 flops per
-// active cell and channel triple.
+// every S5-3D matvec.  Bound: the arithmetic where most cells are active
+// (2 x 576 operations per active cell against 56 B per node in float64: x
+// and y, 3 channels, and the cell mask), the bytes on the sparse side.
+// Every product and sum is an instruction of its own (no FMA, for the
+// bits), so the arithmetic takes at least twice what the data sheet's rate
+// says (the "no-FMA floor").
 //
-// Design: the node-run body of the scalar d = 1 kernel, simple.  A CTA of
-// BXB x BYB threads owns a column of nodes and a run of RZB planes; it
-// stages the three channels' planes of x its nodes need (one-node halo,
-// clamped coordinates: a clamped value only meets a cell outside the grid,
-// whose mask is 0), the cell masks around them (0 outside the grid) and K
-// (4.6 KB in float64) in static shared memory, 37 KB in float64.  A thread
-// then takes its node column and, per output channel, per node of its run,
-// adds the node's active cells in ascending local index i, each cell's row
-// dot s = sum_{c', j} K[8c+i, 8c'+j] x[c', j] summed in ascending (c', j),
-// every product and sum rounded on its own: the order of the plain version
-// (ops/cuda_hex3.py: hex_block_stencil3_ref).  x is read from shared memory
-// in the dot (no register window: 3 channels of it would not fit).  A run
-// that no active cell touches writes zeros.
+// Design (the Findings of PERF.md say what else was tried):
+//  * K lives in the constant bank: the entry point copies it (device to
+//    device, 4.6 KB in float64) into a __constant__ array on the launch's
+//    stream just before the launch.  The array is one per process and
+//    device, so launches must stay on one stream, where each copy waits for
+//    the launch before it: two streams launching this kernel at once would
+//    race for the array (ops/cuda_hex3.py: hex_block_stencil3 refuses a
+//    second stream).  Each product takes its K operand through a uniform
+//    register that a ULDC fills from the constant cache, one ULDC per
+//    float64 value.
+//  * A CTA of BX x BY threads owns a column of nodes and a run of RZ planes,
+//    for all three output channels or, in float64 (SPLIT), for one: the
+//    output channel is the slowest part of blockIdx.z, so a CTA reads only
+//    its 192 rows' entries of K (1.5 KB) and the CTAs resident on an SM
+//    mostly share them; all 576 (4.6 KB in float64) are more than the
+//    constant cache keeps close.
+//  * The CTA first reads the cell masks around its nodes ((RZ + 1) x
+//    (BY + 1) x (BX + 1), 0 outside the grid; every load of a thread in
+//    flight before the first store) into shared memory; if none is active
+//    (__syncthreads_or) it writes zeros and reads no x.  Otherwise it copies
+//    the three channels' planes of x its nodes need (one-node halo, clamped
+//    coordinates: a clamped value only meets a cell outside the grid, whose
+//    mask is 0) into shared memory with cp.async, all in flight at once.
+//  * A thread walks its run node by node.  For each input channel c' in
+//    turn it loads the node's 3 x 3 x 3 window of x[c'] from shared memory
+//    into registers and adds, for every cell i around the node (cell =
+//    node - offset_i), its products K[8c+i, 8c'+j] x[c', j] to the row sums
+//    s[c][i] held in registers: each s sums in ascending (c', j), from its
+//    first product.  Every cell is summed, active or not, and each output
+//    channel then adds m_i s[c][i] over the active cells in ascending i,
+//    from 0.  A node with no active cell writes zeros.  81 shared loads of
+//    x per node.
+// Every product and sum is rounded on its own: the order of the plain
+// version (ops/cuda_hex3.py: hex_block_stencil3_ref) bit for bit, up to the
+// sign of a zero.  The tiling (ops/cuda_hex3.py BLOCK_TILE) is the best of
+// scripts/tune_torch_stencil3.py on an H100.
 #ifndef PHIFEM_HEX3B_BX
 #define PHIFEM_HEX3B_BX 16
 #endif
@@ -640,93 +666,176 @@ int dispatch(const void* x, void* y, const void* mask, const void* A, int nx, in
 #ifndef PHIFEM_HEX3B_RZ
 #define PHIFEM_HEX3B_RZ 4
 #endif
-constexpr int kBXB = PHIFEM_HEX3B_BX, kBYB = PHIFEM_HEX3B_BY, kRZB = PHIFEM_HEX3B_RZ, kVSZ = 3;
+#ifndef PHIFEM_HEX3B_SPLIT_F32
+#define PHIFEM_HEX3B_SPLIT_F32 0
+#endif
+#ifndef PHIFEM_HEX3B_SPLIT_F64
+#define PHIFEM_HEX3B_SPLIT_F64 1
+#endif
+// a CTA of BX x BY threads, each a node column and a run of RZ nodes along
+// z; split: one output channel per CTA
+constexpr int kVSZ = 3, kNK = 64 * kVSZ * kVSZ, kBXB = PHIFEM_HEX3B_BX, kBYB = PHIFEM_HEX3B_BY,
+              kRZB = PHIFEM_HEX3B_RZ;
+template <typename T> struct Split;
+template <> struct Split<float> { static constexpr bool value = PHIFEM_HEX3B_SPLIT_F32; };
+template <> struct Split<double> { static constexpr bool value = PHIFEM_HEX3B_SPLIT_F64; };
+template <int V> struct IntC { static constexpr int value = V; };
+
+// the cell matrix of the current launch, row-major
+__constant__ float kKf[kNK];
+__constant__ double kKd[kNK];
+template <typename T> __device__ __forceinline__ T kval(int e);
+template <> __device__ __forceinline__ float kval<float>(int e) { return kKf[e]; }
+template <> __device__ __forceinline__ double kval<double>(int e) { return kKd[e]; }
 
 template <typename T>
 __global__ void __launch_bounds__(kBXB * kBYB)
 hexblock_stencil3_kernel(const T* __restrict__ x, T* __restrict__ y,
-                         const T* __restrict__ mask, const T* __restrict__ K,
-                         int nx, int ny, int nz) {
-  constexpr int NT = kBXB * kBYB, NK = 64 * kVSZ * kVSZ;
-  constexpr int SX = kBXB + 2, SY = kBYB + 2, PX = SY * SX, NPX = kRZB + 2;
-  constexpr int MX = kBXB + 1, MY = kBYB + 1, PM = MY * MX, NPM = kRZB + 1;
-  __shared__ __align__(16) T sk[NK];
+                         const T* __restrict__ mask, int nx, int ny, int nz) {
+  constexpr bool SPLIT = Split<T>::value;
+  constexpr int BX = kBXB, BY = kBYB, RZ = kRZB, NT = BX * BY;
+  constexpr int SX = BX + 2, SY = BY + 2, PX = SY * SX, NPX = RZ + 2;
+  constexpr int MX = BX + 1, MY = BY + 1, PM = MY * MX, NPM = RZ + 1;
+  constexpr int CW = SPLIT ? 1 : kVSZ;  // output channels per CTA
+  static_assert((kVSZ * NPX * PX + NPM * PM) * sizeof(T) <= 48 * 1024, "the block must fit static shared memory");
   __shared__ __align__(16) T sx[kVSZ * NPX * PX];
   __shared__ __align__(16) T sm[NPM * PM];
   const int C = nx + 1, R = ny + 1, D = nz + 1;
   const long long N = (long long)D * R * C;
-  const int x0 = blockIdx.x * kBXB, y0 = blockIdx.y * kBYB, z0 = blockIdx.z * kRZB;
-  const int tid = threadIdx.y * kBXB + threadIdx.x;
-  for (int k = tid; k < NK; k += NT) sk[k] = K[k];
+  // with split, the CTA's output channel ci is the slowest part of blockIdx.z
+  const int nbz = (D + RZ - 1) / RZ, ci = SPLIT ? blockIdx.z / nbz : 0, z0 = (blockIdx.z - ci * nbz) * RZ;
+  const int x0 = blockIdx.x * BX, y0 = blockIdx.y * BY;
+  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * BX + tx;
+  const int px = x0 + tx, py = y0 + ty;
+  const bool live = px < C && py < R;
+
+  // 1. the cell masks around the CTA's nodes, 0 outside the grid, every
+  //    load of a thread in flight before the first store
+  bool found = false;
+  {
+    constexpr int NML = (NPM * PM + NT - 1) / NT;
+    T mv[NML];
+#pragma unroll
+    for (int u = 0; u < NML; ++u) {
+      const int k = tid + u * NT;
+      const int cz = z0 - 1 + k / PM, cy = y0 - 1 + (k % PM) / MX, cx = x0 - 1 + k % MX;
+      mv[u] = (k < NPM * PM && cz >= 0 && cz < nz && cy >= 0 && cy < ny && cx >= 0 && cx < nx)
+                  ? mask[((long long)cz * ny + cy) * nx + cx] : T(0);
+    }
+#pragma unroll
+    for (int u = 0; u < NML; ++u) {
+      const int k = tid + u * NT;
+      if (k < NPM * PM) sm[k] = mv[u];
+      found = found || mv[u] != T(0);
+    }
+  }
+  if (!__syncthreads_or(found)) {  // no active cell: zeros, and no x is read
+    if (live) {
+#pragma unroll
+      for (int k = 0; k < RZ; ++k) {
+        if (z0 + k >= D) break;
+#pragma unroll
+        for (int c = ci; c < ci + CW; ++c) y[c * N + ((long long)(z0 + k) * R + py) * C + px] = T(0);
+      }
+    }
+    return;
+  }
+
+  // 2. the three channels' planes z0 - 1 .. z0 + RZ of x, clamped, by cp.async
   for (int k = tid; k < kVSZ * NPX * PX; k += NT) {
     const int c = k / (NPX * PX), a = (k / PX) % NPX, r = (k % PX) / SX, q = k % SX;
     const int gz = min(max(z0 - 1 + a, 0), D - 1), gy = min(max(y0 - 1 + r, 0), R - 1),
               gx = min(max(x0 - 1 + q, 0), C - 1);
-    sx[k] = x[c * N + ((long long)gz * R + gy) * C + gx];
+    copy_async(sx + k, x + c * N + ((long long)gz * R + gy) * C + gx);
   }
-  for (int k = tid; k < NPM * PM; k += NT) {
-    const int cz = z0 - 1 + k / PM, cy = y0 - 1 + (k % PM) / MX, cx = x0 - 1 + k % MX;
-    sm[k] = (cz >= 0 && cz < nz && cy >= 0 && cy < ny && cx >= 0 && cx < nx)
-                ? mask[((long long)cz * ny + cy) * nx + cx] : T(0);
-  }
+  copy_commit();
+  copy_wait<0>();
   __syncthreads();
-  const int px = x0 + threadIdx.x, py = y0 + threadIdx.y;
-  if (px >= C || py >= R) return;
-  // the cell (z0-1+a, py-1+b, px-1+c) of the thread's column
-  auto mk = [&](int a, int b, int c) -> T { return sm[a * PM + (threadIdx.y + b) * MX + threadIdx.x + c]; };
-  bool any = false;
-#pragma unroll
-  for (int a = 0; a < kRZB + 1; ++a)
-#pragma unroll
-    for (int b = 0; b < 2; ++b)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) any = any || mk(a, b, c) != T(0);
+  if (!live) return;
+
+  // 3. the run, node by node, for output channels C0 .. C0 + NC - 1
+  auto run = [&](auto c0, auto nc) {
+    constexpr int C0 = decltype(c0)::value, NC = decltype(nc)::value;
 #pragma unroll 1
-  for (int ci = 0; ci < kVSZ; ++ci) {
-    T acc[kRZB];
+    for (int k = 0; k < RZ; ++k) {
+      const int pz = z0 + k;
+      if (pz >= D) break;
+      // the mask of the node's cell i, (pz - oz, py - oy, px - ox)
+      T m[8];
+      bool any = false;
 #pragma unroll
-    for (int k = 0; k < kRZB; ++k) acc[k] = T(0);
-    if (any) {
-#pragma unroll 1
       for (int i = 0; i < 8; ++i) {
         const int oz = i >> 2, oy = (i >> 1) & 1, ox = i & 1;
-        const T* krow = sk + (8 * ci + i) * (8 * kVSZ);
+        m[i] = sm[(k + 1 - oz) * PM + (ty + 1 - oy) * MX + tx + 1 - ox];
+        any = any || m[i] != T(0);
+      }
+      T acc[NC];
 #pragma unroll
-        for (int k = 0; k < kRZB; ++k) {
-          const T m = mk(k + 1 - oz, 1 - oy, 1 - ox);
-          if (m == T(0)) continue;
-          // the cell's node j of channel c' sits at plane k + 1 - oz + jz,
-          // row ty + 1 - oy + jy, column tx + 1 - ox + jx of the staged block
-          const T* base = sx + (k + 1 - oz) * PX + (threadIdx.y + 1 - oy) * SX + threadIdx.x + 1 - ox;
-          T s = T(0);
+      for (int c = 0; c < NC; ++c) acc[c] = T(0);
+      if (any) {
+        T s[NC][8];
 #pragma unroll
-          for (int cj = 0; cj < kVSZ; ++cj) {
+        for (int cj = 0; cj < kVSZ; ++cj) {
+          // x[c'] at the node + (dz, dy, dx) - 1, d in {0, 1, 2}^3
+          T w[27];
+          const T* base = sx + (cj * NPX + k) * PX + ty * SX + tx;
 #pragma unroll
-            for (int j = 0; j < 8; ++j) {
-              const int jz = j >> 2, jy = (j >> 1) & 1, jx = j & 1;
-              const T t = mul_rn(krow[8 * cj + j], base[cj * NPX * PX + jz * PX + jy * SX + jx]);
-              s = (cj == 0 && j == 0) ? t : add_rn(s, t);
+          for (int d = 0; d < 27; ++d) w[d] = base[(d / 9) * PX + ((d / 3) % 3) * SX + d % 3];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int oz = i >> 2, oy = (i >> 1) & 1, ox = i & 1;
+#pragma unroll
+            for (int c = 0; c < NC; ++c) {
+#pragma unroll
+              for (int j = 0; j < 8; ++j) {
+                // the cell's node j sits at window offset 1 - o + o_j on each axis
+                const int jz = j >> 2, jy = (j >> 1) & 1, jx = j & 1;
+                const T t = mul_rn(kval<T>((8 * (C0 + c) + i) * 8 * kVSZ + 8 * cj + j),
+                                   w[((1 - oz + jz) * 3 + 1 - oy + jy) * 3 + 1 - ox + jx]);
+                s[c][i] = (cj == 0 && j == 0) ? t : add_rn(s[c][i], t);
+              }
             }
           }
-          acc[k] = add_rn(acc[k], mul_rn(m, s));
         }
-      }
-    }
 #pragma unroll
-    for (int k = 0; k < kRZB; ++k) {
-      if (z0 + k < D) y[ci * N + ((long long)(z0 + k) * R + py) * C + px] = acc[k];
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            if (m[i] != T(0)) acc[c] = add_rn(acc[c], mul_rn(m[i], s[c][i]));
+      }
+#pragma unroll
+      for (int c = 0; c < NC; ++c) y[(C0 + c) * N + ((long long)pz * R + py) * C + px] = acc[c];
     }
+  };
+  if constexpr (SPLIT) {
+    if (ci == 0) {
+      run(IntC<0>(), IntC<1>());
+    } else if (ci == 1) {
+      run(IntC<1>(), IntC<1>());
+    } else {
+      run(IntC<2>(), IntC<1>());
+    }
+  } else {
+    run(IntC<0>(), IntC<kVSZ>());
   }
 }
 
 template <typename T>
-void launch_block(const void* x, void* y, const void* mask, const void* K, int nx, int ny, int nz,
-                  cudaStream_t stream) {
+int launch_block(const void* x, void* y, const void* mask, const void* K, int nx, int ny, int nz,
+                 cudaStream_t stream) {
+  cudaError_t e;
+  if constexpr (sizeof(T) == 8) {
+    e = cudaMemcpyToSymbolAsync(kKd, K, sizeof(kKd), 0, cudaMemcpyDeviceToDevice, stream);
+  } else {
+    e = cudaMemcpyToSymbolAsync(kKf, K, sizeof(kKf), 0, cudaMemcpyDeviceToDevice, stream);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 block(kBXB, kBYB);
-  const dim3 grid((nx + 1 + kBXB - 1) / kBXB, (ny + 1 + kBYB - 1) / kBYB, (nz + 1 + kRZB - 1) / kRZB);
+  const dim3 grid((nx + 1 + kBXB - 1) / kBXB, (ny + 1 + kBYB - 1) / kBYB,
+                  (nz + 1 + kRZB - 1) / kRZB * (Split<T>::value ? kVSZ : 1));
   hexblock_stencil3_kernel<T><<<grid, block, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(y), static_cast<const T*>(mask),
-      static_cast<const T*>(K), nx, ny, nz);
+      static_cast<const T*>(x), static_cast<T*>(y), static_cast<const T*>(mask), nx, ny, nz);
+  return 0;
 }
 
 }  // namespace
@@ -758,24 +867,24 @@ void phifem_hex3_constants(int* out) {
 
 // y = K_masked x for a 3-channel Q1 field (see hexblock_stencil3_kernel):
 // x, y: device pointers to 3 (nz + 1) (ny + 1) (nx + 1) values, channels
-// first; mask: nz ny nx cell values; K: the (24, 24) channel-major cell
-// matrix (row-major), all in the same type.  Returns cudaGetLastError().
+// first; mask: nz ny nx cell values; K: device pointer to the (24, 24)
+// channel-major cell matrix (row-major), all in the same type; K is copied
+// into the constant bank on the stream before the launch.  Returns the
+// copy's error or cudaGetLastError().
 int phifem_hex_block_stencil3(const void* x, void* y, const void* mask, const void* K, int nx,
                               int ny, int nz, int is_double, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_double) {
-    launch_block<double>(x, y, mask, K, nx, ny, nz, s);
-  } else {
-    launch_block<float>(x, y, mask, K, nx, ny, nz, s);
-  }
+  const int bad = is_double ? launch_block<double>(x, y, mask, K, nx, ny, nz, s)
+                            : launch_block<float>(x, y, mask, K, nx, ny, nz, s);
+  if (bad) return bad;
   return static_cast<int>(cudaGetLastError());
 }
 
-// The block kernel's tiling: BX, BY, RZ.
+// The block kernel's tiling: BX, BY, RZ, SPLIT for float32, SPLIT for
+// float64.
 void phifem_hexblock_constants(int* out) {
-  out[0] = kBXB;
-  out[1] = kBYB;
-  out[2] = kRZB;
+  const int v[] = {kBXB, kBYB, kRZB, Split<float>::value, Split<double>::value};
+  for (int i = 0; i < 5; ++i) out[i] = v[i];
 }
 
 const char* phifem_hex3_error_string(int err) {

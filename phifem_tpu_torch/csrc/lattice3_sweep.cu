@@ -315,33 +315,85 @@ void dispatch(const void* x, const void* b, const void* mask, void* out, const i
 //   (A x)[i] = sum_t sum_j W_t[i][j] x[j][p + o_t]
 //
 // the XLA-fused _conv_interior3_block of phifem_tpu/ops/lattice3.py (:381)
-// inside Lattice3BlockMG._smooth (:464) and _cycle (:493).  Modes as above,
+// inside Lattice3BlockMG._smooth (:464) and _cycle (:480).  Modes as above,
 // with the block Jacobi update x + (omega Dinv (b - A x)) [* m], Dinv the
 // interior centre block's 3 x 3 inverse, the mask shared by the channels.
-// Bound: bytes (x, b and out, 3 channels, and the mask), against 2 x 243
-// flops per node.
 //
-// Design: simple.  A CTA of BXB x BYB threads owns a block of columns and
-// rows; a thread owns one (x, y) column and a run of RZB planes, and per node
-// reads its 27 x 3 neighbours through the read-only cache (no shared-memory
-// staging: each x value is read by up to 27 nodes, mostly from L1 / L2).  The
-// blocks arrive by value, rounded to the value type on the host, at their
-// canonical positions with the bit mask of the terms present, walked in
-// ascending position; per term and output channel the part
-// ((W[i][0] x0 + W[i][1] x1) + W[i][2] x2) is added to the channel's sum,
-// which starts at -0; every product and sum is rounded on its own.  That is
-// the order of the plain version (ops/cuda_lattice3.py:
-// lattice3_block_sweep_ref) bit for bit.
+// Bound: bytes (x, b and out, 3 channels, and the mask: 24-28 B per node in
+// float32 in matvec / masked Jacobi mode), against 2 x 243 operations per
+// interior node.  Every product and sum is an instruction of its own (no
+// FMA, for the bits), so those 486 instructions take at least 0.0297 ms
+// (float32) / 0.0586 ms (float64) at 3 x 129^3 on an H100 (the "no-FMA
+// floor"): more than the matvec's byte bound, about the masked Jacobi
+// sweep's in float64.
+//
+// Design: K2's (above) with three channels (the Findings of PERF.md say
+// what else was tried).
+//  * A CTA of BX x BY threads owns a tile of the logical interior, BX
+//    columns by BY rows by RZ planes (padded coordinates from 2: no thread
+//    of an interior tile sits in the shell, and a tile grid of the
+//    interior's 127 nodes wastes one column where the padded array's 131
+//    would waste a warp).  The CTAs on the array's faces also own the
+//    two-node shell beyond their tile, written by whole rows: zero, or x in
+//    Jacobi mode.  The shapes are per value type (ops/cuda_lattice3.py
+//    BLOCK_TILE, from scripts/tune_torch_stencil3.py on an H100).
+//  * The tile's three channels with a one-node halo, 3 x (RZ + 2) x
+//    (BY + 2) x (BX + 2) values, are read once from device memory at
+//    clamped coordinates (a clamped value only meets an output outside the
+//    interior) by whole coalesced rows, one channel's loads in flight at a
+//    time, into shared memory.  No TMA: the padded rows (131 values) are no
+//    multiple of 16 bytes.
+//  * A thread owns one column and a run of RZ planes and streams the run's
+//    RZ + 2 planes in ascending z through a one-plane register window of 3
+//    channels x 3 rows x 3 columns: plane z0 - 1 + a gives node k its
+//    terms at oz = a - k.  Positions ascend with oz slowest, so every node's
+//    sums take their terms in the plain version's order.  About
+//    27 (RZ + 2) / RZ shared loads of x per node.  With ROLL the plane loop
+//    is a loop holding three nodes' sums (nodes a, a - 1, a - 2, rotated
+//    after each plane); without, it is unrolled over the run.
+//  * The blocks arrive by value (2 KB of parameters in float64), rounded to
+//    the value type on the host, at their canonical positions with the bit
+//    mask of the terms present.  The compiler feeds each weight to its
+//    multiplies through a uniform register loaded by a ULDC (one per pair
+//    of float32 weights, one per float64 weight).  When
+//    all 27 positions are present (every S5-3D stencil) the FULL
+//    instantiation has no branch per term; otherwise absent terms are
+//    skipped by a branch that is uniform over the launch.
+// Per term and output channel the part ((W[i][0] x0 + W[i][1] x1) +
+// W[i][2] x2) is added to the channel's sum, which starts at -0; every
+// product and sum is rounded on its own.  That is the order of the plain
+// version (ops/cuda_lattice3.py: lattice3_block_sweep_ref) bit for bit.
 #ifndef PHIFEM_L3B_BX
 #define PHIFEM_L3B_BX 32
 #endif
-#ifndef PHIFEM_L3B_BY
-#define PHIFEM_L3B_BY 4
+#ifndef PHIFEM_L3B_BY_F32
+#define PHIFEM_L3B_BY_F32 4
 #endif
-#ifndef PHIFEM_L3B_RZ
-#define PHIFEM_L3B_RZ 4
+#ifndef PHIFEM_L3B_RZ_F32
+#define PHIFEM_L3B_RZ_F32 8
 #endif
-constexpr int kBXB = PHIFEM_L3B_BX, kBYB = PHIFEM_L3B_BY, kRZB = PHIFEM_L3B_RZ, kVSZ = 3;
+#ifndef PHIFEM_L3B_ROLL_F32
+#define PHIFEM_L3B_ROLL_F32 1
+#endif
+#ifndef PHIFEM_L3B_BY_F64
+#define PHIFEM_L3B_BY_F64 8
+#endif
+#ifndef PHIFEM_L3B_RZ_F64
+#define PHIFEM_L3B_RZ_F64 2
+#endif
+#ifndef PHIFEM_L3B_ROLL_F64
+#define PHIFEM_L3B_ROLL_F64 0
+#endif
+constexpr int kVSZ = 3, kBXB = PHIFEM_L3B_BX;
+// a CTA of BX x by threads; a thread owns one column and a run of rz planes
+// of the interior; roll: the run's plane loop is a loop
+template <typename T> struct BlockShape;
+template <> struct BlockShape<float> {
+  static constexpr int by = PHIFEM_L3B_BY_F32, rz = PHIFEM_L3B_RZ_F32, roll = PHIFEM_L3B_ROLL_F32;
+};
+template <> struct BlockShape<double> {
+  static constexpr int by = PHIFEM_L3B_BY_F64, rz = PHIFEM_L3B_RZ_F64, roll = PHIFEM_L3B_ROLL_F64;
+};
 
 template <typename T>
 struct BlockStencil {
@@ -351,59 +403,78 @@ struct BlockStencil {
   unsigned present;
 };
 
-template <typename T, int MODE, bool MASKED>
-__global__ void __launch_bounds__(kBXB * kBYB)
+template <typename T, int MODE, bool MASKED, bool FULL>
+__global__ void __launch_bounds__(kBXB * BlockShape<T>::by)
 lattice3_block_kernel(const T* __restrict__ x, const T* __restrict__ b,
                       const T* __restrict__ mask, T* __restrict__ out,
                       const BlockStencil<T> st, int D, int R, int C) {
+  using S = BlockShape<T>;
+  constexpr int BX = kBXB, BY = S::by, RZ = S::rz;
+  constexpr int SX = BX + 2, SY = BY + 2, NP = RZ + 2;  // the tile with a one-node halo
+  constexpr int NROW = NP * SY;                         // rows of one channel's block
+  static_assert(kVSZ * NROW * SX * sizeof(T) <= 48 * 1024, "the block must fit static shared memory");
+  __shared__ __align__(16) T blk[kVSZ * NROW * SX];
   const int PC = C + 2, PR = R + 2, PD = D + 2;
   const int PLANE = PR * PC, CH = PD * PLANE;
-  const int px = blockIdx.x * kBXB + threadIdx.x, py = blockIdx.y * kBYB + threadIdx.y;
-  if (px >= PC || py >= PR) return;
-  const bool colin = py >= 2 && py <= R - 1 && px >= 2 && px <= C - 1;
-#pragma unroll 1
-  for (int k = 0; k < kRZB; ++k) {
-    const int pz = blockIdx.z * kRZB + k;
-    if (pz >= PD) break;
-    const int idx = pz * PLANE + py * PC + px;
-    if (!colin || pz < 2 || pz > D - 1) {
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  // the tile's first interior node; the interior is [2, D-1] x [2, R-1] x [2, C-1]
+  const int x0 = 2 + blockIdx.x * BX, y0 = 2 + blockIdx.y * BY, z0 = 2 + blockIdx.z * RZ;
+
+  // 1. the three channels' blocks at clamped coordinates, by whole rows:
+  //    thread row ty takes block rows ty, ty + BY, ..., lane tx columns tx,
+  //    tx + BX, ...; one channel's loads issued before its first store
+  {
+    constexpr int RPT = (NROW + BY - 1) / BY, CPL = (SX + BX - 1) / BX;
+    int gx[CPL];
 #pragma unroll
-      for (int c = 0; c < kVSZ; ++c) out[c * CH + idx] = MODE == 2 ? x[c * CH + idx] : T(0);
-      continue;
-    }
-    T acc[kVSZ];
+    for (int e = 0; e < CPL; ++e) gx[e] = min(max(x0 - 1 + tx + e * BX, 0), PC - 1);
 #pragma unroll
-    for (int c = 0; c < kVSZ; ++c) acc[c] = T(-0.0);
+    for (int c = 0; c < kVSZ; ++c) {
+      T v[RPT][CPL];
 #pragma unroll
-    for (int p = 0; p < kMaxTerms; ++p) {
-      if (st.present & (1u << p)) {
-        const int nb = idx + (p / 9 - 1) * PLANE + ((p / 3) % 3 - 1) * PC + (p % 3 - 1);
-        T xv[kVSZ];
+      for (int m = 0; m < RPT; ++m) {
+        const int rr = min(ty + m * BY, NROW - 1);
+        const int a = rr / SY, r = rr - a * SY;
+        const int g = c * CH + min(max(z0 - 1 + a, 0), PD - 1) * PLANE + min(max(y0 - 1 + r, 0), PR - 1) * PC;
 #pragma unroll
-        for (int c = 0; c < kVSZ; ++c) xv[c] = __ldg(x + c * CH + nb);
+        for (int e = 0; e < CPL; ++e) v[m][e] = x[g + gx[e]];
+      }
 #pragma unroll
-        for (int i = 0; i < kVSZ; ++i) {
-          T part = mul_rn(st.w[p][i * kVSZ], xv[0]);
+      for (int m = 0; m < RPT; ++m) {
+        const int rr = ty + m * BY;
 #pragma unroll
-          for (int j = 1; j < kVSZ; ++j) part = add_rn(part, mul_rn(st.w[p][i * kVSZ + j], xv[j]));
-          acc[i] = add_rn(acc[i], part);
+        for (int e = 0; e < CPL; ++e) {
+          const int col = tx + e * BX;
+          if (rr < NROW && col < SX) blk[(c * NROW + rr) * SX + col] = v[m][e];
         }
       }
     }
+  }
+  __syncthreads();
+
+  // 2. the thread's run: planes z0 - 1 .. z0 + RZ in ascending z through a
+  //    one-plane window; plane a gives node k the terms at oz = a - k
+  const int px = x0 + tx, py = y0 + ty;
+  const bool live = py <= R - 1 && px <= C - 1;
+  // node k's outputs from its sums v
+  auto finish = [&](int k, const T (&v)[kVSZ]) {
+    const int pz = z0 + k;
+    if (pz > D - 1) return;
+    const int idx = pz * PLANE + py * PC + px;
     if (MODE == 0) {
 #pragma unroll
-      for (int c = 0; c < kVSZ; ++c) out[c * CH + idx] = acc[c];
-      continue;
+      for (int c = 0; c < kVSZ; ++c) out[c * CH + idx] = v[c];
+      return;
     }
     T m = T(1);
     if (MASKED) m = mask[((pz - 1) * R + (py - 1)) * C + (px - 1)];
     T res[kVSZ];
 #pragma unroll
-    for (int c = 0; c < kVSZ; ++c) res[c] = sub_rn(b[c * CH + idx], acc[c]);
+    for (int c = 0; c < kVSZ; ++c) res[c] = sub_rn(b[c * CH + idx], v[c]);
     if (MODE == 1) {
 #pragma unroll
       for (int c = 0; c < kVSZ; ++c) out[c * CH + idx] = MASKED ? mul_rn(res[c], m) : res[c];
-      continue;
+      return;
     }
 #pragma unroll
     for (int i = 0; i < kVSZ; ++i) {
@@ -412,20 +483,121 @@ lattice3_block_kernel(const T* __restrict__ x, const T* __restrict__ b,
       for (int j = 1; j < kVSZ; ++j) d = add_rn(d, mul_rn(st.dinv[i * kVSZ + j], res[j]));
       T upd = mul_rn(st.omega, d);
       if (MASKED) upd = mul_rn(upd, m);
-      out[i * CH + idx] = add_rn(x[i * CH + idx], upd);
+      out[i * CH + idx] = add_rn(blk[((i * NP + k + 1) * SY + ty + 1) * SX + tx + 1], upd);
+    }
+  };
+  // plane a of the window: 3 channels x 3 rows x 3 columns
+  auto window = [&](int a, T (&w)[kVSZ][3][3]) {
+#pragma unroll
+    for (int c = 0; c < kVSZ; ++c)
+#pragma unroll
+      for (int r = 0; r < 3; ++r)
+#pragma unroll
+        for (int q = 0; q < 3; ++q) w[c][r][q] = blk[((c * NP + a) * SY + ty + r) * SX + tx + q];
+  };
+  // the terms at oz of one plane's window added to the sums v
+  auto terms = [&](int oz, const T (&w)[kVSZ][3][3], T (&v)[kVSZ]) {
+#pragma unroll
+    for (int q = 0; q < 9; ++q) {
+      const int p = oz * 9 + q, oy = q / 3, ox = q % 3;
+      if (!FULL && !(st.present & (1u << p))) continue;
+#pragma unroll
+      for (int i = 0; i < kVSZ; ++i) {
+        T part = mul_rn(st.w[p][i * kVSZ], w[0][oy][ox]);
+#pragma unroll
+        for (int j = 1; j < kVSZ; ++j) part = add_rn(part, mul_rn(st.w[p][i * kVSZ + j], w[j][oy][ox]));
+        v[i] = add_rn(v[i], part);
+      }
+    }
+  };
+  if (live && S::roll) {
+    // three nodes' sums in flight: slot s holds node a - s
+    T sl[3][kVSZ];
+#pragma unroll
+    for (int s = 0; s < 3; ++s)
+#pragma unroll
+      for (int i = 0; i < kVSZ; ++i) sl[s][i] = T(-0.0);
+#pragma unroll 1
+    for (int a = 0; a < NP; ++a) {
+      if (z0 - 1 + a > D) break;  // beyond the last interior node's planes (uniform over the CTA)
+      T w[kVSZ][3][3];
+      window(a, w);
+#pragma unroll
+      for (int oz = 0; oz < 3; ++oz) terms(oz, w, sl[oz]);
+      if (a >= 2) finish(a - 2, sl[2]);
+#pragma unroll
+      for (int i = 0; i < kVSZ; ++i) {
+        sl[2][i] = sl[1][i];
+        sl[1][i] = sl[0][i];
+        sl[0][i] = T(-0.0);
+      }
+    }
+  } else if (live) {
+    T acc[RZ][kVSZ];
+#pragma unroll
+    for (int k = 0; k < RZ; ++k)
+#pragma unroll
+      for (int i = 0; i < kVSZ; ++i) acc[k][i] = T(-0.0);
+#pragma unroll
+    for (int a = 0; a < NP; ++a) {
+      if (z0 - 1 + a > D) break;  // beyond the last interior node's planes (uniform over the CTA)
+      T w[kVSZ][3][3];
+      window(a, w);
+#pragma unroll
+      for (int oz = 0; oz < 3; ++oz) {
+        const int k = a - oz;
+        if (k < 0 || k >= RZ || z0 + k > D - 1) continue;
+        terms(oz, w, acc[k]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < RZ; ++k) finish(k, acc[k]);
+  }
+
+  // 3. the shell the CTA owns: a CTA on a face of the tile grid extends its
+  //    tile to the array's edge (two nodes, or more where the interior is
+  //    short of a tile); written by rows, zero or x
+  const int ix1 = min(x0 + BX, C), iy1 = min(y0 + BY, R), iz1 = min(z0 + RZ, D);
+  const int ex0 = blockIdx.x == 0 ? 0 : x0, ex1 = blockIdx.x + 1 == gridDim.x ? PC : x0 + BX;
+  const int ey0 = blockIdx.y == 0 ? 0 : y0, ey1 = blockIdx.y + 1 == gridDim.y ? PR : y0 + BY;
+  const int ez0 = blockIdx.z == 0 ? 0 : z0, ez1 = blockIdx.z + 1 == gridDim.z ? PD : z0 + RZ;
+  if (ex0 < x0 || ex1 > ix1 || ey0 < y0 || ey1 > iy1 || ez0 < z0 || ez1 > iz1) {
+    const int nyr = ey1 - ey0, nrow = nyr * (ez1 - ez0), ncol = ex1 - ex0;
+    for (int rr = ty; rr < nrow; rr += BY) {
+      const int z = ez0 + rr / nyr, yy = ey0 + rr % nyr;
+      const bool inner = z >= z0 && z < iz1 && yy >= y0 && yy < iy1;
+      for (int q = tx; q < ncol; q += BX) {
+        const int xx = ex0 + q;
+        if (inner && xx >= x0 && xx < ix1) continue;
+        const int idx = (z * PR + yy) * PC + xx;
+#pragma unroll
+        for (int c = 0; c < kVSZ; ++c) out[c * CH + idx] = MODE == 2 ? x[c * CH + idx] : T(0);
+      }
     }
   }
 }
 
+// CTAs along one axis: tiles of the interior's n - 2 nodes, at least one
+inline int block_tiles(int n, int t) { return n - 2 > t ? (n - 2 + t - 1) / t : 1; }
+
 template <typename T, int MODE>
 void launch_block_mode(const T* x, const T* b, const T* mask, T* out, const BlockStencil<T>& st,
                        int D, int R, int C, cudaStream_t stream) {
-  const dim3 block(kBXB, kBYB);
-  const dim3 grid((C + 2 + kBXB - 1) / kBXB, (R + 2 + kBYB - 1) / kBYB, (D + 2 + kRZB - 1) / kRZB);
+  using S = BlockShape<T>;
+  const dim3 block(kBXB, S::by);
+  const dim3 grid(block_tiles(C, kBXB), block_tiles(R, S::by), block_tiles(D, S::rz));
+  // every position present (S5-3D's stencils): no branch per term
+  const bool full = st.present == (1u << kMaxTerms) - 1u;
   if (mask != nullptr) {
-    lattice3_block_kernel<T, MODE, true><<<grid, block, 0, stream>>>(x, b, mask, out, st, D, R, C);
+    if (full) {
+      lattice3_block_kernel<T, MODE, true, true><<<grid, block, 0, stream>>>(x, b, mask, out, st, D, R, C);
+    } else {
+      lattice3_block_kernel<T, MODE, true, false><<<grid, block, 0, stream>>>(x, b, mask, out, st, D, R, C);
+    }
+  } else if (full) {
+    lattice3_block_kernel<T, MODE, false, true><<<grid, block, 0, stream>>>(x, b, nullptr, out, st, D, R, C);
   } else {
-    lattice3_block_kernel<T, MODE, false><<<grid, block, 0, stream>>>(x, b, nullptr, out, st, D, R, C);
+    lattice3_block_kernel<T, MODE, false, false><<<grid, block, 0, stream>>>(x, b, nullptr, out, st, D, R, C);
   }
 }
 
@@ -541,11 +713,12 @@ int phifem_lattice3_block_sweep(const void* x, const void* b, const void* mask, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// The block kernel's tiling: BX, BY, RZ.
+// The block kernel's tile shapes: BX, then BY, RZ, ROLL for float32 and for
+// float64.
 void phifem_lattice3_block_constants(int* out) {
-  out[0] = kBXB;
-  out[1] = kBYB;
-  out[2] = kRZB;
+  const int v[] = {kBXB, BlockShape<float>::by,  BlockShape<float>::rz,  BlockShape<float>::roll,
+                   BlockShape<double>::by, BlockShape<double>::rz, BlockShape<double>::roll};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
 }
 
 const char* phifem_lattice3_error_string(int err) {

@@ -36,6 +36,10 @@ __all__ = ["hex_stencil3", "hex_stencil3_ref", "hex_block_stencil3", "hex_block_
 launches = 0
 #: number of kernel launches made by :func:`hex_block_stencil3`
 block_launches = 0
+#: device index -> the raw stream of the first :func:`hex_block_stencil3`
+#: launch there: the kernel's cell matrix lives in one constant array per
+#: device, so every launch must be ordered on that stream
+_block_stream = {}
 
 SOURCE = nvcc_build.PKG / "csrc" / "hex_stencil3.cu"
 
@@ -50,8 +54,9 @@ TILE = {"BX1": 16, "BY1": 8, "RZ1_F32": 4, "RZ1_F64": 2, "ZCH1": 4, "TC2": 4, "T
         "MB2": 2, "MB3": 1, "MB1": 4}
 ROWS = {2: 3, 3: 4}
 #: the block kernel's tiling: a CTA of ``BX`` x ``BY`` threads, each a node
-#: column and a run of ``RZ`` nodes along z
-BLOCK_TILE = {"BX": 16, "BY": 8, "RZ": 4}
+#: column and a run of ``RZ`` nodes along z, for all three output channels
+#: or, with ``SPLIT`` (per value type), one (three CTAs per tile)
+BLOCK_TILE = {"BX": 16, "BY": 8, "RZ": 4, "SPLIT_F32": 0, "SPLIT_F64": 1}
 #: channels of the block kernel's field
 VSZ = 3
 
@@ -154,7 +159,10 @@ def hex_block_stencil3(x: torch.Tensor, mask: torch.Tensor, K: torch.Tensor) -> 
     ``(3, D, R, C)`` Q1 field; returns a new tensor.  CPU tensors take the
     plain version; CUDA tensors the kernel, which takes float32 or float64
     and contiguous ``x``, ``mask`` and ``K`` (24, 24) on one card in one
-    dtype."""
+    dtype.  Each launch first copies ``K`` into a constant array that is one
+    per device, on the launch's stream; so every launch on a device must be
+    on one stream (the current stream of the first), and a launch on
+    another raises rather than race a concurrent one for the array."""
     global block_launches
     dev = x.device
     if dev.type == "cpu":
@@ -176,8 +184,12 @@ def hex_block_stencil3(x: torch.Tensor, mask: torch.Tensor, K: torch.Tensor) -> 
     y = torch.empty_like(x)
     fn, raw_stream, current = _LAUNCH.get("phifem_hex_block_stencil3") or _bind("phifem_hex_block_stencil3")
     idx = dev.index
-    args = (x.data_ptr(), y.data_ptr(), mask.data_ptr(), K.data_ptr(), nx, ny, nz, dt is torch.float64,
-            raw_stream(idx))
+    stream = raw_stream(idx)
+    if _block_stream.setdefault(idx, stream) != stream:
+        raise RuntimeError(f"hex_block_stencil3: launched on stream {stream:#x} of cuda:{idx} after stream "
+                           f"{_block_stream[idx]:#x}; its cell matrix lives in one constant array per device, "
+                           "so its launches must stay on one stream")
+    args = (x.data_ptr(), y.data_ptr(), mask.data_ptr(), K.data_ptr(), nx, ny, nz, dt is torch.float64, stream)
     if idx == current():
         err = fn(*args)
     else:
@@ -222,7 +234,7 @@ def _library() -> ctypes.CDLL:
     lib.phifem_hex3_constants(got)
     if tuple(got) != tuple(TILE.values()):
         raise RuntimeError(f"hex_stencil3: the library's tiling {tuple(got)} is not TILE {tuple(TILE.values())}")
-    got = (ctypes.c_int * 3)()
+    got = (ctypes.c_int * 5)()
     lib.phifem_hexblock_constants(got)
     if tuple(got) != tuple(BLOCK_TILE.values()):
         raise RuntimeError(f"hex_block_stencil3: the library's tiling {tuple(got)} is not BLOCK_TILE "

@@ -52,9 +52,12 @@ MAX_TERMS = 27
 #: source's note): a CTA of ``BX`` x ``BY`` threads, each owning ``RX``
 #: consecutive (x, y) columns of the padded array and a run of ``RZ`` planes
 TILE = {"BX_F32": 32, "BY_F32": 4, "RX_F32": 1, "RZ_F32": 8, "BX_F64": 16, "BY_F64": 8, "RX_F64": 2, "RZ_F64": 2}
-#: the block kernel's tiling: a CTA of ``BX`` x ``BY`` threads, each one
-#: (x, y) column of the padded array and a run of ``RZ`` planes
-BLOCK_TILE = {"BX": 32, "BY": 4, "RZ": 4}
+#: the block kernel's tiling: a CTA of ``BX`` x ``BY`` threads owns a tile
+#: of the logical interior, each thread one column and a run of ``RZ``
+#: planes of it (the CTAs on the array's faces also write the shell beyond
+#: their tiles); ``ROLL``: the run's plane loop is a loop, not unrolled;
+#: ``BY``, ``RZ`` and ``ROLL`` per value type
+BLOCK_TILE = {"BX": 32, "BY_F32": 4, "RZ_F32": 8, "ROLL_F32": 1, "BY_F64": 8, "RZ_F64": 2, "ROLL_F64": 0}
 #: channels of the block kernel's field
 VSZ = 3
 
@@ -73,6 +76,18 @@ def tile_grid(D: int, R: int, C: int, dtype: torch.dtype, tile: dict = TILE) -> 
     sh = {k: tile[k + sfx] for k in ("BX", "BY", "RX", "RZ")}
     cdiv = lambda a, b: -(-a // b)
     return cdiv(C + 2, sh["BX"] * sh["RX"]), cdiv(R + 2, sh["BY"]), cdiv(D + 2, sh["RZ"]), sh
+
+
+def block_tile_grid(D: int, R: int, C: int, dtype: torch.dtype,
+                    block_tile: dict = BLOCK_TILE) -> Tuple[int, int, int, dict]:
+    """``(CTAs along x, along y, along z, shape)`` of the block kernel's
+    launch: tiles of the logical interior's ``C - 2`` x ``R - 2`` x ``D - 2``
+    nodes, at least one along each axis; ``shape`` the dtype's ``BX``,
+    ``BY``, ``RZ``."""
+    sfx = "_F64" if dtype == torch.float64 else "_F32"
+    sh = {"BX": block_tile["BX"], "BY": block_tile["BY" + sfx], "RZ": block_tile["RZ" + sfx]}
+    tiles = lambda n, t: -(-(n - 2) // t) if n - 2 > t else 1
+    return tiles(C, sh["BX"]), tiles(R, sh["BY"]), tiles(D, sh["RZ"]), sh
 
 
 def lattice3_sweep_ref(
@@ -373,7 +388,7 @@ def _library() -> ctypes.CDLL:
     lib.phifem_lattice3_constants(got)
     if tuple(got) != tuple(TILE.values()):
         raise RuntimeError(f"lattice3_sweep: the library's tile {tuple(got)} is not TILE {tuple(TILE.values())}")
-    got = (ctypes.c_int * 3)()
+    got = (ctypes.c_int * 7)()
     lib.phifem_lattice3_block_constants(got)
     if tuple(got) != tuple(BLOCK_TILE.values()):
         raise RuntimeError(f"lattice3_block_sweep: the library's tile {tuple(got)} is not BLOCK_TILE "

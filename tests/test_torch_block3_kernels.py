@@ -26,8 +26,14 @@ import torch
 from phifem_tpu_torch.ops import cuda_hex3, cuda_lattice3 as cl
 from phifem_tpu_torch.ops.lattice3 import _block_terms3, block_vertex_stencil_weights3
 
-HEX_SHAPES = [(3, 4, 5), (1, 1, 1), (7, 5, 6), (13, 7, 9), (16, 8, 16), (17, 9, 33)]  # (nz, ny, nx)
-LATTICE_SHAPES = [(5, 6, 7), (3, 3, 3), (9, 17, 11), (37, 37, 37), (14, 6, 62)]  # logical (D, R, C)
+# (nz, ny, nx): odd, one cell, ragged, a grid of one CTA, nodes an exact
+# multiple of the default tiles (8 x 16 x 32), the tile walks' own shapes
+HEX_SHAPES = [(3, 4, 5), (1, 1, 1), (7, 5, 6), (13, 7, 9), (16, 8, 16), (17, 9, 33), (2, 2, 2), (7, 15, 31),
+              (9, 6, 20), (12, 12, 12)]
+# logical (D, R, C): ragged, one interior node, an interior that is an exact
+# multiple of the default tiles (32 x 8 x 16), no interior at all
+LATTICE_SHAPES = [(5, 6, 7), (3, 3, 3), (9, 17, 11), (37, 37, 37), (14, 6, 62), (18, 10, 34), (1, 1, 1), (3, 5, 4),
+                  (65, 33, 129)]
 MASKS = ("random", "full", "empty")
 TOL = {torch.float32: 1e-5, torch.float64: 1e-13}
 DTS = [torch.float32, torch.float64]
@@ -65,10 +71,11 @@ def _block_inputs(shape, seed, masked):
     rng = np.random.default_rng(seed)
     D, R, C = shape
     x = np.zeros((3, D + 2, R + 2, C + 2))
-    x[:, 2:D, 2:R, 2:C] = rng.standard_normal((3, D - 2, R - 2, C - 2))
-    x[:, 0], x[:, :, -1] = 1.5, -2.5  # a shell that the Jacobi sweep keeps
     b = np.zeros_like(x)
-    b[:, 2:D, 2:R, 2:C] = rng.standard_normal((3, D - 2, R - 2, C - 2))
+    if min(shape) > 2:  # an interior
+        x[:, 2:D, 2:R, 2:C] = rng.standard_normal((3, D - 2, R - 2, C - 2))
+        b[:, 2:D, 2:R, 2:C] = rng.standard_normal((3, D - 2, R - 2, C - 2))
+    x[:, 0], x[:, :, -1] = 1.5, -2.5  # a shell that the Jacobi sweep keeps
     mask = (rng.random(shape) < 0.7).astype(np.float64) if masked else None
     terms = _block_terms3(block_vertex_stencil_weights3(_elasticity_K(), 3))
     dinv = np.linalg.inv(next(W for a, bb, c, W in terms if (a, bb, c) == (1, 1, 1)))
@@ -143,6 +150,43 @@ def test_lattice3_block_sweep_kernel_matches_plain(cuda, shape, mode, dt):
     assert cl.block_launches == before + 1
     yr = cl.lattice3_block_sweep_ref(md, t(x), packed, t(b), t(mask), 0.6)
     assert _rel(yk.cpu().numpy(), yr.cpu().numpy()) <= TOL[dt]
+
+
+# block term sets with positions (oz, oy, ox) dropped, the centre kept: the
+# kernel's instantiation with a branch per absent term
+PARTIAL_TERMS = {"no_corners": lambda a, b, c: not {a, b, c} <= {0, 2},
+                 "star": lambda a, b, c: sorted((a, b, c)) in ([1, 1, 1], [0, 1, 1], [1, 1, 2]),
+                 "no_top_plane": lambda a, b, c: a != 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTS, ids=["f32", "f64"])
+@pytest.mark.parametrize("mode", ["matvec", "residual", "jacobi_masked", "jacobi"])
+@pytest.mark.parametrize("terms", list(PARTIAL_TERMS))
+@pytest.mark.parametrize("shape", LATTICE_SHAPES, ids=_ids)
+def test_lattice3_block_sweep_kernel_partial_terms_match_plain(cuda, shape, terms, mode, dt):
+    md, masked = {"matvec": (cl.MATVEC, False), "residual": (cl.RESIDUAL, True),
+                  "jacobi_masked": (cl.JACOBI, True), "jacobi": (cl.JACOBI, False)}[mode]
+    x, b, mask, full = _block_inputs(shape, sum(shape), masked)
+    packed = cl.pack_block_terms([t for t in full if PARTIAL_TERMS[terms](*t[:3])], full.dinv)
+    t = lambda a: None if a is None else torch.as_tensor(a, dtype=dt, device=cuda).contiguous()
+    before = cl.block_launches
+    yk = cl.lattice3_block_sweep(md, t(x), packed, t(b), t(mask), 0.6)
+    torch.cuda.synchronize()
+    assert cl.block_launches == before + 1
+    assert torch.equal(yk, cl.lattice3_block_sweep_ref(md, t(x), packed, t(b), t(mask), 0.6))
+
+
+@pytest.mark.cuda
+def test_hex_block_stencil3_refuses_a_second_stream(cuda):
+    """K lives in one constant array per device: a launch on another stream
+    than the first one's raises instead of racing it."""
+    x, mask, K = (torch.as_tensor(v, device=cuda) for v in _hex_inputs((3, 3, 3), "full", 0))
+    cuda_hex3.hex_block_stencil3(x, mask, K)
+    with torch.cuda.stream(torch.cuda.Stream()):
+        with pytest.raises(RuntimeError, match="one stream"):
+            cuda_hex3.hex_block_stencil3(x, mask, K)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

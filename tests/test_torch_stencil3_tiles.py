@@ -18,17 +18,23 @@ bit (``torch.equal``) and write every output exactly once:
   rows by a block of cells that cover every (row, cell) once, the row dots
   kept only for the nodes the tile owns (in slots that start as NaN), and
   each owned node adding its slots in ascending local index;
-* the 3-channel block forms: the block sweep by the same column-and-run
-  threads, each node's 3 x 3 block parts added per term in ascending
-  position from -0; the block hex stencil by a thread per node column and a
-  run of nodes, each node adding, per output channel, its active cells in
-  ascending local index, each cell's row dot in ascending (channel, node).
+* the 3-channel block forms: the block sweep by CTAs that tile the logical
+  interior, each staging its three channels with a halo, each thread
+  streaming its run's planes in ascending z through a one-plane window so
+  that every node takes its 3 x 3 block parts in ascending position from
+  -0, and the CTAs on the array's faces writing the shell; the block hex
+  stencil by CTAs of node columns and runs (one or all three output
+  channels each) that stage their cell masks first and read no x when none
+  is active, each node summing every cell's row dot over ascending
+  (channel, node) and adding the active cells' in ascending local index.
 
 Shapes: ragged lattices, sides smaller than one tile and exact multiples of
-one, the sphere mask, float32 and float64.
+one, a lattice of one CTA and one with no interior, the sphere mask, all-
+empty and all-full masks, float32 and float64.
 """
 
 import itertools
+import re
 
 import numpy as np
 import pytest
@@ -321,6 +327,11 @@ def test_tile_constants_reach_the_kernels():
             assert f"#ifndef {prefix}{k}" in src
         for k in mod.BLOCK_TILE:
             assert f"#ifndef {bprefix}{k}" in src
+        # and every tiling macro the source reads is one the wrapper passes
+        for k in re.findall(rf"#ifndef {bprefix}(\w+)", src):
+            assert k in mod.BLOCK_TILE
+        for k in re.findall(rf"#ifndef {prefix}(\w+)", src):
+            assert k in mod.TILE
 
 
 # ------------------------------------------------------ 3-channel blocks
@@ -333,8 +344,9 @@ def _block_sweep_inputs(shape, dt, seed):
     D, R, C = shape
     x = torch.zeros((3, D + 2, R + 2, C + 2), dtype=dt)
     b = torch.zeros_like(x)
-    x[:, 2:D, 2:R, 2:C] = torch.as_tensor(rng.standard_normal((3, D - 2, R - 2, C - 2)), dtype=dt)
-    b[:, 2:D, 2:R, 2:C] = torch.as_tensor(rng.standard_normal((3, D - 2, R - 2, C - 2)), dtype=dt)
+    if min(shape) > 2:  # an interior
+        x[:, 2:D, 2:R, 2:C] = torch.as_tensor(rng.standard_normal((3, D - 2, R - 2, C - 2)), dtype=dt)
+        b[:, 2:D, 2:R, 2:C] = torch.as_tensor(rng.standard_normal((3, D - 2, R - 2, C - 2)), dtype=dt)
     x[:, 0], x[:, :, -1] = 1.5, -2.5
     mask = torch.as_tensor(rng.random(shape) < 0.7, dtype=dt)
     terms = _block_terms3(block_vertex_stencil_weights3(_elastic_element_matrix(0.3, 0.2, 0.25, *lame(1.0, 0.3)), 3))
@@ -343,68 +355,108 @@ def _block_sweep_inputs(shape, dt, seed):
 
 
 def lattice_block_traversal(mode, x, packed, b, mask, omega, tile=cl.BLOCK_TILE):
-    """The block sweep by the kernel's threads: a CTA of BX x BY threads,
-    each one (x, y) column of the padded array and a run of RZ planes; per
-    node, per term in ascending canonical position, per output channel the
-    part ((w0 x0 + w1 x1) + w2 x2) added to the channel's sum from -0, every
-    weight rounded once to T.  Returns the output and how often each node
-    was written."""
+    """The block sweep by the kernel's CTAs and threads.  The grid tiles the
+    logical interior ([2, D-1] x [2, R-1] x [2, C-1] in padded
+    coordinates) with ``BX`` x the dtype's ``BY`` x ``RZ``; each CTA stages
+    its three channels with a one-node halo at clamped coordinates; each
+    thread owns one column and a run of RZ planes and streams planes
+    z0 - 1 .. z0 + RZ through a one-plane window of 3 channels x 3 rows x 3
+    columns, plane a giving node k the terms at oz = a - k, in ascending
+    canonical position from -0, per output channel the part
+    ((w0 x0 + w1 x1) + w2 x2), every weight rounded once to T; the CTAs on
+    the array's faces write the shell beyond their tiles by rows.  Returns
+    the output and how often each node was written."""
     dt = x.dtype
     vsz, PD, PR, PC = x.shape
     D, R, C = PD - 2, PR - 2, PC - 2
-    BX, BY, RZ = tile["BX"], tile["BY"], tile["RZ"]
-    cdiv = lambda a, q: -(-a // q)
-    nbx, nby, nbz = cdiv(PC, BX), cdiv(PR, BY), cdiv(PD, RZ)
+    nbx, nby, nbz, sh = cl.block_tile_grid(D, R, C, dt, tile)
+    BX, BY, RZ = sh["BX"], sh["BY"], sh["RZ"]
+    NP = RZ + 2
+    # the tiles cover the interior, and no tile lies beyond it but a lone one
+    assert nbx * BX >= C - 2 and nby * BY >= R - 2 and nbz * RZ >= D - 2
+    assert nbx == 1 or (nbx - 1) * BX < C - 2
+    assert nby == 1 or (nby - 1) * BY < R - 2
+    assert nbz == 1 or (nbz - 1) * RZ < D - 2
     w = {(a * 3 + bb) * 3 + c: torch.tensor(W, dtype=dt) for a, bb, c, W in packed}
     dinv, om = torch.tensor(packed.dinv, dtype=dt), torch.tensor(omega, dtype=dt)
     out = torch.full_like(x, float("nan"))
     written = torch.zeros((PD, PR, PC), dtype=torch.int64)
-    py, px = torch.meshgrid(torch.arange(nby * BY), torch.arange(nbx * BX), indexing="ij")
-    live = (py < PR) & (px < PC)
-    py, px = py[live], px[live]
-    for bz in range(nbz):
-        for k in range(RZ):
-            pz = bz * RZ + k
-            if pz >= PD:
-                break
-            written[pz, py, px] += 1
-            inner = (py >= 2) & (py <= R - 1) & (px >= 2) & (px <= C - 1) & (2 <= pz <= D - 1)
-            zi, yi, xi = pz, py[inner], px[inner]
-            for c in range(vsz):  # the shell: zero, or x in Jacobi mode
-                shell = x[c, pz, py[~inner], px[~inner]]
-                out[c, pz, py[~inner], px[~inner]] = shell if mode == cl.JACOBI else torch.zeros_like(shell)
-            if not inner.any():
+    cz, cy, cx = (v.reshape(-1) for v in torch.meshgrid(torch.arange(nbz), torch.arange(nby), torch.arange(nbx),
+                                                         indexing="ij"))
+    z0, y0, x0 = 2 + cz * RZ, 2 + cy * BY, 2 + cx * BX  # each CTA's first interior node
+    # 1. each CTA's block, (3, RZ + 2, BY + 2, BX + 2) at clamped coordinates
+    clamp = lambda v, n: v.clamp(0, n - 1)
+    za = clamp(z0[:, None] - 1 + torch.arange(NP), PD)
+    yr = clamp(y0[:, None] - 1 + torch.arange(BY + 2), PR)
+    xq = clamp(x0[:, None] - 1 + torch.arange(BX + 2), PC)
+    blk = x[:, za[:, :, None, None], yr[:, None, :, None], xq[:, None, None, :]].movedim(0, 1)  # (cta, c, a, r, q)
+    # 2. every thread of every CTA: (cta, ty, tx), flattened
+    ct, ty, tx = (v.reshape(-1) for v in torch.meshgrid(torch.arange(len(z0)), torch.arange(BY), torch.arange(BX),
+                                                         indexing="ij"))
+    px, py, pz0 = x0[ct] + tx, y0[ct] + ty, z0[ct]
+    live = (py <= R - 1) & (px <= C - 1)
+    acc = [[torch.full(ct.shape, -0.0, dtype=dt) for _ in range(vsz)] for _ in range(RZ)]
+    for a in range(NP):  # planes in ascending z
+        win = [[[blk[ct, c, a, ty + r, tx + q] for q in range(3)] for r in range(3)] for c in range(vsz)]
+        for oz in range(3):
+            k = a - oz
+            if not 0 <= k < RZ:
                 continue
-            acc = [torch.full(yi.shape, -0.0, dtype=dt) for _ in range(vsz)]
-            for p in sorted(w):
-                xv = [x[c, zi + p // 9 - 1, yi + (p // 3) % 3 - 1, xi + p % 3 - 1] for c in range(vsz)]
+            for q in range(9):
+                p, oy, ox = oz * 9 + q, q // 3, q % 3
+                if p not in w:
+                    continue
                 for i in range(vsz):
-                    part = w[p][i, 0] * xv[0]
+                    part = w[p][i, 0] * win[0][oy][ox]
                     for j in range(1, vsz):
-                        part = part + w[p][i, j] * xv[j]
-                    acc[i] = acc[i] + part
-            for i in range(vsz):
-                if mode == cl.MATVEC:
-                    out[i, zi, yi, xi] = acc[i]
-                    continue
-                res = [b[c, zi, yi, xi] - acc[c] for c in range(vsz)]
-                m = None if mask is None else mask[zi - 1, yi - 1, xi - 1]
-                if mode == cl.RESIDUAL:
-                    out[i, zi, yi, xi] = res[i] if m is None else res[i] * m
-                    continue
-                d = dinv[i, 0] * res[0]
-                for j in range(1, vsz):
-                    d = d + dinv[i, j] * res[j]
-                upd = om * d
-                if m is not None:
-                    upd = upd * m
-                out[i, zi, yi, xi] = x[i, zi, yi, xi] + upd
+                        part = part + w[p][i, j] * win[j][oy][ox]
+                    acc[k][i] = acc[k][i] + part
+    for k in range(RZ):
+        pz = pz0 + k
+        on = live & (pz <= D - 1)
+        zi, yi, xi = pz[on], py[on], px[on]
+        written.index_put_((zi, yi, xi), torch.ones(len(zi), dtype=torch.int64), accumulate=True)
+        for i in range(vsz):
+            if mode == cl.MATVEC:
+                out[i, zi, yi, xi] = acc[k][i][on]
+                continue
+            res = [b[c, zi, yi, xi] - acc[k][c][on] for c in range(vsz)]
+            m = None if mask is None else mask[zi - 1, yi - 1, xi - 1]
+            if mode == cl.RESIDUAL:
+                out[i, zi, yi, xi] = res[i] if m is None else res[i] * m
+                continue
+            d = dinv[i, 0] * res[0]
+            for j in range(1, vsz):
+                d = d + dinv[i, j] * res[j]
+            upd = om * d
+            if m is not None:
+                upd = upd * m
+            out[i, zi, yi, xi] = blk[ct[on], i, k + 1, ty[on] + 1, tx[on] + 1] + upd
+    # 3. the shell: a CTA on a face extends its tile to the array's edge
+    for c_z, c_y, c_x, zz0, yy0, xx0 in zip(cz.tolist(), cy.tolist(), cx.tolist(), z0.tolist(), y0.tolist(),
+                                            x0.tolist()):
+        ext = [(0 if cb == 0 else o, P if cb == nb - 1 else o + t) for cb, nb, o, t, P in
+               ((c_z, nbz, zz0, RZ, PD), (c_y, nby, yy0, BY, PR), (c_x, nbx, xx0, BX, PC))]
+        inner = torch.zeros((PD, PR, PC), dtype=torch.bool)
+        inner[zz0:min(zz0 + RZ, D), yy0:min(yy0 + BY, R), xx0:min(xx0 + BX, C)] = True
+        box = torch.zeros_like(inner)
+        box[ext[0][0]:ext[0][1], ext[1][0]:ext[1][1], ext[2][0]:ext[2][1]] = True
+        shell = box & ~inner
+        written += shell
+        out[:, shell] = x[:, shell] if mode == cl.JACOBI else 0.0
     return out, written
+
+
+# logical (D, R, C): besides LATTICE_SHAPES' ragged ones, an interior that is
+# an exact multiple of the default tiles (32 x 8 x 16), a lattice with no
+# interior and one with a single interior node (one CTA each), and a ragged
+# one
+BLOCK_LATTICE_SHAPES = LATTICE_SHAPES[:3] + LATTICE_SHAPES[4:] + [(18, 10, 34), (1, 1, 1), (3, 3, 3), (9, 17, 11)]
 
 
 @pytest.mark.parametrize("dt", list(DTYPES))
 @pytest.mark.parametrize("mode", list(MODES))
-@pytest.mark.parametrize("shape", LATTICE_SHAPES[:3] + LATTICE_SHAPES[4:], ids=_ids)
+@pytest.mark.parametrize("shape", BLOCK_LATTICE_SHAPES, ids=_ids)
 def test_lattice3_block_tiles_match_plain_version(shape, mode, dt):
     md, masked = MODES[mode]
     x, b, mask, packed = _block_sweep_inputs(shape, DTYPES[dt], seed=len(shape) + md)
@@ -414,57 +466,179 @@ def test_lattice3_block_tiles_match_plain_version(shape, mode, dt):
     assert torch.equal(y, cl.lattice3_block_sweep_ref(md, x, packed, b, m, 0.6))
 
 
-def hexblock_traversal(x, mask, K, tile=cuda_hex3.BLOCK_TILE):
-    """The block hex stencil by the kernel's threads: a CTA of BX x BY
-    threads, each a node column and a run of RZ nodes; x staged at clamped
-    coordinates, cell masks 0 outside the grid; per output channel and node
-    the cells in ascending local index i, skipped where the mask is 0, each
-    row dot summed in ascending (channel, node) from its first product, then
-    acc + m s from +0."""
-    dt = x.dtype
-    vsz, D, R, C = x.shape
-    nz, ny, nx = mask.shape
-    BX, BY, RZ = tile["BX"], tile["BY"], tile["RZ"]
-    cdiv = lambda a, q: -(-a // q)
-    nbx, nby, nbz = cdiv(C, BX), cdiv(R, BY), cdiv(D, RZ)
-    assert nbx * BX >= C and nby * BY >= R and nbz * RZ >= D
-    Kt = K.to(dt)
-    xp = torch.nn.functional.pad(x[None], (1, 1, 1, 1, 1, 1), mode="replicate")[0]  # clamped coordinates
-    mp = torch.zeros((nz + 2, ny + 2, nx + 2), dtype=dt)
-    mp[1:-1, 1:-1, 1:-1] = mask  # 0 outside the grid
-    y = torch.full_like(x, float("nan"))
-    written = torch.zeros((D, R, C), dtype=torch.int64)
-    z, yy, xx = torch.meshgrid(torch.arange(D), torch.arange(R), torch.arange(C), indexing="ij")
-    for bz in range(nbz):  # each (CTA, thread, k) writes its node once
-        for k in range(RZ):
-            if bz * RZ + k < D:
-                written[bz * RZ + k] += 1
-    for ci in range(vsz):
-        acc = torch.zeros((D, R, C), dtype=dt)
-        for i in range(8):
-            oz, oy, ox = i >> 2, (i >> 1) & 1, i & 1
-            m = mp[z - oz + 1, yy - oy + 1, xx - ox + 1]
-            s = None
-            for cj in range(vsz):
-                for j in range(8):
-                    jz, jy, jx = j >> 2, (j >> 1) & 1, j & 1
-                    t = Kt[8 * ci + i, 8 * cj + j] * xp[cj, z - oz + jz + 1, yy - oy + jy + 1, xx - ox + jx + 1]
-                    s = t if s is None else s + t
-            acc = torch.where(m != 0, acc + m * s, acc)
-        y[ci] = acc
-    return y, written
+# block term sets with positions (oz, oy, ox) dropped, the centre kept: the
+# kernel's branch per absent term (every S5-3D stencil has all 27)
+PARTIAL_TERMS = {"no_corners": lambda a, b, c: not {a, b, c} <= {0, 2},
+                 "star": lambda a, b, c: sorted((a, b, c)) in ([1, 1, 1], [0, 1, 1], [1, 1, 2]),
+                 "no_top_plane": lambda a, b, c: a != 2}
 
 
 @pytest.mark.parametrize("dt", list(DTYPES))
-@pytest.mark.parametrize("case", list(HEX_CASES))
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("terms", list(PARTIAL_TERMS))
+@pytest.mark.parametrize("shape", [(5, 6, 7), (18, 10, 34)], ids=_ids)
+def test_lattice3_block_tiles_partial_terms_match_plain_version(shape, terms, mode, dt):
+    md, masked = MODES[mode]
+    x, b, mask, full = _block_sweep_inputs(shape, DTYPES[dt], seed=len(shape) + md)
+    packed = cl.pack_block_terms([t for t in full if PARTIAL_TERMS[terms](*t[:3])], full.dinv)
+    assert 0 < len(packed) < len(full)
+    m = mask if masked else None
+    y, written = lattice_block_traversal(md, x, packed, b, m, 0.6)
+    assert bool((written == 1).all())
+    assert torch.equal(y, cl.lattice3_block_sweep_ref(md, x, packed, b, m, 0.6))
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_lattice3_block_tiles_other_shapes(dt):
+    """Tilings other than the shipped one (short runs, small CTAs, rolled
+    or not) walk to the same bits."""
+    tile = {"BX": 7, "BY_F32": 3, "RZ_F32": 3, "ROLL_F32": 0, "BY_F64": 5, "RZ_F64": 2, "ROLL_F64": 1}
+    x, b, mask, packed = _block_sweep_inputs((13, 9, 22), DTYPES[dt], seed=7)
+    for md, m in ((cl.MATVEC, None), (cl.JACOBI, mask)):
+        y, written = lattice_block_traversal(md, x, packed, b, m, 0.6, tile)
+        assert bool((written == 1).all())
+        assert torch.equal(y, cl.lattice3_block_sweep_ref(md, x, packed, b, m, 0.6))
+
+
+def hexblock_traversal(x, mask, K, tile=cuda_hex3.BLOCK_TILE):
+    """The block hex stencil by the kernel's CTAs and threads: a CTA of the
+    dtype's BX x BY threads, each a node column and a run of RZ nodes along
+    z, for all three output channels or, with SPLIT, one (the channel the
+    slowest part of the grid's z).  The CTA first stages the
+    cell masks around its nodes (0 outside the grid); with none active it
+    writes zeros and reads no x.  Otherwise it stages x's three channels
+    with a one-node halo at clamped coordinates, and per node each input
+    channel's 3 x 3 x 3 window adds every cell's products to the row sums
+    s[c][i] in ascending (channel, node) from the first product; each output
+    channel then adds m_i s[c][i] over the active cells in ascending i from
+    +0.  Returns y, how often each output was written, the number of CTAs
+    that read no x and the x values the others staged."""
+    dt = x.dtype
+    vsz, D, R, C = x.shape
+    nz, ny, nx = mask.shape
+    sfx = "_F64" if dt == torch.float64 else "_F32"
+    BX, BY, RZ, split = tile["BX"], tile["BY"], tile["RZ"], tile["SPLIT" + sfx]
+    cdiv = lambda a, q: -(-a // q)
+    nbx, nby, nbz = cdiv(C, BX), cdiv(R, BY), cdiv(D, RZ)
+    assert (nbx - 1) * BX < C and (nby - 1) * BY < R and (nbz - 1) * RZ < D  # no CTA is empty
+    groups = [[c] for c in range(vsz)] if split else [list(range(vsz))]  # output channels of each CTA
+    Kt = K.to(dt)
+    y = torch.full_like(x, float("nan"))
+    written = torch.zeros(x.shape, dtype=torch.int64)
+    cg, cz, cy, cx = (v.reshape(-1) for v in torch.meshgrid(torch.arange(len(groups)), torch.arange(nbz),
+                                                             torch.arange(nby), torch.arange(nbx), indexing="ij"))
+    z0, y0, x0 = cz * RZ, cy * BY, cx * BX
+    # 1. the masks around each CTA's nodes: cells z0-1 .. z0+RZ-1 (y, x alike), 0 outside the grid
+    mp = torch.zeros((nz + 2, ny + 2, nx + 2), dtype=dt)
+    mp[1:-1, 1:-1, 1:-1] = mask
+    ia = lambda o, n, t: (o[:, None] + torch.arange(t + 1)).clamp(max=n + 1)  # index into mp: cell + 1
+    sm = mp[ia(z0, nz, RZ)[:, :, None, None], ia(y0, ny, BY)[:, None, :, None], ia(x0, nx, BX)[:, None, None, :]]
+    found = (sm != 0).flatten(1).any(1)
+    # every (CTA, thread): node column px, row py
+    ct, ty, tx = (v.reshape(-1) for v in torch.meshgrid(torch.arange(len(z0)), torch.arange(BY), torch.arange(BX),
+                                                         indexing="ij"))
+    px, py = x0[ct] + tx, y0[ct] + ty
+    live = (px < C) & (py < R)
+
+    def put(sel, pz, vals_of):
+        for c in range(vsz):
+            mine = sel & (cg[ct] == groups.index([c]) if split else sel)
+            y[c, pz[mine], py[mine], px[mine]] = vals_of(c, mine)
+            written[c].index_put_((pz[mine], py[mine], px[mine]), torch.ones(int(mine.sum()), dtype=torch.int64),
+                                  accumulate=True)
+
+    # CTAs with no active cell: zeros
+    for k in range(RZ):
+        pz = z0[ct] + k
+        put(live & (pz < D) & ~found[ct], pz, lambda c, sel: 0.0)
+    # 2. the others stage x at clamped coordinates
+    cl_ = lambda o, n, t: (o[:, None] - 1 + torch.arange(t + 2)).clamp(0, n - 1)
+    sx = x[:, cl_(z0, D, RZ)[:, :, None, None], cl_(y0, R, BY)[:, None, :, None], cl_(x0, C, BX)[:, None, None, :]]
+    x_staged = int(found.sum()) * sx[0, 0].numel() * vsz
+    # 3. each thread's run, node by node
+    act = found[ct] & live
+    for k in range(RZ):
+        pz = z0[ct] + k
+        m = [sm[ct, k + 1 - (i >> 2), ty + 1 - ((i >> 1) & 1), tx + 1 - (i & 1)] for i in range(8)]
+        s = [[None] * 8 for _ in range(vsz)]
+        for cj in range(vsz):
+            w = [sx[cj, ct, k + d // 9, ty + (d // 3) % 3, tx + d % 3] for d in range(27)]
+            for i in range(8):
+                oz, oy, ox = i >> 2, (i >> 1) & 1, i & 1
+                for ci in range(vsz):
+                    for j in range(8):
+                        jz, jy, jx = j >> 2, (j >> 1) & 1, j & 1
+                        t = Kt[8 * ci + i, 8 * cj + j] * w[((1 - oz + jz) * 3 + 1 - oy + jy) * 3 + 1 - ox + jx]
+                        s[ci][i] = t if s[ci][i] is None else s[ci][i] + t
+        acc = []
+        for ci in range(vsz):
+            a = torch.zeros(ct.shape, dtype=dt)
+            for i in range(8):
+                a = torch.where(m[i] != 0, a + m[i] * s[ci][i], a)
+            acc.append(a)
+        put(act & (pz < D), pz, lambda c, sel: acc[c][sel])
+    return y, written, int((~found).sum()), x_staged
+
+
+# mask shapes (nz, ny, nx) and kinds: HEX_CASES's, a grid of one CTA, nodes an
+# exact multiple of the default tiles (8 x 16 x 32), an all-active and an
+# all-empty mask
+BLOCK_HEX_CASES = {**{k: (v, "random") for k, v in HEX_CASES.items()}, "single": ((2, 2, 2), "random"),
+                   "tiles": ((7, 15, 31), "random"), "full": ((9, 6, 20), "full"), "empty": ((9, 6, 20), "empty")}
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("case", list(BLOCK_HEX_CASES))
 def test_hex_block_tiles_match_plain_version(case, dt):
     tdt = DTYPES[dt]
     rng = np.random.default_rng(len(case))
-    mask = _sphere_mask(10, tdt) if HEX_CASES[case] is None else torch.as_tensor(
-        rng.random(HEX_CASES[case]) < 0.4, dtype=tdt)
+    shape, kind = BLOCK_HEX_CASES[case]
+    if shape is None:
+        mask = _sphere_mask(10, tdt)
+    else:
+        mask = torch.as_tensor({"random": lambda: rng.random(shape) < 0.4, "full": lambda: np.ones(shape),
+                                "empty": lambda: np.zeros(shape)}[kind](), dtype=tdt)
     nz, ny, nx = mask.shape
     x = torch.as_tensor(rng.standard_normal((3, nz + 1, ny + 1, nx + 1)), dtype=tdt)
     K = torch.as_tensor(rng.standard_normal((24, 24)), dtype=tdt)
-    y, written = hexblock_traversal(x, mask, K)
+    y, written, _, _ = hexblock_traversal(x, mask, K)
     assert bool((written == 1).all())
     assert torch.equal(y, cuda_hex3.hex_block_stencil3_ref(x, mask, K))
+
+
+@pytest.mark.parametrize("split", [0, 1])
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_hex_block_tiles_other_shapes(dt, split):
+    """Tilings other than the shipped one (ragged CTAs, one or three output
+    channels per CTA) walk to the same bits."""
+    tdt = DTYPES[dt]
+    tile = {"BX": 5, "BY": 3, "RZ": 2, "SPLIT_F32": split, "SPLIT_F64": split}
+    rng = np.random.default_rng(13)
+    mask = torch.as_tensor(rng.random((6, 7, 12)) < 0.5, dtype=tdt)
+    x = torch.as_tensor(rng.standard_normal((3, 7, 8, 13)), dtype=tdt)
+    K = torch.as_tensor(rng.standard_normal((24, 24)), dtype=tdt)
+    y, written, _, _ = hexblock_traversal(x, mask, K, tile)
+    assert bool((written == 1).all())
+    assert torch.equal(y, cuda_hex3.hex_block_stencil3_ref(x, mask, K))
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_hex_block_empty_ctas_read_no_x(dt):
+    """CTAs whose cells (with the one-cell halo below) are all inactive
+    write zeros and stage no x; a wholly empty mask stages none."""
+    tdt = DTYPES[dt]
+    sfx = "_F64" if tdt == torch.float64 else "_F32"
+    rz = cuda_hex3.BLOCK_TILE["RZ"]
+    rng = np.random.default_rng(11)
+    shape = (3 * rz - 1, 9, 20)  # three layers of CTAs along z
+    mask = torch.as_tensor(rng.random(shape) < 0.5, dtype=tdt)
+    mask[:rz] = 0  # the cells around the first layer's nodes 0 .. rz - 1: none active
+    x = torch.as_tensor(rng.standard_normal((3, shape[0] + 1, 10, 21)), dtype=tdt)
+    K = torch.as_tensor(rng.standard_normal((24, 24)), dtype=tdt)
+    y, written, skipped, staged = hexblock_traversal(x, mask, K)
+    bt = cuda_hex3.BLOCK_TILE
+    per_layer = -(-10 // bt["BY"]) * -(-21 // bt["BX"]) * (3 if bt["SPLIT" + sfx] else 1)
+    assert skipped == per_layer and bool((written == 1).all())
+    assert torch.equal(y, cuda_hex3.hex_block_stencil3_ref(x, mask, K))
+    y, _, skipped, staged = hexblock_traversal(x, torch.zeros_like(mask), K)
+    assert skipped == 3 * per_layer and staged == 0 and not y.any()
