@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the four hand-written CUDA kernels from the checkout (one nvcc per
+Builds the hand-written CUDA kernels from the checkout's five sources (one nvcc per
 source, in parallel), holds the stencil kernel against its plain PyTorch
 version on the card (both bodies, both cell types, at lattices that are no
 multiple of its tile and at the main path's; the masked one also timed on
@@ -77,7 +77,20 @@ assemble -> solve:
   n=32 and 64; S5-3D (two-material elasticity, contrast 1000) by flexible
   GMRES with rigid-mode deflation and lattice_preconditioner() at n=8, 12
   and 16 (against the JAX package's recorded counts and errors) and n=24
-  (421,875 DoFs, traced).  S5-3D launches both block kernels.
+  (421,875 DoFs, traced).  S5-3D launches both block kernels;
+* slice G1a (imported triangle meshes): the AMG cycle's ELL kernel against
+  its plain version by ``torch.equal`` on synthetic tables (empty and
+  all-pad rows, width 1, a row of width 64, a rectangular R, row counts off
+  the CTA) and on every level of the scale run's hierarchy, in its three
+  modes, float32 and float64, timed on the scale run's level-0 operator and
+  R beside its byte bound and torch.mv of the same CSR matrix (cuSPARSE);
+  demo/unstructured/main.py's four schemes S1-S4 on its fallback mesh
+  (n=24, Jacobi BiCGStab), each against the CPU lane (tags, solution) and
+  the JAX package's counts and errors; S1-U with ``amg_preconditioner()``
+  on the perturbed mesh at n=40, 80 and 160 (against JAX's counts) and at
+  n=800 (641,601 vertices, 1,280,000 triangles: set-up broken down, and a
+  trace of two iterations); every count exact.  The AMG paths launch the
+  AMG kernel.
 
 Every check raises; the script exits non-zero without a result when there
 is no card or no checkout.  The line before the last is a JSON record of
@@ -271,14 +284,18 @@ def _device_kernels(fn, reps: int) -> dict:
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
-def _bracket_ms(fn, reps: int) -> float:
+def _bracket_ms(fn, reps: int, flush: torch.Tensor = None) -> float:
     """Mean device milliseconds of one call of ``fn`` (one kernel launch),
     each call between two CUDA events queued behind a sleeping kernel, so
-    that the host's launch time falls outside them."""
+    that the host's launch time falls outside them; ``flush`` (a buffer
+    larger than the L2), when given, is written before each call, outside
+    the events."""
     fn()
     total = 0.0
     for _ in range(reps):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if flush is not None:
+            flush.zero_()
         torch.cuda._sleep(1_000_000)
         a.record()
         fn()
@@ -288,7 +305,7 @@ def _bracket_ms(fn, reps: int) -> float:
     return total / reps
 
 
-def _device_ms(fn, reps: int, kernel: str, also: str = None) -> float:
+def _device_ms(fn, reps: int, kernel: str, also: str = None, flush: torch.Tensor = None) -> float:
     """Mean device milliseconds per launch of the kernels named ``kernel``
     over ``reps`` calls of ``fn``: the kernel's own time, whatever the host
     takes between launches, plus that of the device operations named
@@ -299,10 +316,12 @@ def _device_ms(fn, reps: int, kernel: str, also: str = None) -> float:
     mean of at least 0.6 of one call's time between CUDA events
     (:func:`_bracket_ms`), which adds only the events' own few
     microseconds.  After 8 such traces that bracketed time is returned
-    instead."""
-    bracket = _bracket_ms(fn, 3)
+    instead.  With ``flush`` (a buffer larger than the L2) written before
+    each call, the kernel finds none of its inputs in the L2."""
+    bracket = _bracket_ms(fn, 3, flush)
+    traced = fn if flush is None else (lambda: (flush.zero_(), fn()))
     for attempt in range(8):
-        trace = _device_kernels(fn, reps)
+        trace = _device_kernels(traced, reps)
         evs = [v for k, v in trace.items() if kernel in k]
         count = sum(c for c, _ in evs)
         if count and count % reps == 0:
@@ -314,7 +333,7 @@ def _device_ms(fn, reps: int, kernel: str, also: str = None) -> float:
                   f"CUDA events (attempt {attempt + 1} of 8)")
             continue
         print(f"[profiler] the trace held {count} launches of {kernel} for {reps} calls (attempt {attempt + 1} of 8)")
-    ms = _bracket_ms(fn, reps)
+    ms = _bracket_ms(fn, reps, flush)
     print(f"[profiler] {kernel}: device time by CUDA events around single calls instead, {ms:.4f} ms")
     return ms
 
@@ -2440,6 +2459,412 @@ def run_slice_f2(pt) -> tuple:
     return [hexb, latb], paths
 
 
+# ------------------------------------------------------------- slice G1a
+# imported triangle meshes (UMesh, host tagging, uassembly):
+# demo/unstructured/main.py's four schemes on its fallback mesh (n=24,
+# amplitude 0.25 h, seed 0, the circle r^2 = 0.49, bg mode, Jacobi BiCGStab
+# to 1e-10) and S1-U with amg_preconditioner() on tests/test_amg.py's
+# perturbed mesh (the circle R = 0.7, u = cos x sin y, BiCGStab to 1e-10)
+U_BOX = ((-1.0, -1.0), (1.0, 1.0))
+N_U_DEMO, U_DEMO_R2 = 24, 0.49
+# the JAX package on the CPU, (it, relative L2, relative H10): `JAX_PLATFORMS=cpu
+# python demo/unstructured/main.py s1` (and s2, s3, s4)
+JAX_U_DEMO = {"s1": (122, 5.611608e-02, 8.397702e-02), "s2": (68, 2.435475e-02, 1.057248e-01),
+              "s3": (364, 4.488036e-03, 2.475809e-02), "s4": (277, 4.127471e-03, 2.221986e-02)}
+# the JAX package's S1-U counts with amg_preconditioner() on the CPU:
+# `JAX_PLATFORMS=cpu python scripts/reference_amg_counts.py 40 80 160`
+JAX_AMG_IT = {40: 14, 80: 16, 160: 18}
+# the demo's solution (u, or w for S2) is held to 1e-6 of the CPU lane's, as
+# in _hold; its auxiliary fields (S1's p, S3 / S4's flux y and p) to 1e-5:
+# their readings on the H100 (PERF.md) were at most 1.823e-06 (S3's p),
+# 7.841e-08 (y) and 1.098e-08 (S1's p)
+U_AUX_TOL = 1e-5
+# the scale run: 641,601 vertices, 1,280,000 triangles
+N_AMG_LARGE = 800
+# the port's counts on the H100 (PERF.md): exact, since every sum on the
+# solve path runs in a fixed order
+U_DEMO_IT = {"s1": 114, "s2": 76, "s3": 319, "s4": 266}
+AMG_IT = {40: 14, 80: 15, 160: 17, N_AMG_LARGE: 66}
+KERNELS_G1A = {"amg_ell": "amg_ell_kernel"}
+
+
+def _u_mesh(pt, n: int, device: str, amp: float = 0.25, seed: int = 0):
+    """The demo's fallback mesh: the n x n triangle grid of [-1, 1]^2 with
+    its interior vertices moved by amp h (U[0, 1) - 1/2)."""
+    um, _ = pt.UMesh.from_grid(pt.Grid(n, n, U_BOX, pt.CellType.triangle, device="cpu"))
+    verts = um.verts.copy()
+    rng = np.random.default_rng(seed)
+    interior = (np.abs(np.abs(verts[:, 0]) - 1.0) > 1e-12) & (np.abs(np.abs(verts[:, 1]) - 1.0) > 1e-12)
+    verts[interior] += amp * (2.0 / n) * (rng.random((int(interior.sum()), 2)) - 0.5)
+    return pt.UMesh(verts, um.cells, device=device)
+
+
+def _u_exact(x):
+    return torch.cos(x[..., 0]) * torch.sin(x[..., 1])
+
+
+def _u_scheme(pt, name: str, mesh, r2: float):
+    """demo/unstructured/main.py's scheme ``name`` on ``mesh``, set up:
+    ``(scheme, exact solution, error region)``."""
+    from phifem_tpu_torch.models import NeumannPoissonU, RobinPoissonU, StrongDirichletPoissonU, WeakDirichletPoissonU
+
+    ls = lambda x: x[..., 0] ** 2 + x[..., 1] ** 2 - r2
+
+    def nderiv(x):
+        g = torch.stack([-torch.sin(x[..., 0]) * torch.sin(x[..., 1]), torch.cos(x[..., 0]) * torch.cos(x[..., 1])], -1)
+        gp = 2.0 * x
+        return (g * gp).sum(-1) / torch.clamp(torch.linalg.norm(gp, dim=-1), min=1e-12)
+
+    if name == "s1":
+        s = WeakDirichletPoissonU(mesh, mode="bg").setup(ls, lambda x: 2.0 * _u_exact(x), u_D=_u_exact)
+        return s, _u_exact, (1, 2)
+    if name == "s2":
+        uex = lambda x: torch.sin(x[..., 0] ** 2 + x[..., 1] ** 2 - r2)
+
+        def f2(x):
+            q = x[..., 0] ** 2 + x[..., 1] ** 2
+            return 4.0 * q * torch.sin(q - r2) - 4.0 * torch.cos(q - r2)
+
+        return StrongDirichletPoissonU(mesh, mode="bg").setup(ls, f2), uex, (1, 2)
+    if name == "s3":
+        s = NeumannPoissonU(mesh, mode="bg").setup(ls, lambda x: 3.0 * _u_exact(x), nderiv)
+        return s, _u_exact, (1,)
+    s = RobinPoissonU(mesh, mode="bg", robin_coef=1.0).setup(ls, lambda x: 3.0 * _u_exact(x),
+                                                              lambda x: nderiv(x) + _u_exact(x))
+    return s, _u_exact, (1,)
+
+
+def _amg():
+    from phifem_tpu_torch.ops import cuda_amg
+
+    return cuda_amg
+
+
+def _within_reference(label: str, it: int, jit: int, errs=None, jerrs=None) -> None:
+    ok_it = abs(it - jit) <= max(3, 0.25 * jit)
+    ok_e = jerrs is None or all(abs(e - j) <= 0.05 * j for e, j in zip(errs, jerrs))
+    print(f"[{label}] against the JAX package on the CPU: {it} it (JAX {jit}, allowance max(3, 0.25 it))"
+          + ("" if jerrs is None else f", L2 {errs[0]:.6e} (JAX {jerrs[0]:.6e}), H10 {errs[1]:.6e} "
+                                      f"(JAX {jerrs[1]:.6e}), within 5%"))
+    if not (ok_it and ok_e):
+        raise AssertionError(f"{label}: {it} it, errors {errs}, against the JAX package's {jit}, {jerrs}")
+
+
+def _u_check_tags(s, h, r2: float, label: str) -> None:
+    """The card's tags against the CPU lane's: equal except at knife-edge
+    cells (|phi| <= KNIFE_EDGE at a detection point) and their facets."""
+    bad = np.where(s.cell_tags != h.cell_tags)[0]
+    m = h.mesh
+    if bad.size:
+        pts = m.map_to_physical(m.detection_ref_points(1))[bad]
+        if float(np.abs((pts ** 2).sum(-1) - r2).min(axis=1).max()) > KNIFE_EDGE:
+            raise AssertionError(f"{label}: cell tags differ off the knife edge at {bad[:10]}")
+    fbad = np.where(s.facet_tags != h.facet_tags)[0]
+    if fbad.size and not np.isin(m.f2c[fbad], bad).any(axis=1).all():
+        raise AssertionError(f"{label}: facet tags differ away from knife-edge cells at {fbad[:10]}")
+    print(f"[{label}] tags: {bad.size} cell and {fbad.size} facet tags differ from the CPU lane (allowed only at "
+          f"knife-edge cells, |phi| <= {KNIFE_EDGE:.0e})")
+
+
+def phase_u_demo(pt) -> dict:
+    """demo/unstructured/main.py's four schemes on its fallback mesh, on the
+    card and on the CPU: tags, the solution to 1e-6 of the CPU lane's and
+    its auxiliary fields to U_AUX_TOL, the counts (exact, and within the
+    allowance of JAX's) and the L2 / H10 errors within 5% of JAX's."""
+    ca = _amg()
+    counts = {}
+    for name in ("s1", "s2", "s3", "s4"):
+        label = f"u-demo {name} n={N_U_DEMO}"
+        ca.launches = 0
+        (s, uex, region), t_set = _sync_time(_u_scheme, pt, name, _u_mesh(pt, N_U_DEMO, DEVICE), U_DEMO_R2)
+        _, t_asm = _sync_time(s.assemble)
+        r, t_solve = _sync_time(s.solve, method="bicgstab", tol=SCHEME_TOL)
+        counts[name] = ca.launches
+        e = s.l2_h1_errors(s.u_h, uex, region=region)
+        h, _, _ = _u_scheme(pt, name, _u_mesh(pt, N_U_DEMO, "cpu"), U_DEMO_R2)
+        h.assemble()
+        rh = h.solve(method="bicgstab", tol=SCHEME_TOL)
+        print(f"[{label}] {s.mesh.num_vertices} vertices, {s.mesh.num_cells} triangles, "
+              f"{sum(v.numel() for v in s.b.values())} DoFs: setup (tags) {t_set:.3f} s, assemble {t_asm:.3f} s, "
+              f"bicgstab {t_solve:.3f} s, {r.iterations} it (CPU lane {rh.iterations}), relres {r.residual:.3e}; "
+              f"L2 {e['l2']:.6e}, H10 {e['h10']:.6e}; AMG launches {counts[name]}")
+        if not (r.converged and r.residual <= 10 * SCHEME_TOL):
+            raise AssertionError(f"{label}: not converged, relres {r.residual}")
+        _u_check_tags(s, h, U_DEMO_R2, label)
+        primal = "w" if name == "s2" else "u"
+        diffs = {k: _rel(r.x[k], rh.x[k]) for k in rh.x}
+        print(f"[{label}] against the CPU lane: max rel diff "
+              + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items())
+              + f" (tol {primal} 1e-6, the auxiliary fields {U_AUX_TOL:.0e})")
+        if any(v > (1e-6 if k == primal else U_AUX_TOL) for k, v in diffs.items()):
+            raise AssertionError(f"{label}: the solution differs from the CPU lane's: {diffs}")
+        jit, jl2, jh10 = JAX_U_DEMO[name]
+        _within_reference(label, r.iterations, jit, (e["l2"], e["h10"]), (jl2, jh10))
+        _pin(label, r.iterations, U_DEMO_IT[name])
+    return counts
+
+
+def _amg_tables(vc) -> str:
+    return "; ".join(f"{f}: " + ", ".join(f"n={n} w={w} (P {wp}, R {wr})" for n, w, wp, wr in lv)
+                     for f, lv in vc.amg_levels.items())
+
+
+def _hold_amg_levels(amg, label: str) -> float:
+    """The ELL kernel against its plain version by torch.equal on every
+    level of ``amg`` (the level operator in its three modes, R and P), in
+    float32 and float64 (the tables cast), with seeded vectors; these
+    launches are not counted.  Returns the largest |difference| (0)."""
+    ca = _amg()
+    n0 = ca.launches
+    rng = np.random.default_rng(SEED + 11)
+    vec = lambda n, dt: torch.as_tensor(rng.standard_normal(n), dtype=dt, device=DEVICE)
+    checked = 0
+    for dt in (torch.float32, torch.float64):
+        for k, lvl in enumerate(amg.levels):
+            A = (lvl.ecols, lvl.evals.to(dt))
+            x, b, d = vec(lvl.n, dt), vec(lvl.n, dt), lvl.jac_diag.to(dt)
+            cases = [(m, A, x) for m in (ca.APPLY, ca.RESIDUAL, ca.JACOBI)]
+            if lvl.r_cols is not None:
+                nc = lvl.r_cols.shape[1]
+                cases += [(ca.APPLY, (lvl.r_cols, lvl.r_vals.to(dt)), x),
+                          (ca.APPLY, (lvl.p_cols, lvl.p_vals.to(dt)), vec(nc, dt))]
+            for mode, (c, v), xx in cases:
+                yk = ca.amg_ell_sweep(mode, c, v, xx, b, d)
+                yr = ca.amg_ell_sweep_ref(mode, c, v, xx, b, d)
+                if not torch.equal(yk, yr):
+                    raise AssertionError(f"{label}: the AMG kernel differs from its plain version on level {k} "
+                                         f"(mode {mode}, {dt}): {float((yk - yr).abs().max())}")
+                checked += 1
+    torch.cuda.synchronize()
+    ca.launches = n0
+    print(f"[{label}] AMG kernel = plain version bit for bit on {checked} (level, table, mode, dtype) cases of "
+          f"{len(amg.levels)} levels")
+    return 0.0
+
+
+def _synthetic_ell(case: str, dt, seed: int = SEED):
+    """A slot-major ELL table on the card made from ``seed``: padded slots,
+    every 97th row empty; ``ragged`` 1001 rows of width 9, ``width1``,
+    ``wide64`` (one row of width 64, the rest of 1-7), ``rect`` 100 rows
+    over 901 columns."""
+    rng = np.random.default_rng(seed)
+    n, n_x, w = {"ragged": (1001, 1001, 9), "width1": (300, 300, 1), "wide64": (257, 257, 64),
+                 "rect": (100, 901, 12)}[case]
+    nnz = rng.integers(0, w + 1, n)
+    if case == "wide64":
+        nnz = rng.integers(1, 8, n)
+        nnz[17] = 64
+    nnz[::97] = 0
+    cols = np.full((n, w), n_x, np.int64)
+    vals = np.zeros((n, w))
+    for i in range(n):
+        cols[i, : nnz[i]] = np.sort(rng.choice(n_x, nnz[i], replace=False))
+        vals[i, : nnz[i]] = rng.standard_normal(nnz[i])
+    t = lambda a, d=dt: torch.as_tensor(np.ascontiguousarray(a), dtype=d, device=DEVICE)
+    return t(cols.T, torch.int32), t(vals.T), t(rng.standard_normal(n_x)), t(rng.standard_normal(n)), \
+        t(rng.uniform(0.1, 1.0, n))
+
+
+def _hold_amg_synthetic() -> None:
+    ca = _amg()
+    n0 = ca.launches
+    checked = 0
+    for case in ("ragged", "width1", "wide64", "rect"):
+        for dt in (torch.float32, torch.float64):
+            c, v, x, b, d = _synthetic_ell(case, dt)
+            for mode in (ca.APPLY, ca.RESIDUAL, ca.JACOBI):
+                if mode == ca.JACOBI and case == "rect":
+                    continue
+                if not torch.equal(ca.amg_ell_sweep(mode, c, v, x, b, d), ca.amg_ell_sweep_ref(mode, c, v, x, b, d)):
+                    raise AssertionError(f"the AMG kernel differs from its plain version on {case} {dt} mode {mode}")
+                checked += 1
+    torch.cuda.synchronize()
+    ca.launches = n0
+    print(f"[kernel amg_ell] synthetic ELL tables (empty rows, all-pad rows, width 1, a row of width 64, "
+          f"rectangular R, row counts off the 256-thread CTA): kernel = plain version bit for bit in {checked} cases")
+
+
+def _ell_csr(c: torch.Tensor, v: torch.Tensor, n_x: int) -> torch.Tensor:
+    """The slot-major ELL table as a CUDA CSR matrix (int32 indices): the
+    library call's input (a yardstick; the port never builds it)."""
+    w, n = c.shape
+    rows = torch.arange(n, device=c.device).repeat(w)
+    cc, vv = c.reshape(-1).long(), v.reshape(-1)
+    keep = cc < n_x
+    coo = torch.sparse_coo_tensor(torch.stack([rows[keep], cc[keep]]), vv[keep], (n, n_x)).coalesce()
+    return _csr_as(coo.to_sparse_csr(), v.dtype)
+
+
+def _amg_kernel_times(amg) -> dict:
+    """The kernel on the scale run's level-0 operator (its three modes) and
+    its R, float32 (the cycle's dtype) and float64: ms per call by CUDA
+    events, device ms per launch from the profiler with the L2 flushed
+    before each launch, host ms per call, the plain version, the byte bound,
+    and torch.mv of the same matrix as a CUDA CSR (cuSPARSE) for the apply
+    mode."""
+    ca = _amg()
+    lvl = amg.levels[0]
+    rng = np.random.default_rng(SEED + 12)
+    flush = torch.empty(16 * 2**20, dtype=torch.float32, device=DEVICE)  # 64 MB > the 50 MB L2
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        es = torch.tensor([], dtype=dt).element_size()
+        for tab, (c, v), mode in (("A", (lvl.ecols, lvl.evals), ca.JACOBI), ("A", (lvl.ecols, lvl.evals), ca.APPLY),
+                                  ("A", (lvl.ecols, lvl.evals), ca.RESIDUAL), ("R", (lvl.r_cols, lvl.r_vals), ca.APPLY)):
+            v = v.to(dt).contiguous()
+            w, n = c.shape
+            n_x = lvl.n
+            x = torch.as_tensor(rng.standard_normal(n_x), dtype=dt, device=DEVICE)
+            b = torch.as_tensor(rng.standard_normal(n), dtype=dt, device=DEVICE)
+            d = lvl.jac_diag.to(dt)
+            call = lambda: ca.amg_ell_sweep(mode, c, v, x, b, d)
+            # y = A x needs each nonzero's value and int32 column once, x,
+            # y and (by mode) b and d: the ELL table's padded slots, which
+            # the kernel reads too, are the format's cost, not the function's
+            nnz = int((c < n_x).sum())
+            nbytes = nnz * (es + 4) + n_x * es + n * es + {ca.APPLY: 0, ca.RESIDUAL: 1, ca.JACOBI: 2}[mode] * n * es
+            pad_bytes = (w * n - nnz) * (es + 4)
+            flops = 2 * nnz + {ca.APPLY: 0, ca.RESIDUAL: n, ca.JACOBI: 3 * n}[mode]
+            bound = _bound(nbytes, flops, dt)
+            # the level's tables fit in the 50 MB L2, where launches back to
+            # back find them: the device time writes a 64 MB buffer before
+            # each launch, so the kernel reads device memory, as its bound
+            # assumes
+            t = {"ms": _event_ms(call, 50), "device_ms": _device_ms(call, 20, KERNELS_G1A["amg_ell"], flush=flush),
+                 "host_ms": _host_ms(call, 50),
+                 "plain_ms": _event_ms(lambda: ca.amg_ell_sweep_ref(mode, c, v, x, b, d), 5),
+                 "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None, "rows": n, "width": w, "nnz": nnz}
+            if mode == ca.APPLY:
+                csr = _ell_csr(c, v, n_x)
+                yl = torch.mv(csr, x)
+                yk = call()
+                if float((yl - yk).abs().max()) > (1e-4 if dt == torch.float32 else 1e-12) * float(yk.abs().max()):
+                    raise AssertionError(f"torch.mv of the CSR copy is not the kernel's product ({tab})")
+                t["library_ms"] = _event_ms(lambda: torch.mv(csr, x), 50)
+                del csr
+            name = {ca.APPLY: "apply", ca.RESIDUAL: "residual", ca.JACOBI: "jacobi"}[mode]
+            out[tab, name, dt] = t
+            lib = "" if t["library_ms"] is None else f", cuSPARSE CSR torch.mv {t['library_ms']:.4f}"
+            print(f"[kernel amg_ell] {tab} {name:8s} {str(dt)[6:]:7s} {n} rows x width {w} ({nnz} nonzeros): ms "
+                  f"{t['ms']:.4f}, device {t['device_ms']:.4f} per launch (L2 flushed), "
+                  f"host {t['host_ms']:.4f} per call, plain "
+                  f"{t['plain_ms']:.4f}{lib}; bound {bound[0]:.4f} by {bound[1]} ({nbytes / 1e6:.2f} MB: nonzeros, "
+                  f"vectors; {bound[0] / t['device_ms']:.1%} by device time, {bound[0] / t['ms']:.1%} by ms; at half "
+                  f"the peak rate: {2 * bound[0] / t['device_ms']:.1%}); the ELL's {w * n - nnz} padded slots add "
+                  f"{pad_bytes / 1e6:.2f} MB ({pad_bytes / nbytes:.1%} over the bound's bytes; "
+                  f"{_bound(nbytes + pad_bytes, flops, dt)[0]:.4f} ms with them)")
+    return out
+
+
+def _amg_trace(s, vc, label: str) -> None:
+    """A device trace of two BiCGStab iterations (the equilibrated operator
+    and vc), with the card's busy share; then the families by their own
+    traces: one operator matvec (the entity batches), one AMG V-cycle (the
+    ELL kernel and its glue), one band solve (the plain sweeps)."""
+    from phifem_tpu_torch.solvers import _eq_context, _pbicgstab, lift_rhs
+
+    matvec, active, _, dinv_sqrt, mv_eq, M, _ = _eq_context(s.op, (), vc)
+    b = lift_rhs(s.op, s.b, (), active, raw_matvec=matvec.raw)
+    b_eq = {k: v * dinv_sqrt[k] for k, v in b.items()}
+    x0 = {k: torch.zeros_like(v) for k, v in b_eq.items()}
+    run = lambda: _pbicgstab(mv_eq, b_eq, x0, tol=0.0, atol=0.0, maxiter=2, M=M)
+    _, wall = _sync_time(run)
+    _trace_report(label, _device_kernels(run, 1), wall, 2, "bicgstab", KERNELS_G1A, top=10)
+    r = {k: v.to(torch.float32) for k, v in s.b.items()}
+    fams = {"operator matvec (entity batches, f64)": lambda: mv_eq(b_eq),
+            "AMG V-cycle + Jacobi rows (f32)": lambda: vc._cycle(0, r)}
+    xf = vc._flatten({k: torch.zeros_like(v) for k, v in r.items()})
+    rf = vc._flatten(r)
+    fams["band solve (plain sweeps, f64)"] = lambda: vc._band_correct_flat(xf.clone(), rf)
+    for fam, fn in fams.items():
+        ker = _device_kernels(fn, 3)
+        busy = sum(t for _, t in ker.values()) / 3
+        cnt = sum(c for c, _ in ker.values()) / 3
+        amg_ms = sum(t for k, (_, t) in ker.items() if KERNELS_G1A["amg_ell"] in k) / 3
+        print(f"[{label} profile] {fam}: {busy:.3f} ms of device time in {cnt:.0f} kernels per call"
+              + (f", of which the AMG kernel {amg_ms:.3f} ms" if amg_ms else ""))
+
+
+def phase_u_amg(pt) -> tuple:
+    """S1-U with amg_preconditioner() at n=40, 80, 160 (counts exact and
+    within the allowance of JAX's) and the scale run at N_AMG_LARGE (set-up
+    broken down, count, solve wall, L2, a trace of two iterations); the
+    kernel held against its plain version on every level of the scale run's
+    hierarchy.  Returns (launches per path, the kernel's times)."""
+    ca = _amg()
+    counts, times = {}, None
+    for n in (40, 80, 160, N_AMG_LARGE):
+        label = f"u-amg s1 n={n}"
+        ca.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        mesh, t_mesh = _sync_time(_u_mesh, pt, n, DEVICE)
+        (s, _, _), t_tag = _sync_time(_u_scheme, pt, "s1", mesh, 0.49)
+        _, t_asm = _sync_time(s.assemble)
+        vc, t_pre = _sync_time(s.amg_preconditioner)
+        kw = dict(method="bicgstab", tol=SCHEME_TOL, maxiter=500, precond=vc)
+        r, t_solve = _sync_time(s.solve, **kw)
+        counts[label] = ca.launches
+        e, t_err = _sync_time(s.l2_h1_errors, s.u_h, _u_exact)
+        su = vc.setup_seconds
+        print(f"[{label}] {s.mesh.num_vertices} vertices, {s.mesh.num_cells} triangles, "
+              f"{sum(v.numel() for v in s.b.values())} DoFs: mesh {t_mesh:.3f} s, setup (tags, spaces, "
+              f"interpolation) {t_tag:.3f} s, assemble {t_asm:.3f} s, amg_preconditioner() {t_pre:.3f} s (bulk CSR "
+              f"{su['bulk csr']:.3f} s, AMG build {su['amg build']:.3f} s, band {su['band']:.3f} s; {_band(vc)}); "
+              f"AMG levels {_amg_tables(vc)}; bicgstab {t_solve:.3f} s, {r.iterations} it, relres {r.residual:.3e}; "
+              f"L2 {e['l2']:.6e}, H10 {e['h10']:.6e} ({t_err:.3f} s); peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; AMG kernel launches {counts[label]}")
+        if not (r.converged and r.residual <= 10 * SCHEME_TOL):
+            raise AssertionError(f"{label}: not converged, relres {r.residual}")
+        if counts[label] <= 0:
+            raise AssertionError(f"{label} never launched the AMG kernel")
+        if n in JAX_AMG_IT:
+            _within_reference(label, r.iterations, JAX_AMG_IT[n])
+        _pin(label, r.iterations, AMG_IT[n])
+        if n == N_AMG_LARGE:
+            _hold_amg_levels(vc.amgs["u"], label)
+            times = _amg_kernel_times(vc.amgs["u"])
+            _amg_trace(s, vc, label)
+        del s, vc, r, mesh
+        torch.cuda.empty_cache()
+    return counts, times
+
+
+def run_slice_g1a(pt) -> tuple:
+    """Every slice-G1a phase; returns (the AMG kernel's line, launches per
+    path)."""
+    t0 = time.perf_counter()
+    _hold_amg_synthetic()
+    paths = {f"u-demo {k}": c for k, c in phase_u_demo(pt).items()}
+    print(f"[time] u-demo {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    amg_paths, times = phase_u_amg(pt)
+    paths.update(amg_paths)
+    print(f"[time] u-amg {time.perf_counter() - t1:.1f} s; slice G1a phases {time.perf_counter() - t0:.1f} s")
+    print(f"[main path G1a] AMG kernel launches per path: {paths}")
+    f32, f64 = torch.float32, torch.float64
+    main = times["A", "jacobi", f32]
+    line = {
+        "name": "amg_ell",
+        "route": "cuda",
+        "source": "phifem_tpu_torch/csrc/amg_ell.cu",
+        "replaces": "phifem_tpu/amg.py:149-160 (XLA-fused; not a Pallas kernel)",
+        "launches": sum(paths.values()),
+        "launches_by_path": paths,
+        "max_abs_err": 0.0,
+        **{k: main[k] for k in ("ms", "device_ms", "host_ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": times["A", "apply", f32]["library_ms"],
+        "library": "torch.mv of the level-0 operator as a CUDA CSR matrix (cuSPARSE SpMV; apply mode)",
+        "shape": f"S1-U n={N_AMG_LARGE} AMG level 0: {main['rows']} rows x ELL width {main['width']}, Jacobi sweep, "
+                 "float32",
+    }
+    for (tab, name, dt), t in times.items():
+        tag = f"{tab}_{name}_{str(dt)[6:]}"
+        for k in ("ms", "device_ms", "host_ms", "plain_ms", "bound_ms", "library_ms"):
+            if t.get(k) is not None:
+                line[f"{tag}_{k}"] = t[k]
+    return line, paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -2459,9 +2884,9 @@ def main() -> int:
     t_start = time.perf_counter()
     print(SEP)
     name = phase_device()
-    from phifem_tpu_torch.ops import cuda_hex3, cuda_lattice3
+    from phifem_tpu_torch.ops import cuda_amg, cuda_hex3, cuda_lattice3
 
-    phase_build(cs, ct, cuda_hex3, cuda_lattice3)
+    phase_build(cs, ct, cuda_hex3, cuda_lattice3, cuda_amg)
     kernel = phase_kernel(pt, cs)
 
     # each main path counts its own launches, from 0 just before it
@@ -2545,6 +2970,12 @@ def main() -> int:
         line["launches"] += sum(c[key] for c in paths3b.values())
         line["launches_by_path"].update({p: c[key] for p, c in paths3b.items()})
 
+    # slice G1a: imported triangle meshes, S1-S4 and S1-U with AMG; its
+    # paths count the AMG kernel (and launch none of the lattice kernels)
+    t_g = time.perf_counter()
+    amg_line, _ = run_slice_g1a(pt)
+    print(f"[time] slice G1a phases {time.perf_counter() - t_g:.1f} s")
+
     print(f"[main path] kernel launches per path: {paths}")
     if paths["box Poisson"]["stencil"] <= 0:
         raise AssertionError("the box-Poisson path never launched the stencil kernel")
@@ -2583,7 +3014,7 @@ def main() -> int:
         "s5_launches_by_path": {p: c["taps"] for p, c in paths.items() if p.startswith("S5")},
     }
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [kernel, taps, *kernels3, *kernels3b]}))
+    print(json.dumps({"kernels": [kernel, taps, *kernels3, *kernels3b, amg_line]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -10,15 +10,19 @@ p-multigrid for degree >= 2 (``pmg``), box Poisson and the phi-FEM schemes
 S1-S4 in bg and sub mode and S5 (two-material interface elasticity: sparse
 direct and deflated, lattice-preconditioned BiCGStab); in 3D, the hex
 grid and its tagging, the scalar and block lattice multigrid, box Poisson,
-S1 at Q1-Q3, S2, S3, S4 and S5.  The P1 cell-stencil matvec
+S1 at Q1-Q3, S2, S3, S4 and S5; on imported triangle meshes
+(``UMesh``, host tagging, ``uassembly``), S1-S4 with smoothed-aggregation
+AMG (``amg``).  The P1 cell-stencil matvec
 (``ops/cuda_stencil.py``), the tap-form matvec (``ops/cuda_taps.py``), the
 masked hex-cell stencil and its 3-channel block form
 (``ops/cuda_hex3.py``) and the 27-point lattice sweep and its 3-channel
-block form (``ops/cuda_lattice3.py``) run hand-written CUDA kernels for
+block form (``ops/cuda_lattice3.py``) and the AMG cycle's ELL sweep
+(``ops/cuda_amg.py``) run hand-written CUDA kernels for
 tensors on an NVIDIA Hopper card and their plain PyTorch versions for
 tensors on the CPU.
 
-Device and dtype are explicit: a :class:`Grid` (or :class:`Grid3`) takes ``device=`` and
+Device and dtype are explicit: a :class:`Grid` (or :class:`Grid3`, or
+:class:`UMesh`) takes ``device=`` and
 ``dtype=`` (default float64), and everything built on it follows.  The
 package sets no global torch default.
 """
@@ -27,6 +31,10 @@ from .grid import CellType, Grid
 from .grid3 import Grid3
 from .spaces import Function, Space, interpolate
 from .tagging import Submesh, compute_tags_measures, tag_cells, tag_facets
+from .umesh import UDiscreteLevelset, UMesh, USideList, USubmesh
+from .uassembly import UFunction, USpace
+from .uassembly import interpolate as interpolate_u
+from .amg import AMG, amg_preconditioner, build_amg
 from .assembly import (
     BoundaryTerm,
     CellTerm,
@@ -49,12 +57,16 @@ from .models import (
     InterfaceElasticity3,
     NeumannPoisson,
     NeumannPoisson3,
+    NeumannPoissonU,
     RobinPoisson,
     RobinPoisson3,
+    RobinPoissonU,
     StrongDirichletPoisson,
     StrongDirichletPoisson3,
+    StrongDirichletPoissonU,
     WeakDirichletPoisson,
     WeakDirichletPoisson3,
+    WeakDirichletPoissonU,
 )
 
 __all__ = [
@@ -68,6 +80,16 @@ __all__ = [
     "tag_cells",
     "tag_facets",
     "Submesh",
+    "UMesh",
+    "UDiscreteLevelset",
+    "USideList",
+    "USubmesh",
+    "USpace",
+    "UFunction",
+    "interpolate_u",
+    "AMG",
+    "build_amg",
+    "amg_preconditioner",
     "System",
     "CellTerm",
     "FacetTerm",
@@ -102,4 +124,8 @@ __all__ = [
     "NeumannPoisson3",
     "RobinPoisson3",
     "InterfaceElasticity3",
+    "WeakDirichletPoissonU",
+    "StrongDirichletPoissonU",
+    "NeumannPoissonU",
+    "RobinPoissonU",
 ]

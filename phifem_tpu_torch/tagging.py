@@ -353,7 +353,22 @@ def compute_tags_measures(
     whose level set is zero (or NaN) at every detection point are tagged
     cut, with a ``RuntimeWarning``.  ``box_mode=False`` returns the
     submesh's tags (in submesh numbering), the submesh, its exterior as
-    measure id 0 and the maps ``[cells, facets]`` to parent ids."""
+    measure id 0 and the maps ``[cells, facets]`` to parent ids.
+
+    ``grid`` may also be an imported triangle or quadrilateral mesh
+    (:class:`~phifem_tpu_torch.umesh.UMesh`): the host pipeline of
+    :mod:`phifem_tpu_torch.umesh` runs instead."""
+    from .umesh import UMesh, compute_tags_measures_unstructured
+
+    if isinstance(grid, UMesh):
+        return compute_tags_measures_unstructured(
+            grid, levelset, detection_degree, box_mode=box_mode,
+            single_layer_cut=single_layer_cut, overwrite=overwrite,
+        )
+    if getattr(grid, "dim", 2) == 3:
+        raise NotImplementedError(
+            "compute_tags_measures on an imported tetrahedral mesh (UMesh3) waits for a later PR (slice G2)"
+        )
     cells, ndeg = tag_cells(grid, levelset, detection_degree, single_layer_cut, return_degenerate=True)
     facets = tag_facets(grid, cells, levelset, detection_degree)
     ndeg = int(ndeg)

@@ -9,6 +9,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..amg import AMG, AMGLevel, _slot_major
 from ..assembly import Batch, Operator, System
 from ..grid import Grid
 from ..mg import TABLE_DTYPE, VCycle, ras_owner
@@ -34,6 +35,7 @@ __all__ = [
     "lattice3_mg_from_numpy",
     "lattice3_block_mg_from_numpy",
     "scheme3_data_from_numpy",
+    "amg_from_numpy",
 ]
 
 
@@ -290,3 +292,24 @@ def scheme3_data_from_numpy(scheme, **arrays) -> None:
         setattr(scheme, name, val)
     scheme._make_scatters()
     scheme._solve_cache = {}
+
+
+def amg_from_numpy(levels: Sequence[dict], coarse_inv: np.ndarray, dtype: torch.dtype = torch.float32,
+                   device="cuda", **kw) -> AMG:
+    """The port's AMG V-cycle from another implementation's hierarchy:
+    ``levels`` fine to coarse, each a dict of the row-major ELL arrays
+    ``ecols`` / ``evals`` (n, w), ``inv_diag`` (n,) and, on every level but
+    the coarsest, ``p_cols`` / ``p_vals`` and ``r_cols`` / ``r_vals``; the
+    coarsest level's ``coarse_inv``.  The tables go to ``device`` (the card
+    unless the caller asks for the CPU) in ``dtype``; ``kw`` are AMG's
+    ``omega``, ``pre_smooth``, ``post_smooth``."""
+    out = []
+    for lv in levels:
+        c, v = _slot_major(lv["ecols"], lv["evals"], dtype, device)
+        lvl = AMGLevel(int(np.asarray(lv["ecols"]).shape[0]), c, v,
+                       torch.tensor(np.asarray(lv["inv_diag"]), dtype=dtype, device=device))
+        if lv.get("p_cols") is not None:
+            lvl.p_cols, lvl.p_vals = _slot_major(lv["p_cols"], lv["p_vals"], dtype, device)
+            lvl.r_cols, lvl.r_vals = _slot_major(lv["r_cols"], lv["r_vals"], dtype, device)
+        out.append(lvl)
+    return AMG(out, torch.tensor(np.asarray(coarse_inv), dtype=dtype, device=device), dtype=dtype, **kw)

@@ -2,7 +2,9 @@
 
 import subprocess
 import sys
+import types
 
+import numpy as np
 import pytest
 import torch
 
@@ -24,7 +26,10 @@ def test_import_leaves_jax_out():
         "phifem_tpu_torch.models.lattice_core, phifem_tpu_torch.models.poisson3, "
         "phifem_tpu_torch.models.weak_dirichlet3, phifem_tpu_torch.models.strong_dirichlet3, "
         "phifem_tpu_torch.models.neumann3, phifem_tpu_torch.models.robin3, "
-        "phifem_tpu_torch.models.interface_elasticity3; "
+        "phifem_tpu_torch.models.interface_elasticity3, phifem_tpu_torch.umesh, "
+        "phifem_tpu_torch.uassembly, phifem_tpu_torch.amg, phifem_tpu_torch.ops.cuda_amg, "
+        "phifem_tpu_torch.models.unstructured; "
+        "assert 'h5py' not in sys.modules, 'importing the port needs no h5py'; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'phifem_tpu')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -49,7 +54,9 @@ def test_every_module_leaves_jax_out():
         "assert {'phifem_tpu_torch.grid3', 'phifem_tpu_torch.models.weak_dirichlet3', "
         "'phifem_tpu_torch.ops.cuda_hex3', 'phifem_tpu_torch.ops.cuda_lattice3', "
         "'phifem_tpu_torch.models.neumann3', 'phifem_tpu_torch.models.robin3', "
-        "'phifem_tpu_torch.models.interface_elasticity3'} <= set(names), names\n"
+        "'phifem_tpu_torch.models.interface_elasticity3', 'phifem_tpu_torch.umesh', "
+        "'phifem_tpu_torch.uassembly', 'phifem_tpu_torch.amg', 'phifem_tpu_torch.ops.cuda_amg', "
+        "'phifem_tpu_torch.models.unstructured'} <= set(names), names\n"
         "print(len(names), len(new), bad); sys.exit(1 if bad else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True)
@@ -102,3 +109,11 @@ def test_unported_paths_raise():
     e._bulk_neumann_fields = lambda: ()
     vc = e.lattice_preconditioner(coupled=False, min_n=4)
     assert {type(m).__name__ for m in vc.mgs.values()} == {"LatticeBlockMG"}
+    # imported meshes (slice G1a): triangles only; quadrilaterals wait for
+    # slice G1b and tetrahedra (UMesh3) for slice G2
+    quads, _ = pt.UMesh.from_grid(pt.Grid(4, 4, cell_type="quadrilateral", device="cpu"))
+    with pytest.raises(NotImplementedError, match="later PR"):
+        pt.USpace.lagrange(quads, 1)
+    tets = types.SimpleNamespace(dim=3, verts=np.zeros((4, 3)), cells=np.array([[0, 1, 2, 3]]))
+    with pytest.raises(NotImplementedError, match="later PR"):
+        pt.compute_tags_measures(tets, circle, 1, box_mode=True)
