@@ -79,18 +79,21 @@ assemble -> solve:
   and 16 (against the JAX package's recorded counts and errors) and n=24
   (421,875 DoFs, traced).  S5-3D launches both block kernels;
 * slice G1a (imported triangle meshes): the AMG cycle's ELL kernel against
-  its plain version by ``torch.equal`` on synthetic tables (empty and
-  all-pad rows, width 1, a row of width 64, a rectangular R, row counts off
-  the CTA) and on every level of the scale run's hierarchy, in its three
-  modes, float32 and float64, timed on the scale run's level-0 operator and
-  R beside its byte bound and torch.mv of the same CSR matrix (cuSPARSE);
-  demo/unstructured/main.py's four schemes S1-S4 on its fallback mesh
-  (n=24, Jacobi BiCGStab), each against the CPU lane (tags, solution) and
-  the JAX package's counts and errors; S1-U with ``amg_preconditioner()``
-  on the perturbed mesh at n=40, 80 and 160 (against JAX's counts) and at
-  n=800 (641,601 vertices, 1,280,000 triangles: set-up broken down, and a
-  trace of two iterations); every count exact.  The AMG paths launch the
-  AMG kernel.
+  its plain version by ``torch.equal`` on synthetic tables (widths 1 to
+  130: every lane group and chunk remainder, empty and all-pad rows, a
+  rectangular R, row counts off the CTA and the groups) and on every table
+  of the scale run's hierarchy, in its four modes and at every group size,
+  float32 and float64; timed on the scale run's level-0 operator and R with
+  the L2 flushed beside its byte bound and torch.mv of the same CSR matrix
+  (cuSPARSE), and at every launch of the V-cycle through CUDA graphs beside
+  its bound and launch floor; demo/unstructured/main.py's four schemes
+  S1-S4 on its fallback mesh (n=24, Jacobi BiCGStab), each against the CPU
+  lane (tags, solution) and the JAX package's counts and errors; S1-U with
+  ``amg_preconditioner()`` on the perturbed mesh at n=40, 80 and 160
+  (against JAX's counts) and at n=800 (641,601 vertices, 1,280,000
+  triangles: set-up broken down, and a trace of two iterations); every
+  count exact.  The AMG paths launch the AMG kernel, 4 times per level and
+  V-cycle.
 
 Every check raises; the script exits non-zero without a result when there
 is no card or no checkout.  The line before the last is a JSON record of
@@ -284,18 +287,25 @@ def _device_kernels(fn, reps: int) -> dict:
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
-def _bracket_ms(fn, reps: int, flush: torch.Tensor = None) -> float:
+def _flush_op(flush: torch.Tensor, clean: bool):
+    """What evicts the L2 before a launch: a write of ``flush`` (a buffer
+    larger than the L2), which leaves it full of dirty lines that the
+    launch's own reads must write back, or with ``clean`` a read of it."""
+    return flush.sum if clean else flush.zero_
+
+
+def _bracket_ms(fn, reps: int, flush: torch.Tensor = None, clean: bool = False) -> float:
     """Mean device milliseconds of one call of ``fn`` (one kernel launch),
     each call between two CUDA events queued behind a sleeping kernel, so
     that the host's launch time falls outside them; ``flush`` (a buffer
-    larger than the L2), when given, is written before each call, outside
-    the events."""
+    larger than the L2), when given, is written (with ``clean``: read)
+    before each call, outside the events."""
     fn()
     total = 0.0
     for _ in range(reps):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         if flush is not None:
-            flush.zero_()
+            _flush_op(flush, clean)()
         torch.cuda._sleep(1_000_000)
         a.record()
         fn()
@@ -305,7 +315,14 @@ def _bracket_ms(fn, reps: int, flush: torch.Tensor = None) -> float:
     return total / reps
 
 
-def _device_ms(fn, reps: int, kernel: str, also: str = None, flush: torch.Tensor = None) -> float:
+class _EventsMs(float):
+    """A time from :func:`_device_ms` that came from CUDA events around
+    single calls (the events' own time in it), not from the profiler's
+    trace: the kernels line marks it with a ``*_source`` key."""
+
+
+def _device_ms(fn, reps: int, kernel: str, also: str = None, flush: torch.Tensor = None,
+               clean: bool = False) -> float:
     """Mean device milliseconds per launch of the kernels named ``kernel``
     over ``reps`` calls of ``fn``: the kernel's own time, whatever the host
     takes between launches, plus that of the device operations named
@@ -314,12 +331,14 @@ def _device_ms(fn, reps: int, kernel: str, also: str = None, flush: torch.Tensor
     after other work in a long process: none, some, or their times) is
     taken again: it must hold a whole number of launches per call and a
     mean of at least 0.6 of one call's time between CUDA events
-    (:func:`_bracket_ms`), which adds only the events' own few
-    microseconds.  After 8 such traces that bracketed time is returned
-    instead.  With ``flush`` (a buffer larger than the L2) written before
-    each call, the kernel finds none of its inputs in the L2."""
-    bracket = _bracket_ms(fn, 3, flush)
-    traced = fn if flush is None else (lambda: (flush.zero_(), fn()))
+    (:func:`_bracket_ms`) net of the events' own few microseconds (the
+    same bracket around no call), which would otherwise reject a true
+    trace of a launch under ~0.006 ms.  After 8 such traces the bracketed
+    time, events included, is returned instead, as an :class:`_EventsMs`.  With ``flush`` (a buffer
+    larger than the L2) written (with ``clean``: read) before each call,
+    the kernel finds none of its inputs in the L2."""
+    bracket = _bracket_ms(fn, 3, flush, clean) - _bracket_ms(lambda: None, 3, flush, clean)
+    traced = fn if flush is None else (lambda: (_flush_op(flush, clean)(), fn()))
     for attempt in range(8):
         trace = _device_kernels(traced, reps)
         evs = [v for k, v in trace.items() if kernel in k]
@@ -330,12 +349,22 @@ def _device_ms(fn, reps: int, kernel: str, also: str = None, flush: torch.Tensor
             if ms >= 0.6 * bracket:
                 return ms
             print(f"[profiler] the trace of {kernel} gave {ms:.4f} ms per launch against {bracket:.4f} between "
-                  f"CUDA events (attempt {attempt + 1} of 8)")
+                  f"CUDA events, net of their own time (attempt {attempt + 1} of 8)")
             continue
         print(f"[profiler] the trace held {count} launches of {kernel} for {reps} calls (attempt {attempt + 1} of 8)")
-    ms = _bracket_ms(fn, reps, flush)
+    ms = _EventsMs(_bracket_ms(fn, reps, flush, clean))
     print(f"[profiler] {kernel}: device time by CUDA events around single calls instead, {ms:.4f} ms")
     return ms
+
+
+def _mark_sources(entry: dict) -> dict:
+    """``entry`` (a kernel's record in the kernels line) with a
+    ``<key>_source: "events"`` beside every time that :func:`_device_ms`
+    took from CUDA events instead of the profiler's trace."""
+    for k, v in list(entry.items()):
+        if isinstance(v, _EventsMs):
+            entry[f"{k}_source"] = "events"
+    return entry
 
 
 def _library_kernels(fn, reps: int = 10) -> str:
@@ -2485,6 +2514,10 @@ N_AMG_LARGE = 800
 # solve path runs in a fixed order
 U_DEMO_IT = {"s1": 114, "s2": 76, "s3": 319, "s4": 266}
 AMG_IT = {40: 14, 80: 15, 160: 17, N_AMG_LARGE: 66}
+# the AMG kernel's launches on each S1-U path: 4 per level and V-cycle
+# (residual, R, P with the prolongation's add, the post sweep; the first
+# sweep from zero needs no launch)
+AMG_LAUNCHES = {40: 112, 80: 240, 160: 272, N_AMG_LARGE: 2112}
 KERNELS_G1A = {"amg_ell": "amg_ell_kernel"}
 
 
@@ -2609,47 +2642,68 @@ def _amg_tables(vc) -> str:
                      for f, lv in vc.amg_levels.items())
 
 
+def _ell_tables(amg) -> list:
+    """``(label, cols, vals, n_x, lanes, level)`` of every ELL table of
+    ``amg``: each level's operator, R and P, with the lanes per row the
+    V-cycle launches it at."""
+    out = []
+    for k, lvl in enumerate(amg.levels):
+        out.append((f"L{k} A", lvl.ecols, lvl.evals, lvl.n, lvl.e_lanes, lvl))
+        if lvl.r_cols is not None:
+            out.append((f"L{k} R", lvl.r_cols, lvl.r_vals, lvl.n, lvl.r_lanes, lvl))
+            out.append((f"L{k} P", lvl.p_cols, lvl.p_vals, lvl.r_cols.shape[1], lvl.p_lanes, lvl))
+    return out
+
+
 def _hold_amg_levels(amg, label: str) -> float:
     """The ELL kernel against its plain version by torch.equal on every
-    level of ``amg`` (the level operator in its three modes, R and P), in
-    float32 and float64 (the tables cast), with seeded vectors; these
-    launches are not counted.  Returns the largest |difference| (0)."""
+    table of ``amg`` (the level operator in its three modes, R, P and P with
+    the prolongation's add), at every group size the kernel has (the
+    table's own among them), in float32 and float64 (the tables cast), with
+    seeded vectors; these launches are not counted.  Returns the largest
+    |difference| (0)."""
     ca = _amg()
     n0 = ca.launches
     rng = np.random.default_rng(SEED + 11)
     vec = lambda n, dt: torch.as_tensor(rng.standard_normal(n), dtype=dt, device=DEVICE)
-    checked = 0
+    checked, used = 0, set()
     for dt in (torch.float32, torch.float64):
-        for k, lvl in enumerate(amg.levels):
-            A = (lvl.ecols, lvl.evals.to(dt))
-            x, b, d = vec(lvl.n, dt), vec(lvl.n, dt), lvl.jac_diag.to(dt)
-            cases = [(m, A, x) for m in (ca.APPLY, ca.RESIDUAL, ca.JACOBI)]
-            if lvl.r_cols is not None:
-                nc = lvl.r_cols.shape[1]
-                cases += [(ca.APPLY, (lvl.r_cols, lvl.r_vals.to(dt)), x),
-                          (ca.APPLY, (lvl.p_cols, lvl.p_vals.to(dt)), vec(nc, dt))]
-            for mode, (c, v), xx in cases:
-                yk = ca.amg_ell_sweep(mode, c, v, xx, b, d)
-                yr = ca.amg_ell_sweep_ref(mode, c, v, xx, b, d)
-                if not torch.equal(yk, yr):
-                    raise AssertionError(f"{label}: the AMG kernel differs from its plain version on level {k} "
-                                         f"(mode {mode}, {dt}): {float((yk - yr).abs().max())}")
-                checked += 1
+        for name, c, v, n_x, lanes, lvl in _ell_tables(amg):
+            used.add(lanes)
+            v = v.to(dt)
+            n = c.shape[1]
+            x, b = vec(n_x, dt), vec(n, dt)
+            modes = ((ca.APPLY, ca.RESIDUAL, ca.JACOBI) if name.endswith("A") else
+                     (ca.APPLY,) if name.endswith("R") else (ca.APPLY, ca.PROLONG_ADD))
+            for mode in modes:
+                d = lvl.jac_diag.to(dt) if mode == ca.JACOBI else None
+                yr = ca.amg_ell_sweep_ref(mode, c, v, x, b, d)
+                for g in ca.LANES:
+                    yk = ca.amg_ell_sweep(mode, c, v, x, b, d, lanes=g)
+                    if not torch.equal(yk, yr):
+                        raise AssertionError(f"{label}: the AMG kernel differs from its plain version on {name} "
+                                             f"(mode {mode}, {g} lanes, {dt}): {float((yk - yr).abs().max())}")
+                    checked += 1
     torch.cuda.synchronize()
     ca.launches = n0
-    print(f"[{label}] AMG kernel = plain version bit for bit on {checked} (level, table, mode, dtype) cases of "
-          f"{len(amg.levels)} levels")
+    print(f"[{label}] AMG kernel = plain version bit for bit on {checked} (table, mode, lanes, dtype) cases of "
+          f"{len(amg.levels)} levels, at every group size {ca.LANES}; the V-cycle's tables use {sorted(used)}")
     return 0.0
 
 
+#: synthetic ELL tables, case -> (rows, columns, width): every group size and
+#: chunk remainder of the kernel, row counts off the CTA and off the groups
+AMG_SYNTH = {"ragged": (1001, 1001, 9), "width1": (300, 300, 1), "wide64": (257, 257, 64), "rect": (100, 901, 12),
+             "w5": (1003, 1003, 5), "w7": (777, 777, 7), "w8": (260, 260, 8), "w17": (131, 131, 17),
+             "w23": (300, 905, 23), "w111": (45, 400, 111), "w130": (33, 500, 130)}
+
+
 def _synthetic_ell(case: str, dt, seed: int = SEED):
-    """A slot-major ELL table on the card made from ``seed``: padded slots,
-    every 97th row empty; ``ragged`` 1001 rows of width 9, ``width1``,
-    ``wide64`` (one row of width 64, the rest of 1-7), ``rect`` 100 rows
-    over 901 columns."""
+    """A slot-major ELL table on the card made from ``seed`` (AMG_SYNTH's
+    shape): padded slots, every 97th row empty (all pad), ``wide64`` one row
+    of width 64 and the rest of 1-7."""
     rng = np.random.default_rng(seed)
-    n, n_x, w = {"ragged": (1001, 1001, 9), "width1": (300, 300, 1), "wide64": (257, 257, 64),
-                 "rect": (100, 901, 12)}[case]
+    n, n_x, w = AMG_SYNTH[case]
     nnz = rng.integers(0, w + 1, n)
     if case == "wide64":
         nnz = rng.integers(1, 8, n)
@@ -2669,19 +2723,23 @@ def _hold_amg_synthetic() -> None:
     ca = _amg()
     n0 = ca.launches
     checked = 0
-    for case in ("ragged", "width1", "wide64", "rect"):
+    for case, (n, n_x, _) in AMG_SYNTH.items():
         for dt in (torch.float32, torch.float64):
             c, v, x, b, d = _synthetic_ell(case, dt)
-            for mode in (ca.APPLY, ca.RESIDUAL, ca.JACOBI):
-                if mode == ca.JACOBI and case == "rect":
+            for mode in ca.MODES:
+                if mode == ca.JACOBI and n != n_x:
                     continue
-                if not torch.equal(ca.amg_ell_sweep(mode, c, v, x, b, d), ca.amg_ell_sweep_ref(mode, c, v, x, b, d)):
-                    raise AssertionError(f"the AMG kernel differs from its plain version on {case} {dt} mode {mode}")
-                checked += 1
+                yr = ca.amg_ell_sweep_ref(mode, c, v, x, b, d)
+                for g in ca.LANES:
+                    if not torch.equal(ca.amg_ell_sweep(mode, c, v, x, b, d, lanes=g), yr):
+                        raise AssertionError(f"the AMG kernel differs from its plain version on {case} {dt} mode "
+                                             f"{mode} at {g} lanes")
+                    checked += 1
     torch.cuda.synchronize()
     ca.launches = n0
-    print(f"[kernel amg_ell] synthetic ELL tables (empty rows, all-pad rows, width 1, a row of width 64, "
-          f"rectangular R, row counts off the 256-thread CTA): kernel = plain version bit for bit in {checked} cases")
+    print(f"[kernel amg_ell] synthetic ELL tables (widths {sorted({w for _, _, w in AMG_SYNTH.values()})}, empty "
+          f"and all-pad rows, rectangular R, row counts off the 256-thread CTA and the lane groups), four modes, "
+          f"every group size {ca.LANES}: kernel = plain version bit for bit in {checked} cases")
 
 
 def _ell_csr(c: torch.Tensor, v: torch.Tensor, n_x: int) -> torch.Tensor:
@@ -2695,45 +2753,90 @@ def _ell_csr(c: torch.Tensor, v: torch.Tensor, n_x: int) -> torch.Tensor:
     return _csr_as(coo.to_sparse_csr(), v.dtype)
 
 
-def _amg_kernel_times(amg) -> dict:
-    """The kernel on the scale run's level-0 operator (its three modes) and
-    its R, float32 (the cycle's dtype) and float64: ms per call by CUDA
-    events, device ms per launch from the profiler with the L2 flushed
-    before each launch, host ms per call, the plain version, the byte bound,
-    and torch.mv of the same matrix as a CUDA CSR (cuSPARSE) for the apply
-    mode."""
+def _graph_ms(fn, launches: int = 20, reps: int = 10) -> float:
+    """Device milliseconds per call of ``fn`` from a CUDA graph of
+    ``launches`` calls, replayed ``reps`` times between two CUDA events: no
+    host issue between the launches, and the inputs as warm in the L2 as a
+    caller that runs them back to back finds them.  A measuring tool only:
+    the port runs eagerly."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(launches):
+            fn()
+    g.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (reps * launches)
+    del g
+    return ms
+
+
+def _ell_bound(mode, nnz: int, n: int, n_x: int, dt):
+    """(bound ms, by, MB) of one sweep: each nonzero's value and int32
+    column once, x, y and by mode b (residual, Jacobi, the prolongation's
+    base) and d (Jacobi); 2 flops per nonzero and the mode's per row."""
     ca = _amg()
+    es = torch.tensor([], dtype=dt).element_size()
+    nbytes = nnz * (es + 4) + n_x * es + n * es + {ca.APPLY: 0, ca.RESIDUAL: 1, ca.JACOBI: 2,
+                                                   ca.PROLONG_ADD: 1}[mode] * n * es
+    flops = 2 * nnz + {ca.APPLY: 0, ca.RESIDUAL: n, ca.JACOBI: 3 * n, ca.PROLONG_ADD: n}[mode]
+    return (*_bound(nbytes, flops, dt), nbytes / 1e6)
+
+
+AMG_MODE_NAMES = {0: "apply", 1: "residual", 2: "jacobi", 3: "prolong-add"}
+
+
+def _amg_table_times(amg) -> dict:
+    """The kernel on the scale run's hierarchy.  (1) Level 0's operator in
+    three modes and its R, float32 and float64, with the L2 flushed before
+    each launch (a 64 MB write, as before; and a 64 MB read, which leaves
+    clean lines that the launch need not write back): device ms per launch
+    from the profiler,
+    ms per call back to back by CUDA events, host ms per call, the plain
+    version, the byte bound, and torch.mv of the same CSR matrix (cuSPARSE)
+    for the apply mode.  (2) Every launch the V-cycle makes, float32 (the
+    cycle's dtype; A residual and Jacobi, R, P with its add, levels 0 to
+    the last but one): device ms per launch from a CUDA graph of 20
+    launches, the L2 warm as the cycle finds it, beside its byte bound and
+    its launch floor (the same kernel, mode and group size on a 1-row,
+    width-1 table); their sum over one V-cycle, and one whole V-cycle
+    captured in a graph."""
+    ca = _amg()
+    n0 = ca.launches
     lvl = amg.levels[0]
     rng = np.random.default_rng(SEED + 12)
-    flush = torch.empty(16 * 2**20, dtype=torch.float32, device=DEVICE)  # 64 MB > the 50 MB L2
+    vec = lambda n, dt: torch.as_tensor(rng.standard_normal(n), dtype=dt, device=DEVICE)
+    flush = torch.zeros(16 * 2**20, dtype=torch.float32, device=DEVICE)  # 64 MB > the 50 MB L2
     out = {}
     for dt in (torch.float32, torch.float64):
-        es = torch.tensor([], dtype=dt).element_size()
-        for tab, (c, v), mode in (("A", (lvl.ecols, lvl.evals), ca.JACOBI), ("A", (lvl.ecols, lvl.evals), ca.APPLY),
-                                  ("A", (lvl.ecols, lvl.evals), ca.RESIDUAL), ("R", (lvl.r_cols, lvl.r_vals), ca.APPLY)):
+        for tab, (c, v, lanes), mode in (("A", (lvl.ecols, lvl.evals, lvl.e_lanes), ca.JACOBI),
+                                         ("A", (lvl.ecols, lvl.evals, lvl.e_lanes), ca.APPLY),
+                                         ("A", (lvl.ecols, lvl.evals, lvl.e_lanes), ca.RESIDUAL),
+                                         ("R", (lvl.r_cols, lvl.r_vals, lvl.r_lanes), ca.APPLY)):
             v = v.to(dt).contiguous()
             w, n = c.shape
             n_x = lvl.n
-            x = torch.as_tensor(rng.standard_normal(n_x), dtype=dt, device=DEVICE)
-            b = torch.as_tensor(rng.standard_normal(n), dtype=dt, device=DEVICE)
-            d = lvl.jac_diag.to(dt)
-            call = lambda: ca.amg_ell_sweep(mode, c, v, x, b, d)
-            # y = A x needs each nonzero's value and int32 column once, x,
-            # y and (by mode) b and d: the ELL table's padded slots, which
-            # the kernel reads too, are the format's cost, not the function's
+            x, b, d = vec(n_x, dt), vec(n, dt), lvl.jac_diag.to(dt)
+            call = lambda: ca.amg_ell_sweep(mode, c, v, x, b, d, lanes=lanes)
             nnz = int((c < n_x).sum())
-            nbytes = nnz * (es + 4) + n_x * es + n * es + {ca.APPLY: 0, ca.RESIDUAL: 1, ca.JACOBI: 2}[mode] * n * es
-            pad_bytes = (w * n - nnz) * (es + 4)
-            flops = 2 * nnz + {ca.APPLY: 0, ca.RESIDUAL: n, ca.JACOBI: 3 * n}[mode]
-            bound = _bound(nbytes, flops, dt)
-            # the level's tables fit in the 50 MB L2, where launches back to
-            # back find them: the device time writes a 64 MB buffer before
-            # each launch, so the kernel reads device memory, as its bound
-            # assumes
+            bound_ms, by, mb = _ell_bound(mode, nnz, n, n_x, dt)
+            pad_bytes = (w * n - nnz) * (torch.tensor([], dtype=dt).element_size() + 4)
             t = {"ms": _event_ms(call, 50), "device_ms": _device_ms(call, 20, KERNELS_G1A["amg_ell"], flush=flush),
+                 "device_ms_clean": _device_ms(call, 20, KERNELS_G1A["amg_ell"], flush=flush, clean=True),
                  "host_ms": _host_ms(call, 50),
                  "plain_ms": _event_ms(lambda: ca.amg_ell_sweep_ref(mode, c, v, x, b, d), 5),
-                 "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None, "rows": n, "width": w, "nnz": nnz}
+                 "bound_ms": bound_ms, "bound_by": by, "library_ms": None, "rows": n, "width": w, "nnz": nnz,
+                 "lanes": lanes}
             if mode == ca.APPLY:
                 csr = _ell_csr(c, v, n_x)
                 yl = torch.mv(csr, x)
@@ -2742,25 +2845,59 @@ def _amg_kernel_times(amg) -> dict:
                     raise AssertionError(f"torch.mv of the CSR copy is not the kernel's product ({tab})")
                 t["library_ms"] = _event_ms(lambda: torch.mv(csr, x), 50)
                 del csr
-            name = {ca.APPLY: "apply", ca.RESIDUAL: "residual", ca.JACOBI: "jacobi"}[mode]
+            name = AMG_MODE_NAMES[mode]
             out[tab, name, dt] = t
             lib = "" if t["library_ms"] is None else f", cuSPARSE CSR torch.mv {t['library_ms']:.4f}"
-            print(f"[kernel amg_ell] {tab} {name:8s} {str(dt)[6:]:7s} {n} rows x width {w} ({nnz} nonzeros): ms "
-                  f"{t['ms']:.4f}, device {t['device_ms']:.4f} per launch (L2 flushed), "
-                  f"host {t['host_ms']:.4f} per call, plain "
-                  f"{t['plain_ms']:.4f}{lib}; bound {bound[0]:.4f} by {bound[1]} ({nbytes / 1e6:.2f} MB: nonzeros, "
-                  f"vectors; {bound[0] / t['device_ms']:.1%} by device time, {bound[0] / t['ms']:.1%} by ms; at half "
-                  f"the peak rate: {2 * bound[0] / t['device_ms']:.1%}); the ELL's {w * n - nnz} padded slots add "
-                  f"{pad_bytes / 1e6:.2f} MB ({pad_bytes / nbytes:.1%} over the bound's bytes; "
-                  f"{_bound(nbytes + pad_bytes, flops, dt)[0]:.4f} ms with them)")
+            print(f"[kernel amg_ell] L0 {tab} {name:8s} {str(dt)[6:]:7s} {n} rows x width {w} ({nnz} nonzeros, "
+                  f"{lanes} lanes per row): ms {t['ms']:.4f}, device {t['device_ms']:.4f} per launch (L2 flushed by a "
+                  f"write; by a read, clean lines: {t['device_ms_clean']:.4f}), "
+                  f"host {t['host_ms']:.4f} per call, plain {t['plain_ms']:.4f}{lib}; bound {bound_ms:.4f} by {by} "
+                  f"({mb:.2f} MB: nonzeros, vectors; {bound_ms / t['device_ms']:.1%} by device time, "
+                  f"{bound_ms / t['device_ms_clean']:.1%} with clean lines); the ELL's "
+                  f"{w * n - nnz} padded slots add {pad_bytes / 1e6:.2f} MB")
+    # every launch of the V-cycle, through CUDA graphs
+    dt = amg.dtype
+    floors, tables = {}, {}
+    for name, c, v, n_x, lanes, lv in _ell_tables(amg):
+        modes = ((ca.RESIDUAL, ca.JACOBI) if name.endswith("A") else
+                 (ca.APPLY,) if name.endswith("R") else (ca.PROLONG_ADD,))
+        if name.endswith("A") and lv.r_cols is None:
+            continue  # the coarsest level: coarse_inv @ b
+        w, n = c.shape
+        nnz = int((c < n_x).sum())
+        x, b = vec(n_x, dt), vec(n, dt)
+        for mode in modes:
+            d = lv.jac_diag if mode == ca.JACOBI else None
+            ms = _graph_ms(lambda: ca.amg_ell_sweep(mode, c, v, x, b, d, lanes=lanes))
+            if (mode, lanes) not in floors:
+                one = torch.ones(1, dtype=dt, device=DEVICE)
+                c1 = torch.zeros((1, 1), dtype=torch.int32, device=DEVICE)
+                floors[mode, lanes] = _graph_ms(lambda: ca.amg_ell_sweep(mode, c1, one[None], one, one, one,
+                                                                         lanes=lanes))
+            bound_ms, by, mb = _ell_bound(mode, nnz, n, n_x, dt)
+            key = f"{name} {AMG_MODE_NAMES[mode]}"
+            tables[key] = {"ms": ms, "floor_ms": floors[mode, lanes]}
+            print(f"[kernel amg_ell] graph {key:20s} {str(dt)[6:]} {n:7d} rows x {w:3d} ({nnz} nonzeros), "
+                  f"{lanes:2d} lanes: {ms:.4f} ms per launch (L2 warm), launch floor {floors[mode, lanes]:.4f} "
+                  f"({ms / floors[mode, lanes]:.2f}x), bound {bound_ms:.4f} by {by} ({mb:.3f} MB; "
+                  f"{bound_ms / ms:.1%})")
+    ell_sum = sum(t["ms"] for t in tables.values())
+    bv = vec(lvl.n, dt)
+    cycle_ms = _graph_ms(lambda: amg(bv), launches=5, reps=10)
+    ca.launches = n0
+    print(f"[kernel amg_ell] one V-cycle ({4 * (len(amg.levels) - 1)} ELL launches): the sum of its ELL launches "
+          f"{ell_sum:.4f} ms; the whole V-cycle in a CUDA graph {cycle_ms:.4f} ms per call (with its coarse "
+          f"product and first-sweep products)")
+    out["tables"], out["vcycle_ell_ms"], out["vcycle_graph_ms"] = tables, ell_sum, cycle_ms
     return out
 
 
 def _amg_trace(s, vc, label: str) -> None:
     """A device trace of two BiCGStab iterations (the equilibrated operator
     and vc), with the card's busy share; then the families by their own
-    traces: one operator matvec (the entity batches), one AMG V-cycle (the
-    ELL kernel and its glue), one band solve (the plain sweeps)."""
+    traces (the fullest of three): one operator matvec (the entity
+    batches), one AMG V-cycle (the ELL kernel and its glue), one band solve
+    (the plain sweeps)."""
     from phifem_tpu_torch.solvers import _eq_context, _pbicgstab, lift_rhs
 
     matvec, active, _, dinv_sqrt, mv_eq, M, _ = _eq_context(s.op, (), vc)
@@ -2777,7 +2914,8 @@ def _amg_trace(s, vc, label: str) -> None:
     rf = vc._flatten(r)
     fams["band solve (plain sweeps, f64)"] = lambda: vc._band_correct_flat(xf.clone(), rf)
     for fam, fn in fams.items():
-        ker = _device_kernels(fn, 3)
+        # a trace may lose launches (PERF.md): keep the fullest of three
+        ker = max((_device_kernels(fn, 3) for _ in range(3)), key=lambda k: sum(c for c, _ in k.values()))
         busy = sum(t for _, t in ker.values()) / 3
         cnt = sum(c for c, _ in ker.values()) / 3
         amg_ms = sum(t for k, (_, t) in ker.items() if KERNELS_G1A["amg_ell"] in k) / 3
@@ -2817,13 +2955,20 @@ def phase_u_amg(pt) -> tuple:
             raise AssertionError(f"{label}: not converged, relres {r.residual}")
         if counts[label] <= 0:
             raise AssertionError(f"{label} never launched the AMG kernel")
+        if counts[label] != AMG_LAUNCHES[n]:
+            raise AssertionError(f"{label}: {counts[label]} AMG kernel launches, not {AMG_LAUNCHES[n]}")
         if n in JAX_AMG_IT:
             _within_reference(label, r.iterations, JAX_AMG_IT[n])
         _pin(label, r.iterations, AMG_IT[n])
         if n == N_AMG_LARGE:
+            t0 = time.perf_counter()
             _hold_amg_levels(vc.amgs["u"], label)
-            times = _amg_kernel_times(vc.amgs["u"])
+            t1 = time.perf_counter()
+            times = _amg_table_times(vc.amgs["u"])
+            t2 = time.perf_counter()
             _amg_trace(s, vc, label)
+            print(f"[time] {label}: kernel held on every table {t1 - t0:.1f} s, timed {t2 - t1:.1f} s, traced "
+                  f"{time.perf_counter() - t2:.1f} s")
         del s, vc, r, mesh
         torch.cuda.empty_cache()
     return counts, times
@@ -2834,8 +2979,9 @@ def run_slice_g1a(pt) -> tuple:
     path)."""
     t0 = time.perf_counter()
     _hold_amg_synthetic()
+    t1 = time.perf_counter()
     paths = {f"u-demo {k}": c for k, c in phase_u_demo(pt).items()}
-    print(f"[time] u-demo {time.perf_counter() - t0:.1f} s")
+    print(f"[time] AMG kernel on synthetic tables {t1 - t0:.1f} s; u-demo {time.perf_counter() - t1:.1f} s")
     t1 = time.perf_counter()
     amg_paths, times = phase_u_amg(pt)
     paths.update(amg_paths)
@@ -2851,15 +2997,22 @@ def run_slice_g1a(pt) -> tuple:
         "launches": sum(paths.values()),
         "launches_by_path": paths,
         "max_abs_err": 0.0,
-        **{k: main[k] for k in ("ms", "device_ms", "host_ms", "plain_ms", "bound_ms", "bound_by")},
+        **{k: main[k] for k in ("ms", "device_ms", "device_ms_clean", "host_ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": times["A", "apply", f32]["library_ms"],
         "library": "torch.mv of the level-0 operator as a CUDA CSR matrix (cuSPARSE SpMV; apply mode)",
         "shape": f"S1-U n={N_AMG_LARGE} AMG level 0: {main['rows']} rows x ELL width {main['width']}, Jacobi sweep, "
                  "float32",
+        "vcycle_ell_ms": times["vcycle_ell_ms"],
+        "vcycle_graph_ms": times["vcycle_graph_ms"],
+        "table_device_ms": {k: t["ms"] for k, t in times["tables"].items()},
+        "table_floor_ms": {k: t["floor_ms"] for k, t in times["tables"].items()},
     }
-    for (tab, name, dt), t in times.items():
+    for key, t in times.items():
+        if not isinstance(key, tuple):
+            continue
+        tab, name, dt = key
         tag = f"{tab}_{name}_{str(dt)[6:]}"
-        for k in ("ms", "device_ms", "host_ms", "plain_ms", "bound_ms", "library_ms"):
+        for k in ("ms", "device_ms", "device_ms_clean", "host_ms", "plain_ms", "bound_ms", "library_ms"):
             if t.get(k) is not None:
                 line[f"{tag}_{k}"] = t[k]
     return line, paths
@@ -3014,7 +3167,8 @@ def main() -> int:
         "s5_launches_by_path": {p: c["taps"] for p, c in paths.items() if p.startswith("S5")},
     }
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [kernel, taps, *kernels3, *kernels3b, amg_line]}))
+    lines = [kernel, taps, *kernels3, *kernels3b, amg_line]
+    print(json.dumps({"kernels": [_mark_sources(e) for e in lines]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

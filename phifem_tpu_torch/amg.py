@@ -14,10 +14,12 @@ sparse operator and cycled on the device.
   Galerkin product ``R A P``; the coarsest level's dense pseudo-inverse.
 * Device data per level: the operator, P and R = P^T as slot-major ELL
   tables (``(width, n)``; see :mod:`phifem_tpu_torch.ops.cuda_amg`), the
-  inverse diagonal and its damped form ``omega * inv_diag``.  Every ELL
-  product, residual and Jacobi sweep of the V-cycle is one launch of the
-  hand-written kernel on the card (its plain version on the CPU); the
-  coarse ``coarse_inv @ b`` is ``torch.matmul``.
+  lanes per row of each table's launches, the inverse diagonal and its
+  damped form ``omega * inv_diag``.  Every ELL product, residual, Jacobi
+  sweep and prolongation (with its add) of the V-cycle is one launch of the
+  hand-written kernel on the card (its plain version on the CPU); the first
+  pre-smoothing sweep from zero is its closed form ``omega D^-1 b``, and
+  the coarse ``coarse_inv @ b`` is ``torch.matmul``.
 * :func:`amg_preconditioner` cycles the BULK rows of each scalar field (the
   active DoFs no data-dependent batch touches), Jacobi on the rest, and the
   multiplicative cut-band solve of :func:`phifem_tpu_torch.mg.
@@ -34,7 +36,7 @@ import numpy as np
 import torch
 
 from .mg import VCycle
-from .ops.cuda_amg import APPLY, JACOBI, RESIDUAL, amg_ell_sweep
+from .ops.cuda_amg import APPLY, JACOBI, PROLONG_ADD, RESIDUAL, amg_ell_sweep, lanes_for
 
 __all__ = ["build_amg", "AMG", "AMGVCycle", "amg_preconditioner"]
 
@@ -128,7 +130,9 @@ class AMGLevel:
     operator, pad column n; ``p_*`` (pw, n): the rows of P (gathering the
     coarse vector, pad nc); ``r_*`` (rw, nc): the rows of R = P^T (pad n);
     ``p_*`` and ``r_*`` are None on the coarsest level.  ``jac_diag`` is
-    ``omega * inv_diag`` in the cycle's dtype."""
+    ``omega * inv_diag`` in the cycle's dtype; ``e_lanes`` / ``p_lanes`` /
+    ``r_lanes`` are the kernel's lanes per row for each table
+    (:func:`~phifem_tpu_torch.ops.cuda_amg.lanes_for`), set with it."""
 
     n: int
     ecols: torch.Tensor
@@ -139,6 +143,9 @@ class AMGLevel:
     r_cols: Optional[torch.Tensor] = None
     r_vals: Optional[torch.Tensor] = None
     jac_diag: Optional[torch.Tensor] = None
+    e_lanes: Optional[int] = None
+    p_lanes: Optional[int] = None
+    r_lanes: Optional[int] = None
 
 
 @dataclasses.dataclass
@@ -157,21 +164,31 @@ class AMG:
         for lvl in self.levels:
             om = torch.tensor(self.omega, dtype=self.dtype, device=lvl.inv_diag.device)
             lvl.jac_diag = om * lvl.inv_diag.to(self.dtype)
+            lvl.e_lanes = lanes_for(*lvl.ecols.shape[::-1])
+            if lvl.p_cols is not None:
+                lvl.p_lanes = lanes_for(*lvl.p_cols.shape[::-1])
+                lvl.r_lanes = lanes_for(*lvl.r_cols.shape[::-1])
 
     def _smooth(self, lvl: AMGLevel, x: torch.Tensor, b: torch.Tensor, sweeps: int) -> torch.Tensor:
         for _ in range(sweeps):
-            x = amg_ell_sweep(JACOBI, lvl.ecols, lvl.evals, x, b, lvl.jac_diag)
+            x = amg_ell_sweep(JACOBI, lvl.ecols, lvl.evals, x, b, lvl.jac_diag, lanes=lvl.e_lanes)
         return x
 
     def _cycle(self, k: int, b: torch.Tensor) -> torch.Tensor:
         lvl = self.levels[k]
         if k == len(self.levels) - 1:
             return self.coarse_inv @ b
-        x = self._smooth(lvl, torch.zeros_like(b), b, self.pre_smooth)
-        r = amg_ell_sweep(RESIDUAL, lvl.ecols, lvl.evals, x, b)
-        rc = amg_ell_sweep(APPLY, lvl.r_cols, lvl.r_vals, r)
+        if self.pre_smooth > 0:
+            # the first sweep from x = 0: 0 + d (b - A 0) is d b, since A 0
+            # is a signed zero (only the sign of an exact zero can differ),
+            # so it needs no read of A
+            x = self._smooth(lvl, lvl.jac_diag * b, b, self.pre_smooth - 1)
+        else:
+            x = torch.zeros_like(b)
+        r = amg_ell_sweep(RESIDUAL, lvl.ecols, lvl.evals, x, b, lanes=lvl.e_lanes)
+        rc = amg_ell_sweep(APPLY, lvl.r_cols, lvl.r_vals, r, lanes=lvl.r_lanes)
         ec = self._cycle(k + 1, rc)
-        x = x + amg_ell_sweep(APPLY, lvl.p_cols, lvl.p_vals, ec)
+        x = amg_ell_sweep(PROLONG_ADD, lvl.p_cols, lvl.p_vals, ec, x, lanes=lvl.p_lanes)
         return self._smooth(lvl, x, b, self.post_smooth)
 
     def __call__(self, b: torch.Tensor) -> torch.Tensor:

@@ -14,7 +14,14 @@ An ELL matrix of ``n`` rows and width ``w`` is stored slot-major: ``cols``
 * ``APPLY``: ``A x``;
 * ``RESIDUAL``: ``b - A x``;
 * ``JACOBI``: ``x + d (b - A x)``, ``d`` the inverse diagonal already
-  scaled by the damping weight.
+  scaled by the damping weight;
+* ``PROLONG_ADD``: ``b + A x``, ``b`` a base vector (the V-cycle's
+  ``x + P e_c`` in one launch).
+
+Each row is served by a group of ``lanes`` lanes (1, 2, 4, ..., 32), which
+split its slots and add their products in ascending slot order; every call
+names its group size.  :func:`lanes_for` picks the one of a table from its
+rows and width, once, and the V-cycle keeps it per table.
 
 It dispatches on the tensor's device: a CPU tensor goes to
 :func:`amg_ell_sweep_ref`, a CUDA tensor to the kernel, anything else
@@ -34,16 +41,36 @@ import torch
 
 from . import nvcc_build
 
-__all__ = ["APPLY", "RESIDUAL", "JACOBI", "amg_ell_sweep", "amg_ell_sweep_ref", "build"]
+__all__ = ["APPLY", "RESIDUAL", "JACOBI", "PROLONG_ADD", "amg_ell_sweep", "amg_ell_sweep_ref", "build", "lanes_for"]
 
-APPLY, RESIDUAL, JACOBI = 0, 1, 2
+APPLY, RESIDUAL, JACOBI, PROLONG_ADD = 0, 1, 2, 3
+MODES = (APPLY, RESIDUAL, JACOBI, PROLONG_ADD)
 
 #: number of kernel launches made by :func:`amg_ell_sweep`
 launches = 0
 
 SOURCE = nvcc_build.PKG / "csrc" / "amg_ell.cu"
-#: the kernel's CTA size (one thread per row)
+#: the kernel's CTA size
 THREADS = 256
+#: the group sizes the kernel takes, and the float32 slots a lane of each
+#: holds in flight (one chunk; half as many in float64)
+LANES = (1, 2, 4, 8, 16, 32)
+CHUNK = {1: 8, 2: 8, 4: 8, 8: 8, 16: 8, 32: 4}
+#: the fewest lanes a launch should run: a coarse table's few rows get
+#: wider groups up to this count (measured on the H100 at every group size
+#: on the S1-U n=800 hierarchy, scripts/tune_torch_amg.py --lanes: more
+#: lanes only add shuffles once the launch holds ~16k)
+FILL = 2**14
+
+
+def lanes_for(n: int, width: int) -> int:
+    """The group size for a table of ``n`` rows and ``width`` slots: the
+    smallest power of two that puts each lane's slots in one chunk and
+    gives the launch ``FILL`` lanes, at most 32 and not past the width."""
+    lanes = 1
+    while lanes < 32 and lanes < width and (n * lanes < FILL or -(-width // lanes) > CHUNK[lanes]):
+        lanes *= 2
+    return lanes
 
 
 def amg_ell_sweep_ref(
@@ -62,14 +89,16 @@ def amg_ell_sweep_ref(
         acc = acc + vals[k] * xp[cols[k]]
     if mode == APPLY:
         return acc
+    if mode == PROLONG_ADD:
+        return b + acc
     r = b - acc
     if mode == RESIDUAL:
         return r
     return x + d * r
 
 
-def _check(mode, cols, vals, x, b, d) -> None:
-    if mode not in (APPLY, RESIDUAL, JACOBI):
+def _check(mode, cols, vals, x, b, d, lanes) -> None:
+    if mode not in MODES:
         raise ValueError(f"amg_ell_sweep: unknown mode {mode}")
     if cols.dim() != 2 or cols.shape[0] < 1 or cols.shape[1] < 1:
         raise ValueError(f"amg_ell_sweep: cols must be a (width, n) table, got {tuple(cols.shape)}")
@@ -86,6 +115,8 @@ def _check(mode, cols, vals, x, b, d) -> None:
                 raise ValueError(f"amg_ell_sweep: {name} must be a ({n},) vector like x")
     if mode == JACOBI and x.shape[0] != n:
         raise ValueError("amg_ell_sweep: a Jacobi sweep needs a square matrix (len(x) == n)")
+    if lanes not in LANES:
+        raise ValueError(f"amg_ell_sweep: lanes must be one of {LANES}, got {lanes}")
 
 
 def amg_ell_sweep(
@@ -95,12 +126,16 @@ def amg_ell_sweep(
     x: torch.Tensor,
     b: Optional[torch.Tensor] = None,
     d: Optional[torch.Tensor] = None,
+    *,
+    lanes: int,
 ) -> torch.Tensor:
     """One sweep (see the module docstring); returns a new ``(n,)`` vector.
-    The kernel takes float32 or float64 values, contiguous tensors on one
-    card and fewer than 2^31 slots."""
+    ``lanes`` is the group size per row (one of ``LANES``; the V-cycle
+    passes the :func:`lanes_for` of the table that it keeps).  The kernel
+    takes float32 or float64 values, contiguous tensors on one card and
+    fewer than 2^31 slots."""
     global launches
-    _check(mode, cols, vals, x, b, d)
+    _check(mode, cols, vals, x, b, d, lanes)
     dev = x.device
     if dev.type == "cpu":
         return amg_ell_sweep_ref(mode, cols, vals, x, b, d)
@@ -113,13 +148,13 @@ def amg_ell_sweep(
     for t in (cols, vals, x) + ((b,) if mode != APPLY else ()) + ((d,) if mode == JACOBI else ()):
         if t.device != dev or not t.is_contiguous():
             raise ValueError("amg_ell_sweep: every tensor must be contiguous and on x's device")
-    if width * n >= 2**31 or x.shape[0] >= 2**31:
+    if width * n >= 2**31 or lanes * n >= 2**31 or x.shape[0] >= 2**31:
         raise ValueError("amg_ell_sweep: table too large for 32-bit indexing")
     y = torch.empty(n, dtype=dt, device=dev)
     fn, raw_stream, current = _LAUNCH.get("fn") or _bind()
     idx = dev.index
     args = (cols.data_ptr(), vals.data_ptr(), x.data_ptr(), None if b is None else b.data_ptr(),
-            None if d is None else d.data_ptr(), y.data_ptr(), n, width, x.shape[0], mode,
+            None if d is None else d.data_ptr(), y.data_ptr(), n, width, x.shape[0], mode, lanes,
             dt is torch.float64, raw_stream(idx))
     if idx == current():
         err = fn(*args)
@@ -154,11 +189,14 @@ def build() -> dict:
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build()["path"])
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.phifem_amg_ell_sweep.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+    lib.phifem_amg_ell_sweep.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
     lib.phifem_amg_ell_sweep.restype = ci
     lib.phifem_amg_error_string.argtypes = [ci]
     lib.phifem_amg_error_string.restype = ctypes.c_char_p
     lib.phifem_amg_ell_threads.restype = ci
-    if lib.phifem_amg_ell_threads() != THREADS:
-        raise RuntimeError(f"amg_ell_sweep: the library's CTA size {lib.phifem_amg_ell_threads()} is not {THREADS}")
+    lib.phifem_amg_ell_chunk.argtypes = [ci, ci]
+    lib.phifem_amg_ell_chunk.restype = ci
+    got = (lib.phifem_amg_ell_threads(), {k: lib.phifem_amg_ell_chunk(k, 0) for k in LANES})
+    if got != (THREADS, CHUNK):
+        raise RuntimeError(f"amg_ell_sweep: the library's CTA size and chunks {got} are not {(THREADS, CHUNK)}")
     return lib
