@@ -93,7 +93,21 @@ assemble -> solve:
   (against JAX's counts) and at n=800 (641,601 vertices, 1,280,000
   triangles: set-up broken down, and a trace of two iterations); every
   count exact.  The AMG paths launch the AMG kernel, 4 times per level and
-  V-cycle.
+  V-cycle;
+* slice G1b (imported quadrilaterals, the bilinear geometry; S5 on an
+  imported triangle mesh): S1-U and S3-U on the perturbed quad mesh of
+  tests/test_usolve.py (n=24, Jacobi BiCGStab) against the CPU lane; S1-U
+  with ``amg_preconditioner()`` at n=40, 80, 160 (against JAX's counts) and
+  n=800 (640,000 quads), the AMG kernel held on every level of its
+  hierarchy and its level 0 timed; ``InterfaceElasticityU`` at n=10 (JAX's
+  test path, against the CPU lane and JAX's count), at n=32 with Jacobi and
+  with ``amg_preconditioner()`` (Jacobi plus the band solve), and at n=120
+  (204,974 DoF) with Jacobi;
+* slice G2 (imported tetrahedra, ``UMesh3.box``): demo/unstructured/main.py's
+  main3 S1-S4 at n=12 against the CPU lane and JAX's counts and errors;
+  S1-U with ``amg_preconditioner()`` at n=8, 12, 16 and, by flexible GMRES,
+  at n=64 (1,572,864 tets), the AMG kernel held on every level of its
+  hierarchy and its level 0 timed.
 
 Every check raises; the script exits non-zero without a result when there
 is no card or no checkout.  The line before the last is a JSON record of
@@ -2521,10 +2535,11 @@ AMG_LAUNCHES = {40: 112, 80: 240, 160: 272, N_AMG_LARGE: 2112}
 KERNELS_G1A = {"amg_ell": "amg_ell_kernel"}
 
 
-def _u_mesh(pt, n: int, device: str, amp: float = 0.25, seed: int = 0):
-    """The demo's fallback mesh: the n x n triangle grid of [-1, 1]^2 with
-    its interior vertices moved by amp h (U[0, 1) - 1/2)."""
-    um, _ = pt.UMesh.from_grid(pt.Grid(n, n, U_BOX, pt.CellType.triangle, device="cpu"))
+def _u_mesh(pt, n: int, device: str, amp: float = 0.25, seed: int = 0, quad: bool = False):
+    """The demo's fallback mesh: the n x n triangle (or quadrilateral) grid
+    of [-1, 1]^2 with its interior vertices moved by amp h (U[0, 1) - 1/2)."""
+    ct = pt.CellType.quadrilateral if quad else pt.CellType.triangle
+    um, _ = pt.UMesh.from_grid(pt.Grid(n, n, U_BOX, ct, device="cpu"))
     verts = um.verts.copy()
     rng = np.random.default_rng(seed)
     interior = (np.abs(np.abs(verts[:, 0]) - 1.0) > 1e-12) & (np.abs(np.abs(verts[:, 1]) - 1.0) > 1e-12)
@@ -2796,7 +2811,7 @@ def _ell_bound(mode, nnz: int, n: int, n_x: int, dt):
 AMG_MODE_NAMES = {0: "apply", 1: "residual", 2: "jacobi", 3: "prolong-add"}
 
 
-def _amg_table_times(amg) -> dict:
+def _amg_table_times(amg, label: str = "kernel amg_ell", graphs: bool = True) -> dict:
     """The kernel on the scale run's hierarchy.  (1) Level 0's operator in
     three modes and its R, float32 and float64, with the L2 flushed before
     each launch (a 64 MB write, as before; and a 64 MB read, which leaves
@@ -2810,7 +2825,7 @@ def _amg_table_times(amg) -> dict:
     launches, the L2 warm as the cycle finds it, beside its byte bound and
     its launch floor (the same kernel, mode and group size on a 1-row,
     width-1 table); their sum over one V-cycle, and one whole V-cycle
-    captured in a graph."""
+    captured in a graph.  ``graphs=False`` stops after (1)."""
     ca = _amg()
     n0 = ca.launches
     lvl = amg.levels[0]
@@ -2848,13 +2863,16 @@ def _amg_table_times(amg) -> dict:
             name = AMG_MODE_NAMES[mode]
             out[tab, name, dt] = t
             lib = "" if t["library_ms"] is None else f", cuSPARSE CSR torch.mv {t['library_ms']:.4f}"
-            print(f"[kernel amg_ell] L0 {tab} {name:8s} {str(dt)[6:]:7s} {n} rows x width {w} ({nnz} nonzeros, "
+            print(f"[{label}] L0 {tab} {name:8s} {str(dt)[6:]:7s} {n} rows x width {w} ({nnz} nonzeros, "
                   f"{lanes} lanes per row): ms {t['ms']:.4f}, device {t['device_ms']:.4f} per launch (L2 flushed by a "
                   f"write; by a read, clean lines: {t['device_ms_clean']:.4f}), "
                   f"host {t['host_ms']:.4f} per call, plain {t['plain_ms']:.4f}{lib}; bound {bound_ms:.4f} by {by} "
                   f"({mb:.2f} MB: nonzeros, vectors; {bound_ms / t['device_ms']:.1%} by device time, "
                   f"{bound_ms / t['device_ms_clean']:.1%} with clean lines); the ELL's "
                   f"{w * n - nnz} padded slots add {pad_bytes / 1e6:.2f} MB")
+    if not graphs:
+        ca.launches = n0
+        return out
     # every launch of the V-cycle, through CUDA graphs
     dt = amg.dtype
     floors, tables = {}, {}
@@ -3018,6 +3036,407 @@ def run_slice_g1a(pt) -> tuple:
     return line, paths
 
 
+# ------------------------------------------------------ slices G1b and G2
+# G1b: imported quadrilateral meshes (the bilinear geometry) and S5 on an
+# imported triangle mesh; G2: imported tetrahedral meshes (UMesh3).  The JAX
+# package's counts and errors on the CPU come from
+# `JAX_PLATFORMS=cpu python scripts/reference_amg_counts.py` with the options
+# named beside each constant.
+# quads: tests/test_usolve.py's perturbed quad mesh (amplitude 0.2 h, seed 0),
+# the circle R = 0.7, u = cos x sin y
+N_QUAD, QUAD_AMP = 24, 0.2
+# `--cell quad 40 80 160`
+JAX_QUAD_AMG_IT = {40: 12, 80: 12, 160: 14}
+# S5-U: tests/test_usolve.py's data (the perturbed triangle mesh, amplitude
+# 0.25 h, E_in / E_out 1.0 / 0.1, u_vec / f_vec, the circle R = 0.7); n=10 as
+# JAX's own test solves it (deflated BiCGStab to 1e-9, maxiter 400), n=32 to
+# choose the preconditioner of the scale run at n=120 (the reference's level
+# 3 of param1.yaml: 14,641 vertices, 204,974 DoF), deflated BiCGStab to 1e-8
+N_S5U, N_S5U_PICK, N_S5U_LARGE = 10, 32, 120
+# amg_preconditioner() (Jacobi + the band solve) takes fewer iterations at
+# n=32 (166 against Jacobi's 378 on the H100; JAX 166 / 818), but its band,
+# on the Schwarz branch at n=120 (m=8,204 > dense_max), makes deflated
+# BiCGStab diverge there: 557 it to relres 8.0e-4 on the H100 (PERF.md), 808
+# it to 1.4e-3 in JAX (`--mode s5 --tol 1e-8 --maxiter 5000 --precond amg
+# 120`); the scale run takes Jacobi (JAX 1,808 it, `--mode s5 --tol 1e-8
+# --maxiter 5000 120`)
+S5U_SCALE_DIVERGES = ("amg",)
+# `--mode s5 10`; `--mode s5 --tol 1e-8 --maxiter 5000 [--precond amg] 32`
+JAX_S5U_IT = 142
+JAX_S5U_PICK_IT = {"jacobi": 818, "amg": 166}
+# tets: demo/unstructured/main.py's main3 (UMesh3.box of [-1, 1]^3, the sphere
+# r = 0.61, level-set degree 2, BiCGStab to 1e-10, maxiter 5000)
+N_TET, TET_R2 = 12, 0.61**2
+TET_BOX = ((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0))
+# `--cell tet --mode jacobi --scheme sN 12`: (it, relative L2, relative H10)
+JAX_TET = {"s1": (107, 5.899055e-01, 6.545365e-01), "s2": (41, 8.607203e-02, 1.504443e-01),
+           "s3": (216, 3.222113e-02, 5.382558e-02), "s4": (208, 4.206349e-02, 5.639023e-02)}
+# `--cell tet 8 12 16`, and `--cell tet --amg-dtype float64 8 12 16`
+JAX_TET_AMG_IT = {8: 3, 12: 16, 16: 15}
+JAX_TET_AMG64_IT = {8: 1, 12: 7, 16: 11}
+# under-resolved sizes (relative L2 error 1.31 / 0.59) where rounding sets
+# the count: the card 5 / 9, JAX 3 / 16 with its float32 cycle and 1 / 7
+# with a float64 one; reported beside JAX's, not held (PERF.md)
+TET_AMG_ROUNDING = (8, 12)
+# the tet scale run: 1,572,864 tets, 274,625 vertices, 549,250 DoF.  From
+# n=32 on, the band (m > dense_max) takes the Schwarz branch, whose fixed
+# inner sweeps make the preconditioner nonlinear: BiCGStab then diverges, in
+# JAX too (n=32: 500 it to relres 1.5e-4, `--cell tet 24 32`; on the H100 at
+# n=64, 183 it to relres 0.12: PERF.md), so the scale run takes flexible GMRES
+N_TET_LARGE = 64
+# the port's counts and the AMG kernel's launches on the H100 (PERF.md), exact
+QUAD_IT = {"s1": 79, "s3": 261}
+QUAD_AMG_IT = {40: 12, 80: 12, 160: 12, N_AMG_LARGE: 42}
+QUAD_AMG_LAUNCHES = {40: 96, 80: 96, 160: 192, N_AMG_LARGE: 1344}
+S5U_IT = {N_S5U: 133, "jacobi": 1294}
+TET_IT = {"s1": 104, "s2": 38, "s3": 180, "s4": 199}
+TET_AMG_IT = {8: 5, 12: 9, 16: 16, N_TET_LARGE: 180}
+# n=8: no AMG (a bulk under 32 DoFs); n=12 and 16: a one-level AMG (its
+# coarse inverse alone)
+TET_AMG_LAUNCHES = {8: 0, 12: 0, 16: 0, N_TET_LARGE: 2160}
+
+
+def _pin_launches(label: str, got: int, expect: int) -> None:
+    if got != expect:
+        raise AssertionError(f"{label}: {got} AMG kernel launches, not {expect}")
+
+
+def _u_solution_against_cpu(label: str, r, rh, primal: str) -> None:
+    """The card's solution against the CPU lane's: the primal field to
+    1e-6, the auxiliary fields to U_AUX_TOL (relative to max|x|)."""
+    diffs = {k: _rel(r.x[k], rh.x[k]) for k in rh.x}
+    print(f"[{label}] solution against the CPU lane: max rel diff " + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items())
+          + f" (tol {primal} 1e-6, the others {U_AUX_TOL:.0e})")
+    if any(v > (1e-6 if k == primal else U_AUX_TOL) for k, v in diffs.items()):
+        raise AssertionError(f"{label}: the solution differs from the CPU lane's: {diffs}")
+
+
+def _amg_against_jax(label: str, it: int, jit: int, held: bool = True, jit64: int = None) -> None:
+    """The count against JAX's within max(3, 0.25 it); ``held=False``
+    reports it beside JAX's counts with the cycle in float32 (its default)
+    and float64 (``jit64``) without holding it: on an under-resolved
+    problem, where rounding sets the count (PERF.md)."""
+    if held:
+        _within_reference(label, it, jit)
+        return
+    print(f"[{label}] against the JAX package on the CPU, not held (rounding sets the count here): {it} it; JAX "
+          f"{jit} with its float32 cycle, {jit64} with amg_preconditioner(dtype=float64)")
+
+
+def _amg_run(label: str, s, uex, t_mesh: float, t_tag: float, cells: str, method: str = "bicgstab"):
+    """Assemble, amg_preconditioner() and ``method`` to SCHEME_TOL on the
+    card: ``(vc, result, errors, launches)``, with the set-up parts
+    printed."""
+    ca = _amg()
+    _, t_asm = _sync_time(s.assemble)
+    vc, t_pre = _sync_time(s.amg_preconditioner)
+    r, t_solve = _sync_time(s.solve, method=method, tol=SCHEME_TOL, maxiter=500, precond=vc)
+    launches = ca.launches
+    e = s.l2_h1_errors(s.u_h, uex)
+    su = vc.setup_seconds
+    print(f"[{label}] {s.mesh.num_vertices} vertices, {s.mesh.num_cells} {cells}, "
+          f"{sum(v.numel() for v in s.b.values())} DoFs: mesh {t_mesh:.3f} s, setup (tags, spaces, interpolation) "
+          f"{t_tag:.3f} s, assemble {t_asm:.3f} s, amg_preconditioner() {t_pre:.3f} s (bulk CSR {su['bulk csr']:.3f} s, "
+          f"AMG build {su['amg build']:.3f} s, band {su['band']:.3f} s; {_band(vc)}); AMG levels {_amg_tables(vc)}; "
+          f"{method} {t_solve:.3f} s, {r.iterations} it, relres {r.residual:.3e}; L2 {e['l2']:.6e}, H10 "
+          f"{e['h10']:.6e} ({method}); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; AMG kernel "
+          f"launches {launches}")
+    if not (r.converged and r.residual <= 10 * SCHEME_TOL):
+        raise AssertionError(f"{label}: not converged, relres {r.residual}")
+    # a bulk under 32 DoFs gets no AMG, and a one-level AMG is its coarse
+    # inverse alone (as in JAX): no ELL launch then
+    if any(len(a.levels) > 1 for a in vc.amgs.values()) != (launches > 0):
+        raise AssertionError(f"{label}: {launches} AMG kernel launches on levels {_amg_tables(vc)}")
+    return vc, r, e, launches
+
+
+def _amg_scale_checks(label: str, vc, key: str) -> dict:
+    """The kernel held against its plain version on every table of the
+    scale run's hierarchy, then level 0 timed (no CUDA-graph table)."""
+    t0 = time.perf_counter()
+    _hold_amg_levels(vc.amgs["u"], label)
+    t1 = time.perf_counter()
+    times = _amg_table_times(vc.amgs["u"], label=f"kernel amg_ell {key}", graphs=False)
+    print(f"[time] {label}: kernel held on every table {t1 - t0:.1f} s, level 0 timed {time.perf_counter() - t1:.1f} s")
+    return times
+
+
+def phase_quad(pt) -> dict:
+    """Imported quadrilaterals: S1-U and S3-U at N_QUAD by Jacobi BiCGStab
+    against the CPU lane (tags, b and one matvec to 1e-12, u to 1e-6, the
+    auxiliary fields to U_AUX_TOL); S1-U with amg_preconditioner() at n=40,
+    80, 160 (against JAX's counts) and N_AMG_LARGE (641,601 vertices,
+    1,283,202 DoF), the kernel held on every level of its hierarchy and its
+    level 0 timed.  Returns (launches per path, the level-0 times)."""
+    ca = _amg()
+    paths, times = {}, None
+    for name in ("s1", "s3"):
+        label = f"u-quad {name} n={N_QUAD}"
+        ca.launches = 0
+        mesh = _u_mesh(pt, N_QUAD, DEVICE, amp=QUAD_AMP, quad=True)
+        (s, uex, region), t_set = _sync_time(_u_scheme, pt, name, mesh, 0.49)
+        _, t_asm = _sync_time(s.assemble)
+        r, t_solve = _sync_time(s.solve, method="bicgstab", tol=SCHEME_TOL, maxiter=5000)
+        paths[label] = ca.launches
+        e = s.l2_h1_errors(s.u_h, uex, region=region)
+        h, _, _ = _u_scheme(pt, name, _u_mesh(pt, N_QUAD, "cpu", amp=QUAD_AMP, quad=True), 0.49)
+        h.assemble()
+        rh = h.solve(method="bicgstab", tol=SCHEME_TOL, maxiter=5000)
+        print(f"[{label}] {s.mesh.num_vertices} vertices, {s.mesh.num_cells} quadrilaterals, "
+              f"{sum(v.numel() for v in s.b.values())} DoFs: setup (tags) {t_set:.3f} s, assemble {t_asm:.3f} s, "
+              f"bicgstab {t_solve:.3f} s, {r.iterations} it (CPU lane {rh.iterations}), relres {r.residual:.3e}; "
+              f"L2 {e['l2']:.6e}, H10 {e['h10']:.6e}; AMG launches {paths[label]}")
+        if not (r.converged and r.residual <= 10 * SCHEME_TOL):
+            raise AssertionError(f"{label}: not converged, relres {r.residual}")
+        _u_check_tags(s, h, 0.49, label)
+        _hold(label, _against_cpu(s, h, taps=False))
+        _u_solution_against_cpu(label, r, rh, "u")
+        _pin(label, r.iterations, QUAD_IT[name])
+    for n in (40, 80, 160, N_AMG_LARGE):
+        label = f"u-quad-amg s1 n={n}"
+        ca.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        mesh, t_mesh = _sync_time(_u_mesh, pt, n, DEVICE, amp=QUAD_AMP, quad=True)
+        (s, uex, _), t_tag = _sync_time(_u_scheme, pt, "s1", mesh, 0.49)
+        vc, r, _, launches = _amg_run(label, s, uex, t_mesh, t_tag, "quadrilaterals")
+        paths[label] = launches
+        _pin_launches(label, launches, QUAD_AMG_LAUNCHES[n])
+        if n in JAX_QUAD_AMG_IT:
+            _amg_against_jax(label, r.iterations, JAX_QUAD_AMG_IT[n])
+        _pin(label, r.iterations, QUAD_AMG_IT[n])
+        if n == N_AMG_LARGE:
+            times = _amg_scale_checks(label, vc, "quad")
+        del s, vc, r, mesh
+        torch.cuda.empty_cache()
+    return paths, times
+
+
+def _s5u_data():
+    """tests/test_usolve.py's u_vec, f_vec and the Jacobian of u_vec."""
+
+    def u_vec(x):
+        return torch.stack([torch.sin(x[..., 0]) * torch.cos(x[..., 1]), x[..., 0] * x[..., 1]], -1)
+
+    def f_vec(x):
+        return torch.stack([torch.cos(x[..., 0]) + x[..., 1], torch.sin(x[..., 1]) - x[..., 0]], -1)
+
+    def u_grad(x):
+        sx, cx, sy, cy = torch.sin(x[..., 0]), torch.cos(x[..., 0]), torch.sin(x[..., 1]), torch.cos(x[..., 1])
+        return torch.stack([torch.stack([cx * cy, -sx * sy], -1), torch.stack([x[..., 1], x[..., 0]], -1)], -2)
+
+    return u_vec, f_vec, u_grad
+
+
+def _s5u(pt, n: int, device: str):
+    from phifem_tpu_torch.models import InterfaceElasticityU
+
+    u_vec, f_vec, _ = _s5u_data()
+    s = InterfaceElasticityU(_u_mesh(pt, n, device), mode="bg", E_in=1.0, E_out=0.1)
+    return s.setup(lambda x: x[..., 0] ** 2 + x[..., 1] ** 2 - 0.49, f_vec, u_vec)
+
+
+def _s5u_scale(pt, n: int, pre: str, label: str, paths: dict):
+    """S5-U at ``n`` by deflated BiCGStab to 1e-8 (maxiter 5000) with the
+    preconditioner ``pre``: the set-up parts, the count, L2 / H10 against
+    u_vec.  Returns (result, converged)."""
+    ca = _amg()
+    ca.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    s, t_set = _sync_time(_s5u, pt, n, DEVICE)
+    _, t_asm = _sync_time(s.assemble)
+    kw, t_pre = {}, 0.0
+    if pre == "amg":
+        vc, t_pre = _sync_time(s.amg_preconditioner)
+        kw = {"precond": vc}
+    r, t_solve = _sync_time(s.solve, method="bicgstab", tol=1e-8, maxiter=5000, **kw)
+    paths[label] = ca.launches
+    u_vec, _, u_grad = _s5u_data()
+    e = s.l2_h1_errors(s.u_h, u_vec, exact_grad=u_grad, region=(1, 2, 3))
+    print(f"[{label}] {s.mesh.num_vertices} vertices, {s.mesh.num_cells} triangles, "
+          f"{sum(v.numel() for v in s.b.values())} DoFs: setup (tags, spaces) {t_set:.3f} s, assemble {t_asm:.3f} s, "
+          f"preconditioner {t_pre:.3f} s" + ("" if pre == "jacobi" else f" ({_band(kw['precond'])})")
+          + f"; deflated bicgstab {t_solve:.3f} s, {r.iterations} it ({1e3 * t_solve / max(r.iterations, 1):.2f} ms "
+          f"per iteration), relres {r.residual:.3e}; L2 {e['l2']:.6e}, H10 {e['h10']:.6e} against u_vec (the "
+          f"solution's rigid-motion gauge is the deflation's); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del s
+    torch.cuda.empty_cache()
+    return r, bool(r.converged and r.residual <= 10 * 1e-8)
+
+
+def phase_s5u(pt) -> dict:
+    """S5 on an imported triangle mesh: at N_S5U JAX's test path (deflated
+    BiCGStab to 1e-9, maxiter 400), held against the CPU lane (tags, b and
+    one matvec to 1e-12) and JAX's count; at N_S5U_PICK deflated BiCGStab to
+    1e-8 with the default Jacobi and with amg_preconditioner() (Jacobi plus
+    the band solve: no AMG on vector fields); the one of fewer iterations
+    runs the scale run at N_S5U_LARGE, its count pinned, L2 / H10 against
+    u_vec reported.  No path launches the AMG kernel."""
+    ca = _amg()
+    paths = {}
+    label = f"u-s5 n={N_S5U}"
+    ca.launches = 0
+    s, t_set = _sync_time(_s5u, pt, N_S5U, DEVICE)
+    _, t_asm = _sync_time(s.assemble)
+    r, t_solve = _sync_time(s.solve, method="bicgstab", tol=1e-9, maxiter=400)
+    paths[label] = ca.launches
+    h = _s5u(pt, N_S5U, "cpu").assemble()
+    rh = h.solve(method="bicgstab", tol=1e-9, maxiter=400)
+    print(f"[{label}] {s.mesh.num_vertices} vertices, {sum(v.numel() for v in s.b.values())} DoFs: setup {t_set:.3f} s, "
+          f"assemble {t_asm:.3f} s, deflated bicgstab {t_solve:.3f} s, {r.iterations} it (CPU lane {rh.iterations}), "
+          f"relres {r.residual:.3e}")
+    if not r.converged:
+        raise AssertionError(f"{label}: not converged, relres {r.residual}")
+    _u_check_tags(s, h, 0.49, label)
+    _hold(label, _against_cpu(s, h, taps=False))
+    _within_reference(label, r.iterations, JAX_S5U_IT)
+    _pin(label, r.iterations, S5U_IT[N_S5U])
+    picks = {}
+    for pre in ("jacobi", "amg"):
+        label = f"u-s5 n={N_S5U_PICK} {pre}"
+        ca.launches = 0
+        s = _s5u(pt, N_S5U_PICK, DEVICE).assemble()
+        kw = {} if pre == "jacobi" else {"precond": s.amg_preconditioner()}
+        r, t_solve = _sync_time(s.solve, method="bicgstab", tol=1e-8, maxiter=5000, **kw)
+        paths[label] = ca.launches
+        picks[pre] = r.iterations if r.converged else 10**9
+        print(f"[{label}] deflated bicgstab to 1e-8: {r.iterations} it in {t_solve:.3f} s, relres {r.residual:.3e} "
+              f"(JAX {JAX_S5U_PICK_IT[pre]} on the CPU)" + ("" if pre == "jacobi" else f"; {_band(kw['precond'])}"))
+    # the scale run with the preconditioner of fewer iterations at
+    # N_S5U_PICK, unless it is known to diverge at N_S5U_LARGE
+    pre = min(picks, key=picks.get)
+    if pre in S5U_SCALE_DIVERGES:
+        other = "jacobi" if pre == "amg" else "amg"
+        print(f"[u-s5 n={N_S5U_LARGE}] {pre} takes fewer iterations at n={N_S5U_PICK} ({picks[pre]} against "
+              f"{picks[other]}) but diverges at n={N_S5U_LARGE}, in JAX too (S5U_SCALE_DIVERGES): the scale run "
+              f"takes {other}")
+        pre = other
+    label = f"u-s5 n={N_S5U_LARGE} {pre}"
+    r, ok = _s5u_scale(pt, N_S5U_LARGE, pre, label, paths)
+    if not ok:
+        raise AssertionError(f"{label}: not converged to 1e-8 within 5000 it, relres {r.residual}")
+    _pin(label, r.iterations, S5U_IT[pre])
+    if any(paths.values()):
+        raise AssertionError(f"S5-U launched the AMG kernel (it has no vector AMG): {paths}")
+    return paths
+
+
+def _tet_scheme(pt, name: str, mesh):
+    """demo/unstructured/main.py's main3 scheme ``name`` on ``mesh``, set
+    up: ``(scheme, exact solution, error region)``."""
+    from phifem_tpu_torch.models import NeumannPoissonU, RobinPoissonU, StrongDirichletPoissonU, WeakDirichletPoissonU
+
+    ls = lambda x: (x**2).sum(-1) - TET_R2
+    u = lambda x: torch.cos(x[..., 0]) * torch.sin(x[..., 1]) * torch.cos(x[..., 2])
+    fex = lambda x: 3.0 * u(x)
+
+    def nderiv(x):
+        g = torch.stack([-torch.sin(x[..., 0]) * torch.sin(x[..., 1]) * torch.cos(x[..., 2]),
+                         torch.cos(x[..., 0]) * torch.cos(x[..., 1]) * torch.cos(x[..., 2]),
+                         -torch.cos(x[..., 0]) * torch.sin(x[..., 1]) * torch.sin(x[..., 2])], -1)
+        return (g * x).sum(-1) / torch.clamp(torch.linalg.norm(x, dim=-1), min=1e-12)
+
+    if name == "s1":
+        return WeakDirichletPoissonU(mesh, mode="bg", levelset_degree=2).setup(ls, fex, u_D=u), u, (1, 2)
+    if name == "s2":
+        uex = lambda x: torch.sin((x**2).sum(-1) - TET_R2)
+
+        def f2(x):
+            q = (x**2).sum(-1)
+            return 4.0 * q * torch.sin(q - TET_R2) - 6.0 * torch.cos(q - TET_R2)
+
+        return StrongDirichletPoissonU(mesh, mode="bg", levelset_degree=2).setup(ls, f2), uex, (1, 2)
+    if name == "s3":
+        return NeumannPoissonU(mesh, mode="bg", levelset_degree=2).setup(ls, lambda x: fex(x) + u(x), nderiv), u, (1,)
+    s = RobinPoissonU(mesh, mode="bg", levelset_degree=2, robin_coef=1.0)
+    return s.setup(ls, lambda x: fex(x) + u(x), lambda x: nderiv(x) + u(x)), u, (1,)
+
+
+def phase_tet(pt) -> dict:
+    """main3's S1-S4 at N_TET by Jacobi BiCGStab (maxiter 5000): counts
+    exact and within max(3, 0.25 it) of JAX's, L2 / H10 within 5% of JAX's;
+    against the CPU lane: tags, b and one matvec to 1e-12, u to 1e-6 and the
+    auxiliary fields to U_AUX_TOL."""
+    ca = _amg()
+    paths = {}
+    for name in ("s1", "s2", "s3", "s4"):
+        label = f"u-tet {name} n={N_TET}"
+        ca.launches = 0
+        mesh = pt.UMesh3.box(N_TET, N_TET, N_TET, TET_BOX, device=DEVICE)
+        (s, uex, region), t_set = _sync_time(_tet_scheme, pt, name, mesh)
+        _, t_asm = _sync_time(s.assemble)
+        r, t_solve = _sync_time(s.solve, method="bicgstab", tol=SCHEME_TOL, maxiter=5000)
+        paths[label] = ca.launches
+        e = s.l2_h1_errors(s.u_h, uex, region=region)
+        t0 = time.perf_counter()
+        h, _, _ = _tet_scheme(pt, name, pt.UMesh3.box(N_TET, N_TET, N_TET, TET_BOX, device="cpu"))
+        h.assemble()
+        rh = h.solve(method="bicgstab", tol=SCHEME_TOL, maxiter=5000)
+        print(f"[{label}] {s.mesh.num_vertices} vertices, {s.mesh.num_cells} tets, "
+              f"{sum(v.numel() for v in s.b.values())} DoFs: setup (tags) {t_set:.3f} s, assemble {t_asm:.3f} s, "
+              f"bicgstab {t_solve:.3f} s, {r.iterations} it (CPU lane {rh.iterations}, {time.perf_counter() - t0:.1f} "
+              f"s), relres {r.residual:.3e}; L2 {e['l2']:.6e}, H10 {e['h10']:.6e}")
+        if not (r.converged and r.residual <= 10 * SCHEME_TOL):
+            raise AssertionError(f"{label}: not converged, relres {r.residual}")
+        _u_check_tags(s, h, TET_R2, label)
+        _hold(label, _against_cpu(s, h, taps=False))
+        _u_solution_against_cpu(label, r, rh, "w" if name == "s2" else "u")
+        jit, jl2, jh10 = JAX_TET[name]
+        _within_reference(label, r.iterations, jit, (e["l2"], e["h10"]), (jl2, jh10))
+        _pin(label, r.iterations, TET_IT[name])
+    return paths
+
+
+def phase_tet_amg(pt) -> tuple:
+    """main3's S1 with amg_preconditioner() by BiCGStab at n=8, 12, 16
+    (against JAX's counts) and by flexible GMRES at N_TET_LARGE (TET_SCALE:
+    BiCGStab diverges there), the kernel held on every level of the scale
+    run's hierarchy and its level 0 timed.  Returns (launches per path, the
+    level-0 times)."""
+    ca = _amg()
+    paths, times = {}, None
+    for n in (8, 12, 16, N_TET_LARGE):
+        label = f"u-tet-amg s1 n={n}"
+        ca.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        mesh, t_mesh = _sync_time(pt.UMesh3.box, n, n, n, TET_BOX, device=DEVICE)
+        (s, uex, _), t_tag = _sync_time(_tet_scheme, pt, "s1", mesh)
+        vc, r, _, launches = _amg_run(label, s, uex, t_mesh, t_tag, "tets",
+                                      "fgmres" if n == N_TET_LARGE else "bicgstab")
+        paths[label] = launches
+        _pin_launches(label, launches, TET_AMG_LAUNCHES[n])
+        if n in JAX_TET_AMG_IT:
+            _amg_against_jax(label, r.iterations, JAX_TET_AMG_IT[n], held=n not in TET_AMG_ROUNDING,
+                             jit64=JAX_TET_AMG64_IT[n])
+        _pin(label, r.iterations, TET_AMG_IT[n])
+        if n == N_TET_LARGE:
+            times = _amg_scale_checks(label, vc, "tet")
+        del s, vc, r, mesh
+        torch.cuda.empty_cache()
+    return paths, times
+
+
+def run_slices_g1b_g2(pt) -> tuple:
+    """Every slice-G1b and G2 phase; returns (the AMG launches per path,
+    {"quad": level-0 times, "tet": level-0 times})."""
+    t0 = time.perf_counter()
+    paths, quad_times = phase_quad(pt)
+    t1 = time.perf_counter()
+    print(f"[time] u-quad (S1 / S3 n={N_QUAD}, AMG n=40-{N_AMG_LARGE}) {t1 - t0:.1f} s")
+    paths.update(phase_s5u(pt))
+    t2 = time.perf_counter()
+    print(f"[time] u-s5 (n={N_S5U}, {N_S5U_PICK}, {N_S5U_LARGE}) {t2 - t1:.1f} s")
+    paths.update(phase_tet(pt))
+    t3 = time.perf_counter()
+    print(f"[time] u-tet (S1-S4 n={N_TET}) {t3 - t2:.1f} s")
+    tet_paths, tet_times = phase_tet_amg(pt)
+    paths.update(tet_paths)
+    print(f"[time] u-tet-amg (n=8-{N_TET_LARGE}) {time.perf_counter() - t3:.1f} s; slices G1b and G2 phases "
+          f"{time.perf_counter() - t0:.1f} s")
+    print(f"[main path G1b / G2] AMG kernel launches per path: {paths}")
+    return paths, {"quad": quad_times, "tet": tet_times}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -3128,6 +3547,22 @@ def main() -> int:
     t_g = time.perf_counter()
     amg_line, _ = run_slice_g1a(pt)
     print(f"[time] slice G1a phases {time.perf_counter() - t_g:.1f} s")
+
+    # slices G1b and G2: imported quadrilaterals, S5-U, imported tetrahedra;
+    # the S1-U AMG paths on quads and tets count the AMG kernel too
+    t_g = time.perf_counter()
+    paths_u, times_u = run_slices_g1b_g2(pt)
+    print(f"[time] slices G1b and G2 phases {time.perf_counter() - t_g:.1f} s")
+    amg_line["launches"] += sum(paths_u.values())
+    amg_line["launches_by_path"].update(paths_u)
+    for cell, t_u in times_u.items():
+        jac = t_u["A", "jacobi", torch.float32]
+        amg_line[f"{cell}_shape"] = (f"S1-U {cell} n={N_AMG_LARGE if cell == 'quad' else N_TET_LARGE} AMG level 0: "
+                                     f"{jac['rows']} rows x ELL width {jac['width']}, {jac['lanes']} lanes per row")
+        for (tab, mode, dt), t in t_u.items():
+            for k in ("ms", "device_ms", "device_ms_clean", "host_ms", "plain_ms", "bound_ms", "library_ms"):
+                if t.get(k) is not None:
+                    amg_line[f"{cell}_{tab}_{mode}_{str(dt)[6:]}_{k}"] = t[k]
 
     print(f"[main path] kernel launches per path: {paths}")
     if paths["box Poisson"]["stencil"] <= 0:

@@ -10,9 +10,9 @@ p-multigrid for degree >= 2 (``pmg``), box Poisson and the phi-FEM schemes
 S1-S4 in bg and sub mode and S5 (two-material interface elasticity: sparse
 direct and deflated, lattice-preconditioned BiCGStab); in 3D, the hex
 grid and its tagging, the scalar and block lattice multigrid, box Poisson,
-S1 at Q1-Q3, S2, S3, S4 and S5; on imported triangle meshes
-(``UMesh``, host tagging, ``uassembly``), S1-S4 with smoothed-aggregation
-AMG (``amg``).  The P1 cell-stencil matvec
+S1 at Q1-Q3, S2, S3, S4 and S5; on imported triangle, quadrilateral and
+tetrahedral meshes (``UMesh``, ``UMesh3``, host tagging, ``uassembly``),
+S1-S4 with smoothed-aggregation AMG (``amg``) and, in 2D, S5.  The P1 cell-stencil matvec
 (``ops/cuda_stencil.py``), the tap-form matvec (``ops/cuda_taps.py``), the
 masked hex-cell stencil and its 3-channel block form
 (``ops/cuda_hex3.py``) and the 27-point lattice sweep and its 3-channel
@@ -21,8 +21,8 @@ block form (``ops/cuda_lattice3.py``) and the AMG cycle's ELL sweep
 tensors on an NVIDIA Hopper card and their plain PyTorch versions for
 tensors on the CPU.
 
-Device and dtype are explicit: a :class:`Grid` (or :class:`Grid3`, or
-:class:`UMesh`) takes ``device=`` and
+Device and dtype are explicit: a :class:`Grid` (or :class:`Grid3`,
+:class:`UMesh`, :class:`UMesh3`) takes ``device=`` and
 ``dtype=`` (default float64), and everything built on it follows.  The
 package sets no global torch default.
 """
@@ -32,6 +32,7 @@ from .grid3 import Grid3
 from .spaces import Function, Space, interpolate
 from .tagging import Submesh, compute_tags_measures, tag_cells, tag_facets
 from .umesh import UDiscreteLevelset, UMesh, USideList, USubmesh
+from .umesh3 import UDiscreteLevelset3, UMesh3
 from .uassembly import UFunction, USpace
 from .uassembly import interpolate as interpolate_u
 from .amg import AMG, amg_preconditioner, build_amg
@@ -55,6 +56,7 @@ from .models import (
     BoxPoisson3,
     InterfaceElasticity,
     InterfaceElasticity3,
+    InterfaceElasticityU,
     NeumannPoisson,
     NeumannPoisson3,
     NeumannPoissonU,
@@ -81,6 +83,8 @@ __all__ = [
     "tag_facets",
     "Submesh",
     "UMesh",
+    "UMesh3",
+    "UDiscreteLevelset3",
     "UDiscreteLevelset",
     "USideList",
     "USubmesh",
@@ -124,6 +128,7 @@ __all__ = [
     "NeumannPoisson3",
     "RobinPoisson3",
     "InterfaceElasticity3",
+    "InterfaceElasticityU",
     "WeakDirichletPoissonU",
     "StrongDirichletPoissonU",
     "NeumannPoissonU",

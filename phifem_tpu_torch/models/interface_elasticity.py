@@ -69,8 +69,9 @@ def _div_tensor(t):
     return torch.einsum("ijj->i", t.grad)
 
 
-def dof_mask_from_cells(space: Space, cells: np.ndarray) -> np.ndarray:
-    """Host boolean mask of the scalar DoFs touched by ``cells``."""
+def dof_mask_from_cells(space, cells: np.ndarray) -> np.ndarray:
+    """Host boolean mask of the scalar DoFs touched by ``cells`` (of a
+    :class:`Space` or a ``USpace``: both have ``cell_dofs_np``)."""
     mask = np.zeros(space.num_scalar_dofs, bool)
     mask[space.cell_dofs_np[np.asarray(cells, np.int64)].reshape(-1)] = True
     return mask
@@ -174,9 +175,14 @@ def _zero_fields(system: System):
             for n, sp in system.fields.items()}
 
 
-def s5_rigid_modes(system: System, U: Space) -> tuple:
+def s5_rigid_modes(system: System, U) -> tuple:
     """Collective rigid-body motions of (u_in, u_out): the S5 system's exact
-    null space (see :meth:`InterfaceElasticity.rigid_modes`)."""
+    null space (see :meth:`InterfaceElasticity.rigid_modes`).  ``U`` is a
+    structured :class:`Space` or an imported mesh's ``USpace``; each
+    interpolates by its own backend."""
+    from ..uassembly import USpace, interpolate as interpolate_u
+
+    interp = interpolate_u if isinstance(U, USpace) else interpolate
     modes = []
     for fn in (
         lambda x: torch.stack([torch.ones(x.shape[:-1], dtype=x.dtype, device=x.device),
@@ -185,7 +191,7 @@ def s5_rigid_modes(system: System, U: Space) -> tuple:
                                torch.ones(x.shape[:-1], dtype=x.dtype, device=x.device)], dim=-1),
         lambda x: torch.stack([-x[..., 1], x[..., 0]], dim=-1),
     ):
-        w = interpolate(fn, U).data
+        w = interp(fn, U).data
         m = _zero_fields(system)
         m["u_in"] = w
         m["u_out"] = w
@@ -281,9 +287,10 @@ def s5_fourier_builder(system: System, grid, cut_pts: np.ndarray, rin: float, K:
     return z_builder, nmodes
 
 
-def s5_recombine(U: Space, cell_tags: np.ndarray, u_in: torch.Tensor, u_out: torch.Tensor) -> torch.Tensor:
+def s5_recombine(U, cell_tags: np.ndarray, u_in: torch.Tensor, u_out: torch.Tensor) -> torch.Tensor:
     """One displacement over the whole box: both halves halved on cut
-    cells, each half's strictly-opposite-side DoFs zeroed, then added."""
+    cells, each half's strictly-opposite-side DoFs zeroed, then added.
+    ``U`` is a structured :class:`Space` or a ``USpace``."""
     ct = np.asarray(cell_tags)
     m_cut = dof_mask_from_cells(U, np.where(ct == 2)[0])
     m_int = dof_mask_from_cells(U, np.where(ct == 1)[0])

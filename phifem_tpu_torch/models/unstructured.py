@@ -1,8 +1,9 @@
-"""phi-FEM schemes on imported triangle meshes.
+"""phi-FEM schemes on imported meshes (triangles, quadrilaterals, tetrahedra).
 
-Counterpart of :mod:`phifem_tpu.models.unstructured` for the scalar
-schemes: S1 weak Dirichlet, S2 strong Dirichlet, S3 Neumann and S4 Robin.
-The forms are the structured schemes' own (``s1_forms`` ... ``s4_forms``),
+Counterpart of :mod:`phifem_tpu.models.unstructured`: S1 weak Dirichlet,
+S2 strong Dirichlet, S3 Neumann and S4 Robin in 2D and 3D, and S5
+two-material interface elasticity in 2D (:class:`InterfaceElasticityU`).
+The forms are the structured schemes' own (``s1_forms`` ... ``s5_forms``),
 assembled through :mod:`phifem_tpu_torch.uassembly` and solved by the same
 equilibrated Krylov stack; on a ``UMesh.from_grid`` copy of a structured
 grid the two discretize identically.  Preconditioners: the default
@@ -21,7 +22,7 @@ import torch
 from torch.func import grad
 
 from ..assembly import CellTerm, System
-from ..solvers import SolveResult, solve
+from ..solvers import DirichletBC, SolveResult, solve
 from ..tagging import compute_tags_measures
 from ..uassembly import (
     UFunction,
@@ -29,6 +30,7 @@ from ..uassembly import (
     assemble_operator,
     assemble_scalar,
     assemble_vector,
+    boundary_dof_mask,
     interpolate,
 )
 from ..umesh import UMesh, _u_build_submesh
@@ -42,11 +44,12 @@ __all__ = [
     "StrongDirichletPoissonU",
     "NeumannPoissonU",
     "RobinPoissonU",
+    "InterfaceElasticityU",
 ]
 
 
 def _grad_of(f: Callable) -> Callable:
-    """Batched gradient of a pointwise scalar callable ``f((n, 2)) -> (n,)``
+    """Batched gradient of a pointwise scalar callable ``f((n, d)) -> (n,)``
     (rows decouple, so ``grad(sum(f))`` is the per-row gradient)."""
     return grad(lambda pts: torch.sum(f(pts)))
 
@@ -55,7 +58,7 @@ def _grad_of(f: Callable) -> Callable:
 class USchemeBase:
     """Tagging, measures, solve and errors shared by the imported-mesh
     schemes: the :class:`~phifem_tpu_torch.models.base.SchemeBase` of a
-    ``UMesh``."""
+    ``UMesh`` or ``UMesh3``."""
 
     mesh: UMesh
     mode: str = "bg"
@@ -324,3 +327,76 @@ class RobinPoissonU(NeumannPoissonU):
 
         return s4_forms(self.pen_coef, self.stab_coef, self.robin_coef, self.primal_degree, self.vector_degree,
                         self.levelset_degree, self.phi_h, self.f_h, self.u_N, self.boundary_measure())
+
+
+@dataclasses.dataclass
+class InterfaceElasticityU(USchemeBase):
+    """S5 two-material interface elasticity on an imported 2D mesh: the
+    structured :class:`~phifem_tpu_torch.models.interface_elasticity.
+    InterfaceElasticity`'s five fields, forms (``s5_forms``: contrast-weighted
+    penalties, the one-sided ds(100) / ds(101) terms), Dirichlet lifting of
+    u_in on the outer boundary, rigid-mode deflation and cut-cell
+    recombination, in bg mode.  ``amg_preconditioner()`` gives Jacobi plus
+    the band solve here: every field is a vector, and AMG takes scalar
+    blocks only."""
+
+    primal_degree: int = 1
+    flux_degree: int = 1
+    auxiliary_degree: int = 1
+    levelset_degree: int = 1
+    E_in: float = 1.0
+    nu_in: float = 0.3
+    E_out: float = 0.001
+    nu_out: float = 0.3
+
+    def setup(self, levelset: LevelSetLike, f: Union[Callable, UFunction], u_dbc: Union[Callable, UFunction]):
+        if self.mode != "bg":
+            raise ValueError("S5 runs on the background mesh (bg mode)")
+        if self.mesh.dim != 2:
+            raise NotImplementedError(
+                "S5-U is 2D (plane strain); the structured InterfaceElasticity3 covers 3D interface elasticity"
+            )
+        self.tag(levelset)
+        m = self.mesh
+        U = USpace.lagrange(m, self.primal_degree, (2,))
+        T = USpace.lagrange(m, self.flux_degree, (2, 2))
+        P = USpace.lagrange(m, self.auxiliary_degree, (2,))
+        Vphi = USpace.lagrange(m, self.levelset_degree)
+        self.U, self.T, self.P = U, T, P
+        self.system = System({"u_in": U, "u_out": U, "y_in": T, "y_out": T, "p": P})
+        self.phi_h = levelset if isinstance(levelset, UFunction) else interpolate(levelset, Vphi)
+        self.f = f
+        self.u_dbc = u_dbc if isinstance(u_dbc, UFunction) else interpolate(u_dbc, U)
+        self.bcs = (DirichletBC("u_in", boundary_dof_mask(U)[:, None], self.u_dbc.data),)
+        self._setup_args = (levelset, f, u_dbc)
+        return self
+
+    def assemble(self, rhs: bool = True):
+        from .interface_elasticity import s5_forms
+
+        return self._assemble_forms(
+            s5_forms(self.pen_coef, self.stab_coef, self.E_in, self.nu_in, self.E_out, self.nu_out,
+                     self.primal_degree, self.flux_degree, self.levelset_degree, self.phi_h, self.f,
+                     self.tags.boundaries_measure(100), self.tags.boundaries_measure(101)),
+            rhs,
+        )
+
+    def rigid_modes(self) -> tuple:
+        from .interface_elasticity import s5_rigid_modes
+
+        return s5_rigid_modes(self.system, self.U)
+
+    def solve(self, method: str = "bicgstab", tol: float = 1e-10, **kw) -> SolveResult:
+        """Solve with the Dirichlet rows; iterative methods deflate the
+        collective rigid modes unless ``deflate`` is given, ``"dense"``
+        takes the system as it is."""
+        from .interface_elasticity import s5_recombine
+
+        if method != "dense" and "deflate" not in kw:
+            kw["deflate"] = self.rigid_modes()
+        res = solve(self.op, self.b, bcs=self.bcs, method=method, tol=tol, **kw)
+        self.result = res
+        self.u_in_h = UFunction(self.U, res.x["u_in"])
+        self.u_out_h = UFunction(self.U, res.x["u_out"])
+        self.u_h = UFunction(self.U, s5_recombine(self.U, self.cell_tags, res.x["u_in"], res.x["u_out"]))
+        return res

@@ -356,18 +356,16 @@ def compute_tags_measures(
     measure id 0 and the maps ``[cells, facets]`` to parent ids.
 
     ``grid`` may also be an imported triangle or quadrilateral mesh
-    (:class:`~phifem_tpu_torch.umesh.UMesh`): the host pipeline of
+    (:class:`~phifem_tpu_torch.umesh.UMesh`) or tetrahedral mesh
+    (:class:`~phifem_tpu_torch.umesh3.UMesh3`): the host pipeline of
     :mod:`phifem_tpu_torch.umesh` runs instead."""
     from .umesh import UMesh, compute_tags_measures_unstructured
+    from .umesh3 import UMesh3
 
-    if isinstance(grid, UMesh):
+    if isinstance(grid, (UMesh, UMesh3)):
         return compute_tags_measures_unstructured(
             grid, levelset, detection_degree, box_mode=box_mode,
             single_layer_cut=single_layer_cut, overwrite=overwrite,
-        )
-    if getattr(grid, "dim", 2) == 3:
-        raise NotImplementedError(
-            "compute_tags_measures on an imported tetrahedral mesh (UMesh3) waits for a later PR (slice G2)"
         )
     cells, ndeg = tag_cells(grid, levelset, detection_degree, single_layer_cut, return_degenerate=True)
     facets = tag_facets(grid, cells, levelset, detection_degree)

@@ -10,10 +10,12 @@ structured :class:`~phifem_tpu_torch.grid.Grid`.
   lengths, centroids) is cached vectorized host numpy, the same arrays as
   the JAX package's.
 * Tagging (cells 1/2/3, facets 1..6), the one-sided measures and the
-  submesh are host numpy too, for triangles and quadrilaterals alike: the
-  solve path starts at assembly (:mod:`phifem_tpu_torch.uassembly`).
+  submesh are host numpy too, for triangles and quadrilaterals alike, and
+  for the tetrahedral :class:`~phifem_tpu_torch.umesh3.UMesh3`, which reads
+  the same functions: the solve path starts at assembly
+  (:mod:`phifem_tpu_torch.uassembly`).
   :func:`~phifem_tpu_torch.tagging.compute_tags_measures` dispatches here
-  when it is given a :class:`UMesh`.
+  when it is given a :class:`UMesh` or a ``UMesh3``.
 * A callable level set is evaluated on a float64 CPU tensor (the port's
   callables take torch tensors); a :class:`UDiscreteLevelset` by its nodal
   values.
@@ -59,91 +61,38 @@ _TRI_EDGES = np.array([[1, 2], [0, 2], [0, 1]])
 _QUAD_EDGES = np.array([[0, 1], [1, 2], [2, 3], [3, 0]])
 
 
-@dataclasses.dataclass(frozen=True, eq=False)
-class UMesh:
-    """Explicit 2D mesh: ``verts (nv, 2)`` float64, ``cells (nc, 3|4)``
-    int32.  ``device`` / ``dtype`` place the tensors built on it."""
+def _unique_rows(rows: np.ndarray, base: int):
+    """``np.unique(rows, axis=0, return_inverse=True)`` of non-negative
+    integer rows below ``base``: each row read as one int64 number in base
+    ``base`` (the same lexicographic order), which sorts as one key instead
+    of as a row of several."""
+    k = rows.shape[1]
+    if float(base) ** k >= 2.0**62:
+        uniq, inv = np.unique(rows, axis=0, return_inverse=True)
+        return uniq, inv.reshape(-1)
+    key = rows[:, 0].astype(np.int64)
+    for j in range(1, k):
+        key = key * base + rows[:, j]
+    uk, inv = np.unique(key, return_inverse=True)
+    uniq = np.empty((len(uk), k), np.int64)
+    for j in range(k - 1, -1, -1):
+        uk, uniq[:, j] = np.divmod(uk, base)
+    return uniq, inv.reshape(-1)
 
-    verts: np.ndarray
-    cells: np.ndarray
-    device: Union[str, torch.device] = "cuda"
-    dtype: torch.dtype = torch.float64
 
-    def __post_init__(self):
-        object.__setattr__(self, "verts", np.ascontiguousarray(self.verts, np.float64))
-        object.__setattr__(self, "cells", np.ascontiguousarray(self.cells, np.int32))
-        object.__setattr__(self, "device", torch.device(self.device))
-        if self.cells.ndim != 2 or self.cells.shape[1] not in (3, 4):
-            raise ValueError("cells must be (nc, 3) triangles or (nc, 4) quads")
-        if self.verts.ndim != 2 or self.verts.shape[1] != 2:
-            raise ValueError("verts must be (nv, 2)")
-        if self.dtype not in (torch.float32, torch.float64):
-            raise ValueError(f"UMesh dtype must be float32 or float64, got {self.dtype}.")
-
-    # ------------------------------------------------------------- basics
-    @property
-    def dim(self) -> int:
-        return 2
-
-    @property
-    def is_simplex(self) -> bool:
-        return self.cells.shape[1] == 3
-
-    @property
-    def cell_name(self) -> str:
-        return "triangle" if self.is_simplex else "quadrilateral"
-
-    @property
-    def cell_type(self) -> CellType:
-        return CellType.triangle if self.is_simplex else CellType.quadrilateral
-
-    @property
-    def num_cells(self) -> int:
-        return self.cells.shape[0]
-
-    @property
-    def num_vertices(self) -> int:
-        return self.verts.shape[0]
-
-    @property
-    def num_facets(self) -> int:
-        return self.facets.shape[0]
-
-    @property
-    def _local_edges(self) -> np.ndarray:
-        return _TRI_EDGES if self.is_simplex else _QUAD_EDGES
-
-    @property
-    def _ref_verts(self) -> np.ndarray:
-        return _TRI_REF if self.is_simplex else _QUAD_REF
+class _HostMesh:
+    """What the 2D and 3D imported meshes share: the tables derived from
+    ``cells`` and ``c2f`` the same way in both, tensors on the mesh's
+    device, and the names the port's shared layers read."""
 
     def _tensor(self, a) -> torch.Tensor:
         """``a`` as a tensor in the mesh's dtype on its device."""
         return torch.as_tensor(np.asarray(a), dtype=self.dtype, device=self.device)
 
-    # ------------------------------------------------------- connectivity
-    @cached_property
-    def facets(self) -> np.ndarray:
-        """(nf, 2) unique sorted vertex pairs in lexicographic order: the
-        dolfinx facet-numbering rule."""
-        e = np.sort(self.cells[:, self._local_edges].reshape(-1, 2), axis=1)
-        return np.unique(e, axis=0).astype(np.int32)
-
-    @cached_property
-    def c2f(self) -> np.ndarray:
-        """(nc, nfpc) facet id of each local facet."""
-        e = np.sort(self.cells[:, self._local_edges].reshape(-1, 2), axis=1)
-        f = self.facets
-        pos = np.searchsorted(
-            f[:, 0].astype(np.int64) * (self.num_vertices + 1) + f[:, 1],
-            e[:, 0].astype(np.int64) * (self.num_vertices + 1) + e[:, 1],
-        )
-        return pos.reshape(self.num_cells, -1).astype(np.int32)
-
     @cached_property
     def f2c(self) -> np.ndarray:
         """(nf, 2) adjacent cells, ascending, -1 padded."""
-        nfpc = self._local_edges.shape[0]
+        nfpc = self.c2f.shape[1]
         cid = np.repeat(np.arange(self.num_cells, dtype=np.int32), nfpc)
         fid = self.c2f.reshape(-1)
         order = np.argsort(fid, kind="stable")  # stable: cells ascending
@@ -164,21 +113,8 @@ class UMesh:
 
     @cached_property
     def facet_endpoints(self) -> np.ndarray:
-        """(nf, 2, 2) physical endpoint coordinates."""
+        """(nf, dim, dim) physical coordinates of each facet's vertices."""
         return self.verts[self.facets]
-
-    @cached_property
-    def facet_lengths(self) -> np.ndarray:
-        d = self.facet_endpoints[:, 1] - self.facet_endpoints[:, 0]
-        return np.sqrt((d**2).sum(axis=1))
-
-    @cached_property
-    def facet_base_normals(self) -> np.ndarray:
-        """(nf, 2) unit normals of a fixed orientation; one-sided measures
-        carry the per-entry sign that makes them outward."""
-        d = self.facet_endpoints[:, 1] - self.facet_endpoints[:, 0]
-        n = np.stack([d[:, 1], -d[:, 0]], axis=1)
-        return n / np.maximum(np.linalg.norm(n, axis=1, keepdims=True), 1e-300)
 
     @cached_property
     def cell_centroids(self) -> np.ndarray:
@@ -241,6 +177,97 @@ class UMesh:
 
     def facet_base_normals_of(self, facets: torch.Tensor) -> torch.Tensor:
         return self._rows_of(self.facet_base_normals, facets)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class UMesh(_HostMesh):
+    """Explicit 2D mesh: ``verts (nv, 2)`` float64, ``cells (nc, 3|4)``
+    int32.  ``device`` / ``dtype`` place the tensors built on it."""
+
+    verts: np.ndarray
+    cells: np.ndarray
+    device: Union[str, torch.device] = "cuda"
+    dtype: torch.dtype = torch.float64
+
+    def __post_init__(self):
+        object.__setattr__(self, "verts", np.ascontiguousarray(self.verts, np.float64))
+        object.__setattr__(self, "cells", np.ascontiguousarray(self.cells, np.int32))
+        object.__setattr__(self, "device", torch.device(self.device))
+        if self.cells.ndim != 2 or self.cells.shape[1] not in (3, 4):
+            raise ValueError("cells must be (nc, 3) triangles or (nc, 4) quads")
+        if self.verts.ndim != 2 or self.verts.shape[1] != 2:
+            raise ValueError("verts must be (nv, 2)")
+        if self.dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"UMesh dtype must be float32 or float64, got {self.dtype}.")
+
+    # ------------------------------------------------------------- basics
+    @property
+    def dim(self) -> int:
+        return 2
+
+    @property
+    def is_simplex(self) -> bool:
+        return self.cells.shape[1] == 3
+
+    @property
+    def cell_name(self) -> str:
+        return "triangle" if self.is_simplex else "quadrilateral"
+
+    @property
+    def cell_type(self) -> CellType:
+        return CellType.triangle if self.is_simplex else CellType.quadrilateral
+
+    @property
+    def num_cells(self) -> int:
+        return self.cells.shape[0]
+
+    @property
+    def num_vertices(self) -> int:
+        return self.verts.shape[0]
+
+    @property
+    def num_facets(self) -> int:
+        return self.facets.shape[0]
+
+    @property
+    def _local_edges(self) -> np.ndarray:
+        return _TRI_EDGES if self.is_simplex else _QUAD_EDGES
+
+    @property
+    def _ref_verts(self) -> np.ndarray:
+        return _TRI_REF if self.is_simplex else _QUAD_REF
+
+    # ------------------------------------------------------- connectivity
+    @cached_property
+    def facets(self) -> np.ndarray:
+        """(nf, 2) unique sorted vertex pairs in lexicographic order: the
+        dolfinx facet-numbering rule."""
+        e = np.sort(self.cells[:, self._local_edges].reshape(-1, 2), axis=1)
+        return _unique_rows(e, self.num_vertices)[0].astype(np.int32)
+
+    @cached_property
+    def c2f(self) -> np.ndarray:
+        """(nc, nfpc) facet id of each local facet."""
+        e = np.sort(self.cells[:, self._local_edges].reshape(-1, 2), axis=1)
+        f = self.facets
+        pos = np.searchsorted(
+            f[:, 0].astype(np.int64) * (self.num_vertices + 1) + f[:, 1],
+            e[:, 0].astype(np.int64) * (self.num_vertices + 1) + e[:, 1],
+        )
+        return pos.reshape(self.num_cells, -1).astype(np.int32)
+
+    @cached_property
+    def facet_lengths(self) -> np.ndarray:
+        d = self.facet_endpoints[:, 1] - self.facet_endpoints[:, 0]
+        return np.sqrt((d**2).sum(axis=1))
+
+    @cached_property
+    def facet_base_normals(self) -> np.ndarray:
+        """(nf, 2) unit normals of a fixed orientation; one-sided measures
+        carry the per-entry sign that makes them outward."""
+        d = self.facet_endpoints[:, 1] - self.facet_endpoints[:, 0]
+        n = np.stack([d[:, 1], -d[:, 0]], axis=1)
+        return n / np.maximum(np.linalg.norm(n, axis=1, keepdims=True), 1e-300)
 
     # ------------------------------------------------------------ mapping
     def map_to_physical(self, ref_pts: np.ndarray) -> np.ndarray:
@@ -363,7 +390,9 @@ def _call_host(func: Callable, pts: np.ndarray) -> np.ndarray:
 
 
 def _detection_values(mesh: UMesh, ls: ULevelSet, ref_pts: np.ndarray) -> np.ndarray:
-    if isinstance(ls, UDiscreteLevelset):
+    from .umesh3 import UDiscreteLevelset3
+
+    if isinstance(ls, (UDiscreteLevelset, UDiscreteLevelset3)):
         return ls.eval_ref(ref_pts)
     phys = mesh.map_to_physical(ref_pts)
     return _call_host(ls, phys.reshape(-1, mesh.dim)).reshape(mesh.num_cells, -1)

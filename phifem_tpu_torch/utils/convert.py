@@ -19,6 +19,8 @@ from ..ops.stencil import StencilCellBatch
 from ..ops.taps import TapOperator, build_tap_operator
 from ..spaces import Function, Space
 from ..tagging import EntityTags, TagsMeasures, box_measure
+from ..uassembly import UFunction, USpace
+from ..umesh3 import UMesh3
 
 __all__ = [
     "stencil_batch_from_numpy",
@@ -313,3 +315,20 @@ def amg_from_numpy(levels: Sequence[dict], coarse_inv: np.ndarray, dtype: torch.
             lvl.r_cols, lvl.r_vals = _slot_major(lv["r_cols"], lv["r_vals"], dtype, device)
         out.append(lvl)
     return AMG(out, torch.tensor(np.asarray(coarse_inv), dtype=dtype, device=device), dtype=dtype, **kw)
+
+
+def umesh3_from_numpy(verts: np.ndarray, cells: np.ndarray, device="cuda",
+                      dtype: torch.dtype = torch.float64) -> UMesh3:
+    """The port's tetrahedral mesh of another implementation's arrays
+    (``verts (nv, 3)``, ``cells (nc, 4)``), its tensors on ``device`` (the
+    card unless the caller asks for the CPU) in ``dtype``."""
+    return UMesh3(np.asarray(verts, np.float64), np.asarray(cells), device, dtype)
+
+
+def ufunction_from_numpy(space: USpace, data: np.ndarray) -> UFunction:
+    """A :class:`UFunction` on ``space`` of coefficients ``data`` (shape
+    ``space.dof_shape``), on the space's device in its dtype."""
+    data = np.asarray(data)
+    if data.shape != tuple(space.dof_shape):
+        raise ValueError(f"coefficients of shape {data.shape}, the space has {tuple(space.dof_shape)}")
+    return UFunction(space, space.mesh._tensor(data))

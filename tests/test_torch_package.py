@@ -2,9 +2,7 @@
 
 import subprocess
 import sys
-import types
 
-import numpy as np
 import pytest
 import torch
 
@@ -109,11 +107,11 @@ def test_unported_paths_raise():
     e._bulk_neumann_fields = lambda: ()
     vc = e.lattice_preconditioner(coupled=False, min_n=4)
     assert {type(m).__name__ for m in vc.mgs.values()} == {"LatticeBlockMG"}
-    # imported meshes (slice G1a): triangles only; quadrilaterals wait for
-    # slice G1b and tetrahedra (UMesh3) for slice G2
+    # imported meshes: triangles (slice G1a), quadrilaterals (G1b) and
+    # tetrahedra (UMesh3, G2) build their spaces and tags
     quads, _ = pt.UMesh.from_grid(pt.Grid(4, 4, cell_type="quadrilateral", device="cpu"))
-    with pytest.raises(NotImplementedError, match="later PR"):
-        pt.USpace.lagrange(quads, 1)
-    tets = types.SimpleNamespace(dim=3, verts=np.zeros((4, 3)), cells=np.array([[0, 1, 2, 3]]))
-    with pytest.raises(NotImplementedError, match="later PR"):
-        pt.compute_tags_measures(tets, circle, 1, box_mode=True)
+    assert pt.USpace.lagrange(quads, 1).num_dofs == 25
+    tets = pt.UMesh3.box(2, 2, 2, ((-1.0,) * 3, (1.0,) * 3), device="cpu")
+    assert pt.USpace.lagrange(tets, 2).num_dofs == 125
+    tags = pt.compute_tags_measures(tets, lambda x: (x**2).sum(-1) - 0.5, 1, box_mode=True)
+    assert tags.cells_tags.as_numpy().shape == (48,)

@@ -10,9 +10,10 @@ packages; schemes built once per module:
   DG0): every batch's element matrices, the operator applied to a seeded
   vector, and b, to 1e-12 relative (the same sums in another order); the
   same batches rebuildable; ``reassemble`` after a new level set;
-* ``assemble_scalar`` through ``l2_h1_errors`` on an interpolant, to 1e-12;
-* a quadrilateral mesh is refused (the bilinear geometry waits for slice
-  G1b).
+* ``assemble_scalar`` through ``l2_h1_errors`` on an interpolant, to 1e-12.
+
+Quadrilateral meshes: ``tests/test_torch_uquad.py``; tetrahedra:
+``tests/test_torch_utet.py``.
 """
 
 import numpy as np
@@ -106,8 +107,3 @@ def test_assemble_scalar_errors(case):
     for k in ("l2", "h10", "h1"):
         assert abs(et[k] - ej[k]) <= TOL * abs(ej[k]) + 1e-15, (k, et, ej)
 
-
-def test_quadrilateral_mesh_waits_for_g1b():
-    _, tq = meshes(4, quad=True)
-    with pytest.raises(NotImplementedError, match="G1b"):
-        tu.USpace.lagrange(tq, 1)

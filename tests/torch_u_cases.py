@@ -104,13 +104,14 @@ def scheme_args(name: str, pkg: str):
     return "RobinPoissonU", {"robin_coef": 1.0}, (circle, lambda x: 3.0 * u(x), lambda x: nd(x) + u(x)), u
 
 
-def schemes(name: str, n: int, mode: str = "bg", assemble: bool = True, **kw):
+def schemes(name: str, n: int, mode: str = "bg", assemble: bool = True, amp: float = 0.25, quad: bool = False,
+            **kw):
     """The scheme ``name`` set up (and assembled) on the same perturbed
     mesh in both packages: ``(jax_scheme, port_scheme, exact_j, exact_t)``."""
     import phifem_tpu.models as jmod
     import phifem_tpu_torch.models as tmod
 
-    jm, tm = meshes(n)
+    jm, tm = meshes(n, amp, quad=quad)
     out = []
     for pkg, mod, mesh in (("jax", jmod, jm), ("torch", tmod, tm)):
         cls, ckw, args, uex = scheme_args(name, pkg)
