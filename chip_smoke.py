@@ -62,7 +62,7 @@ assemble -> solve:
   3D (bench.py's poisson3d) at n=128 and 256; the weak-Dirichlet scheme at
   Q1 (n=32 against the CPU lane's whole solve, n=64, n=128 with 4,293,378
   DoFs against the CPU lane's tags, b and matvec, and a device trace of two
-  iterations), at Q2 n=16 and 32 (low-order-refined cycle) and at Q3 n=12
+  iterations), at Q2 n=16 and 32 (low-order-refined cycle) and at Q3 n=8
   (sparse direct, a cubic reproduced); the strong-Dirichlet scheme at n=64;
   every count exact.  The 3D paths launch the two 3D kernels and neither
   2D one;
@@ -72,7 +72,7 @@ assemble -> solve:
   versions, timed beside their bounds and no-FMA floors, torch.mv of the
   block operator's CSR and conv3d with 3 in / 3 out channels; S3-3D (Neumann) on the sphere
   at n=16 (BiCGStab with lattice_preconditioner(); against the CPU lane),
-  n=32 (Jacobi BiCGStab, the demo's path), n=64 and n=96 (4.5M DoFs,
+  n=32 (Jacobi BiCGStab, the demo's path), n=64 and n=80 (2.6M DoFs,
   traced) by flexible GMRES with lattice_preconditioner(); S4-3D (Robin) at
   n=32 and 64; S5-3D (two-material elasticity, contrast 1000) by flexible
   GMRES with rigid-mode deflation and lattice_preconditioner() at n=8, 12
@@ -107,7 +107,21 @@ assemble -> solve:
   main3 S1-S4 at n=12 against the CPU lane and JAX's counts and errors;
   S1-U with ``amg_preconditioner()`` at n=8, 12, 16 and, by flexible GMRES,
   at n=64 (1,572,864 tets), the AMG kernel held on every level of its
-  hierarchy and its level 0 timed.
+  hierarchy and its level 0 timed;
+* slice I (the demo CLIs of ``phifem_tpu_torch.demo``, each through its
+  ``main()`` with ``--device cuda``): the four 2D demos at n=200 in bg and
+  sub mode, the S5 demo on ``param_quick`` (Jacobi: the default coupled
+  preconditioner's dense coarse solve of the whole n=24 system takes ~100 s
+  of host pseudo-inverse; ``scripts/run_torch_demos.py`` runs it), poisson3d's
+  four Poisson schemes at n=32 and its elasticity case at n=16, the
+  unstructured demo's S1 on triangles and tets; each count exact, each
+  written field read back equal to the scheme's, each path's launches of
+  all seven kernels counted; ``Timer`` around tap-kernel calls that only
+  queue work (after the S1 n=3200 phase, which builds the largest tap form)
+  and ``device_trace`` around one solve;
+  S5 n=64 with ``lattice_preconditioner(ritz_modes=12)``; P2 S1-U with
+  ``p_multigrid_preconditioner()`` by fgmres at n=40 (against JAX's count)
+  and 160.
 
 Every check raises; the script exits non-zero without a result when there
 is no card or no checkout.  The line before the last is a JSON record of
@@ -119,6 +133,7 @@ from __future__ import annotations
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -1404,11 +1419,11 @@ def phase_q3(pt, cs) -> dict:
 # two 3D kernels: the masked hex-cell stencil (hex3) and the 27-point lattice
 # sweep (lattice3)
 BOX3 = ((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0))  # demo/poisson3d's box
-R0_3 = 0.7  # the sphere's radius
 N3_BOX, N3_BOX_LARGE = 128, 256  # 2,146,689 / 16,974,593 DoFs
-# Q3's host SuperLU took 760.358 s at n=16 (235,298 DoFs) on the card's host:
-# the direct solve runs at n=12 (COLAMD fill 1.8e8 at n=12 on the CPU, 35 s)
-N3_Q1, N3_Q1_CPU, N3_Q2, N3_Q3, N3_STRONG = 128, 32, 32, 12, 64
+# Q3's host SuperLU took 760.358 s at n=16 (235,298 DoFs) and 94-109 s at
+# n=12 on the card's host: the direct solve runs at n=8 (31,250 DoFs; 12.8 s
+# on a CPU), which reproduces the cubic as well, to make room for slice I
+N3_Q1, N3_Q1_CPU, N3_Q2, N3_Q3, N3_STRONG = 128, 32, 32, 8, 64
 # the port's iteration counts on the H100 (PERF.md): box Poisson (JAX 6 at
 # n=128, BENCH_r04.json), Q1 at n=32 / 64 / 128 (BiCGStab, tol 1e-10; n=32
 # equals the CPU lane's), Q2 at n=16 / 32 (tol 1e-10, maxiter 2000; JAX on the
@@ -1420,27 +1435,27 @@ Q2_IT = {N3_Q2 // 2: 101, N3_Q2: 26}
 STRONG3_IT = 93
 # the hex3 kernel checks: (degree, n) on the sphere's mask; the first three
 # are timed; then every other shape the 3D weak paths run (Q1 n=32 / 64, Q2
-# n=16 / 32, Q3 n=12) and the odd lattice n=37
+# n=16 / 32, Q3 n=8) and the odd lattice n=37
 HEX3_CASES = ((1, N3_Q1), (2, 64), (3, 40), (1, N3_Q1_CPU), (1, N3_Q1 // 2), (2, N3_Q2 // 2), (2, N3_Q2),
               (3, N3_Q3), (1, 37), (2, 37), (3, 37))
 
 
-def sphere_phi(x):
-    return x[..., 0] ** 2 + x[..., 1] ** 2 + x[..., 2] ** 2 - R0_3**2
+def _p3():
+    """The port's poisson3d demo: its sphere ``phi`` (R0 = 0.7), the
+    weak-scheme solution ``u_smooth`` (-Δu = u / 2), ``du_dn`` and the
+    strong-scheme solution ``u_product``."""
+    from phifem_tpu_torch.demo import poisson3d
 
-
-def u_smooth(x):
-    """demo/poisson3d's weak-scheme solution; -Δu = u / 2."""
-    return torch.cos(x[..., 0]) * torch.exp((x[..., 1] + x[..., 2]) / 2.0)
+    return poisson3d
 
 
 def _strong3_data():
     """demo/poisson3d's strong-scheme solution u = phi w, w = cos(s),
     s = x + y/2 - z/4, and f = -Δu in closed form (|grad s|^2 = 21/16)."""
+    p3 = _p3()
     s_ = lambda x: x[..., 0] + 0.5 * x[..., 1] - 0.25 * x[..., 2]
-    u = lambda x: sphere_phi(x) * torch.cos(s_(x))
-    f = lambda x: (-6.0 + 21.0 / 16.0 * sphere_phi(x)) * torch.cos(s_(x)) + 4.0 * s_(x) * torch.sin(s_(x))
-    return u, f
+    f = lambda x: (-6.0 + 21.0 / 16.0 * p3.phi(x)) * torch.cos(s_(x)) + 4.0 * s_(x) * torch.sin(s_(x))
+    return p3.u_product, f
 
 
 def _k3():
@@ -1485,7 +1500,7 @@ def _hex3_csr(mask: torch.Tensor, A: torch.Tensor, degree: int) -> torch.Tensor:
 def _sphere_mask(pt, n: int, dt) -> torch.Tensor:
     from phifem_tpu_torch.tagging3 import compute_tags3
 
-    tags = compute_tags3(pt.Grid3(n, n, n, BOX3, device=DEVICE), sphere_phi)
+    tags = compute_tags3(pt.Grid3(n, n, n, BOX3, device=DEVICE), _p3().phi)
     return torch.as_tensor(tags.region_mask((1, 2)), dtype=dt, device=DEVICE).contiguous()
 
 
@@ -1755,9 +1770,10 @@ def phase_box3(pt, n: int) -> None:
 
 def _weak3(pt, n: int, degree: int, device: str, u=None, f=None):
     g = pt.Grid3(n, n, n, BOX3, device=device)
-    u = u_smooth if u is None else u
-    f = (lambda x: 0.5 * u_smooth(x)) if f is None else f
-    return pt.WeakDirichletPoisson3(g, degree=degree).setup(sphere_phi, f, u_D=u)
+    p3 = _p3()
+    u = p3.u_smooth if u is None else u
+    f = (lambda x: 0.5 * p3.u_smooth(x)) if f is None else f
+    return pt.WeakDirichletPoisson3(g, degree=degree).setup(p3.phi, f, u_D=u)
 
 
 def _check_tags3(s, h, label: str) -> None:
@@ -1818,7 +1834,7 @@ def phase_weak3_q1(pt) -> dict:
         print(f"[{label}] tag {t_tag:.3f} s ({s.tags.num_cut_cells} cut cells), assemble {t_asm:.3f} s")
         M, r = _solve_weak3(s, label, Q1_IT[n])
         counts[n] = _counts3()
-        errs[n] = s.l2_h1_errors(u_smooth)
+        errs[n] = s.l2_h1_errors(_p3().u_smooth)
         print(f"[{label}] relative L2 {errs[n]['l2']:.4e}, H10 {errs[n]['h10']:.4e}; launches {counts[n]}")
         if n == N3_Q1_CPU:
             h = _weak3(pt, n, 1, "cpu").assemble()
@@ -1863,7 +1879,7 @@ def phase_weak3_q2(pt) -> dict:
         print(f"[{label}] setup + assemble {t_build:.3f} s")
         _, r = _solve_weak3(s, label, Q2_IT[n], maxiter=2000)
         counts[n] = _counts3()
-        e = errs[n] = s.l2_h1_errors(u_smooth)
+        e = errs[n] = s.l2_h1_errors(_p3().u_smooth)
         print(f"[{label}] relative L2 {e['l2']:.4e}, H10 {e['h10']:.4e}; launches {counts[n]}")
         if n == N3_Q2 // 2:
             h = _weak3(pt, n, 2, "cpu").assemble()
@@ -1897,7 +1913,7 @@ def phase_strong3(pt) -> dict:
     u, f = _strong3_data()
     _reset3()
     g = pt.Grid3(N3_STRONG, N3_STRONG, N3_STRONG, BOX3, device=DEVICE)
-    s, t_build = _sync_time(lambda: pt.StrongDirichletPoisson3(g).setup(sphere_phi, f).assemble())
+    s, t_build = _sync_time(lambda: pt.StrongDirichletPoisson3(g).setup(_p3().phi, f).assemble())
     r0, t_cold = _sync_time(s.solve, tol=TOL, maxiter=8000)
     r, t_warm = _sync_time(s.solve, tol=TOL, maxiter=8000)
     e = s.l2_h1_errors(u)
@@ -1959,18 +1975,19 @@ def run_slice_f1(pt) -> tuple:
 # (the data of tests/test_interface_elasticity3.py: the sphere r = 1 in
 # [-1.5, 1.5]^3, contrast E_in / E_out = 1000, flexible GMRES with the rigid
 # modes deflated and lattice_preconditioner(), tol 1e-8)
-# the Neumann scale run is at n=96 (4.5M DoFs), not the 10.7M of n=128: its
-# preconditioned solve took 98.6 s at n=96 (100 it) on an H100 (PERF.md), and the
-# whole script must stay within its time limit
-N3_NEU_CPU, N3_NEU_JAC, N3_NEU, N3_NEU_LARGE = 16, 32, 64, 96
+# the Neumann scale run is at n=80 (2.6M DoFs), not the 10.7M of n=128: its
+# preconditioned solve took 98.6 s at n=96 (100 it, 4.5M DoFs) on an H100
+# (PERF.md), and the whole script must stay within its time limit (n=96 until
+# slice I's phases came)
+N3_NEU_CPU, N3_NEU_JAC, N3_NEU, N3_NEU_LARGE = 16, 32, 64, 80
 # the port's iteration counts on the H100 (PERF.md): Neumann n=16 BiCGStab
 # with lattice_preconditioner() (JAX's ceiling on the CPU: <= 25 at n=16;
 # the CPU lanes take 8-18: the inner band solve's rounding), n=32 Jacobi
-# BiCGStab (the demo's path), n=64 and 96 flexible GMRES with
+# BiCGStab (the demo's path), n=64 and 80 flexible GMRES with
 # lattice_preconditioner() (BiCGStab with it stalls there: relres 0.22 /
 # 0.028 after 201 / 300 it at n=64, Neumann / Robin; the inner band solve
 # makes the preconditioner nonlinear); Robin n=32 Jacobi, n=64 fgmres
-NEU_IT = {N3_NEU_CPU: 11, N3_NEU_JAC: 496, N3_NEU: 40, N3_NEU_LARGE: 100}
+NEU_IT = {N3_NEU_CPU: 11, N3_NEU_JAC: 496, N3_NEU: 40, N3_NEU_LARGE: 80}
 # n=16 against the CPU lane: the inner band solve (m=5,566) run to
 # convergence, 400 sweeps (within 1e-6 of 1,500 sweeps on a CPU); one
 # application then differs by rounding (the float32 bulk cycle) and what
@@ -2001,18 +2018,21 @@ S53D_IT = {8: 20, 12: 40, 16: 40, N_S53D_LARGE: 120}
 
 
 def _du_dn(x):
-    """d u_smooth / dn with n = x / |x| (demo/poisson3d's du_dn)."""
-    u = u_smooth(x)
+    """d u_smooth / dn with n = x / |x|: the closed form of demo/poisson3d's
+    ``du_dn`` (torch.func there, which rounds differently in the last bit);
+    the Neumann / Robin counts below are pinned with this one."""
+    u = _p3().u_smooth(x)
     g = torch.stack([-torch.sin(x[..., 0]) * torch.exp((x[..., 1] + x[..., 2]) / 2.0), 0.5 * u, 0.5 * u], -1)
     return torch.sum(g * x / torch.clamp(torch.linalg.norm(x, dim=-1, keepdim=True), min=1e-12), dim=-1)
 
 
 def _neumann3(pt, n: int, device: str, robin: bool = False):
     g = pt.Grid3(n, n, n, BOX3, device=device)
-    f = lambda x: 1.5 * u_smooth(x)
+    p3 = _p3()
+    f = lambda x: 1.5 * p3.u_smooth(x)
     if robin:
-        return pt.RobinPoisson3(g, robin_coef=1.0).setup(sphere_phi, f, lambda x: _du_dn(x) + u_smooth(x))
-    return pt.NeumannPoisson3(g).setup(sphere_phi, f, _du_dn)
+        return pt.RobinPoisson3(g, robin_coef=1.0).setup(p3.phi, f, lambda x: _du_dn(x) + p3.u_smooth(x))
+    return pt.NeumannPoisson3(g).setup(p3.phi, f, _du_dn)
 
 
 def _s53d_data():
@@ -2353,7 +2373,7 @@ def phase_neumann3(pt, robin: bool = False) -> dict:
     BiCGStab with lattice_preconditioner(), and against the CPU lane
     (:func:`_neumann3_against_cpu`); n=32 Jacobi-equilibrated BiCGStab (the
     demo's path); n=64 flexible GMRES with lattice_preconditioner();
-    (Neumann) n=96, 4.5M DoFs, the same as the scale run with its set-up and
+    (Neumann) n=80, 2.6M DoFs, the same as the scale run with its set-up and
     a trace of two fgmres steps; every count pinned; hex3 and the lattice
     sweep held against their plain versions on each n's own mask, cell
     matrix and cycle levels; L2(32) / L2(64) > 2^1.3."""
@@ -2380,7 +2400,7 @@ def phase_neumann3(pt, robin: bool = False) -> dict:
         # the large runs once; the small ones cold and warm
         r, t_warm = (r0, t_cold) if n >= N3_NEU else _sync_time(s.solve, **kw)
         counts[n] = _counts3()
-        e = errs[n] = s.l2_h1_errors(u_smooth)
+        e = errs[n] = s.l2_h1_errors(_p3().u_smooth)
         band = ""
         if M is not None:
             bd = getattr(M.iface, "band", None)
@@ -3437,6 +3457,310 @@ def run_slices_g1b_g2(pt) -> tuple:
     return paths, {"quad": quad_times, "tet": tet_times}
 
 
+# ------------------------------------------------------------- slice I
+# the demo CLIs (phifem_tpu_torch.demo), each run in-process through its
+# main() with --device cuda and --out under the checkout's output folder, at
+# its default size: the 2D demos at n=200 in bg and sub mode (but S2's sub
+# mode, which phase_s2 solves at n=200), the S5 demo on param_quick (levels
+# n=12 and 24), poisson3d's four Poisson schemes at n=32 and its elasticity
+# case at n=16, the unstructured demo's S1 on its perturbed triangle mesh and
+# on the n=12 tet box; then S5 n=64 with lattice_preconditioner(ritz_modes=12),
+# P2 S1-U with p_multigrid_preconditioner() by fgmres, and device_trace
+# around one solve (the Timer check runs after the S1 n=N phase)
+N_DEMO_EL3 = 16
+DEMO_2D = [(d, m) for d in ("weak_dirichlet_flower", "strong_dirichlet_flower", "neumann_square", "robin_square")
+           for m in ("bg", "sub") if (d, m) != ("strong_dirichlet_flower", "sub")]
+DEMO_RUNS = (
+    [(f"demo {d} {m}", d, [m]) for d, m in DEMO_2D]
+    + [("demo interface_elasticity param_quick", "interface_elasticity", ["param_quick", "--precond", "none"])]
+    + [(f"demo poisson3d {s}", "poisson3d", [s]) for s in ("weak", "strong", "neumann", "robin")]
+    + [(f"demo poisson3d elasticity n={N_DEMO_EL3}", "poisson3d", ["elasticity", "--n", str(N_DEMO_EL3)])]
+    + [("demo unstructured s1", "unstructured", ["s1"]), ("demo unstructured s1 3d", "unstructured",
+                                                           ["s1", "--dim", "3"])]
+)
+# the port's counts on the H100, exact (every sum on the path runs in a fixed
+# order); the S5 demo's per level
+DEMO_IT = {
+    **{f"demo weak_dirichlet_flower {m}": 563 for m in ("bg", "sub")},
+    "demo strong_dirichlet_flower bg": S2_IT,
+    **{f"demo neumann_square {m}": 1500 for m in ("bg", "sub")},
+    **{f"demo robin_square {m}": 1843 for m in ("bg", "sub")},
+    "demo interface_elasticity param_quick": [178, 362],
+    "demo poisson3d weak": 6, "demo poisson3d strong": 59, "demo poisson3d neumann": 428,
+    "demo poisson3d robin": 341, f"demo poisson3d elasticity n={N_DEMO_EL3}": 60,
+    "demo unstructured s1": U_DEMO_IT["s1"], "demo unstructured s1 3d": TET_IT["s1"],
+}
+# the kernels each demo path must launch (the unstructured demo solves by
+# Jacobi BiCGStab on entity batches: none of the seven)
+DEMO_KERNELS = {
+    **{f"demo {d} {m}": ("taps",) for d, m in DEMO_2D},
+    "demo interface_elasticity param_quick": ("taps",),
+    "demo poisson3d weak": ("hex3", "lattice3"),
+    "demo poisson3d strong": (),
+    "demo poisson3d neumann": ("hex3",),
+    "demo poisson3d robin": ("hex3",),
+    f"demo poisson3d elasticity n={N_DEMO_EL3}": ("hex3_block", "lattice3_block"),
+    "demo unstructured s1": (),
+    "demo unstructured s1 3d": (),
+}
+# S5 at n=N_S5_COUPLED with 12 Ritz modes on each level of the coupled
+# hierarchy; the JAX package's record (docs/s5_preconditioner.md:71, the
+# flat cycle of its time): 14 -> 20 outer iterations with 12 modes
+RITZ_MODES = 12
+RITZ_IT = 14
+JAX_RITZ_RECORD = (14, 20)
+# P2 S1-U (primal and level set) on the perturbed triangle mesh of the AMG
+# phases (circle R = 0.7), fgmres to 1e-10 with p_multigrid_preconditioner():
+# JAX's count at n=40 on the CPU (`JAX_PLATFORMS=cpu python
+# scripts/reference_amg_counts.py --mode pmg 40`), the port's at n=40 / 160
+N_UPMG, N_UPMG_LARGE = 40, 160
+JAX_UPMG_IT = 40
+UPMG_IT = {N_UPMG: 40, N_UPMG_LARGE: 80}
+# the Timer check's tap-kernel calls, queued back to back (S1 n=N, float64:
+# ~0.12 ms each on the card, ~0.05 ms to queue)
+TIMER_LAUNCHES = 200
+
+
+def _reset_all(cs) -> None:
+    _reset(cs)
+    _reset3()
+    _amg().launches = 0
+
+
+def _counts_all(cs) -> dict:
+    return {**_counts(cs), **_counts3(), "amg": _amg().launches}
+
+
+def _read_written(path: str, name: str) -> np.ndarray:
+    """The field ``name`` as written: the HDF5 dataset next to an XDMF, else
+    the ASCII line of a VTU (%.17g) or a VTI (%.10g)."""
+    if path.endswith(".xdmf"):
+        import h5py
+
+        with h5py.File(path[: -len(".xdmf")] + ".h5") as h5:
+            return np.asarray(h5[f"/Function/{name}"]).reshape(-1)
+    lines = Path(path).read_text().split("\n")
+    i = next(k for k, s in enumerate(lines) if f'Name="{name}"' in s)
+    return np.array(lines[i + 1].split(), np.float64)
+
+
+def _hold_written(label: str, r: dict) -> str:
+    """The field the demo wrote, read back, against the scheme's own: exact
+    for XDMF / VTU, to the VTI's ten digits."""
+    from phifem_tpu_torch.utils.io import _p1_point_data
+
+    s = r["scheme"]
+    path = [p for p in r["paths"] if p.endswith((".xdmf", ".vtu", ".vti"))][-1]  # the last level's
+    if path.endswith(".vti"):
+        lat = s.u_lat.detach().cpu().numpy()
+        fields = {"u": lat} if lat.ndim == 3 else {c: lat[k] for k, c in enumerate(("ux", "uy", "uz"))}
+        for name, ref in fields.items():
+            got, ref = _read_written(path, name), ref.reshape(-1)
+            if not (got.shape == ref.shape and np.all(np.abs(got - ref) <= 5e-10 * np.abs(ref) + 1e-300)):
+                raise AssertionError(f"{label}: the VTI's {name} is not the scheme's field")
+        return path
+    if hasattr(s, "mesh"):
+        ref = s.u_h.data[: s.mesh.num_vertices].detach().cpu().numpy().reshape(-1)
+    else:
+        ref = _p1_point_data(s.u_h).reshape(-1)
+    if not np.array_equal(_read_written(path, "solution"), ref):
+        raise AssertionError(f"{label}: the written solution is not the scheme's field")
+    return path
+
+
+def phase_demo(cs, label: str, module: str, argv: list, out_root: Path) -> tuple:
+    """One demo CLI through its main(): its launches, exact count, written
+    field; returns (counts, result)."""
+    import importlib
+
+    mod = importlib.import_module(f"phifem_tpu_torch.demo.{module}")
+    out = out_root / label.replace(" ", "_").replace("=", "")
+    _reset_all(cs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = mod.main(list(argv) + ["--device", DEVICE, "--out", str(out)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts_all(cs)
+    path = _hold_written(label, r)
+    its = r["iterations"]
+    print(f"[{label}] {wall:.1f} s (phases {', '.join(f'{k} {v:.3f}' for k, v in r['phases'].items())}); "
+          f"{its} it, converged {r['converged']}; errors "
+          f"{r['errors'] if not isinstance(r['errors'], list) else r['errors'][-1]}; launches {counts}; wrote "
+          f"{[str(Path(p).relative_to(out)) for p in r['paths']]} ({Path(path).suffix}: the field read back "
+          f"equals the scheme's)")
+    if not r["converged"]:
+        raise AssertionError(f"{label}: not converged ({r['residual']})")
+    if DEMO_IT.get(label) is not None and its != DEMO_IT[label]:
+        raise AssertionError(f"{label}: {its} it, not {DEMO_IT[label]}")
+    for k in DEMO_KERNELS[label]:
+        if counts[k] <= 0:
+            raise AssertionError(f"{label} never launched the {k} kernel")
+    return counts, r
+
+
+def phase_ritz(pt, cs) -> dict:
+    """S5 n=N_S5_COUPLED, lattice_preconditioner(ritz_modes=RITZ_MODES) (the
+    coupled hierarchy with the Ritz harvest on each smoothing level), deflated
+    BiCGStab: the count against the coupled phase's and JAX's record."""
+    import phifem_tpu_torch.mg as tmg
+
+    label = f"s5 n={N_S5_COUPLED} ritz"
+    real, spent = tmg.attach_ritz_modes, []
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t)
+        return out
+
+    _reset_all(cs)
+    s, t_tag = _sync_time(_s5, pt, N_S5_COUPLED, DEVICE)
+    _, t_asm = _sync_time(s.assemble)
+    tmg.attach_ritz_modes = timed
+    try:
+        vc, t_pre = _sync_time(s.lattice_preconditioner, ritz_modes=RITZ_MODES)
+    finally:
+        tmg.attach_ritz_modes = real
+    r, t_solve = _sync_time(s.solve, tol=S5_TOL, precond=vc)
+    counts = _counts_all(cs)
+    e = _s5_errors(s)
+    lam = [np.round(lv["M"].ritz_lambdas, 4).tolist() for lv in vc.levels]
+    print(f"[{label}] lattice_preconditioner(ritz_modes={RITZ_MODES}) {t_pre:.3f} s, of it the Ritz harvests "
+          f"{[round(t, 3) for t in spent]} s on levels {[lv['grid'].nx for lv in vc.levels]}; kept |lambda| "
+          f"per level {lam}; deflated bicgstab tol {S5_TOL:.0e}: {r.iterations} it (without Ritz modes "
+          f"{S5_COUPLED_IT}; JAX's record {JAX_RITZ_RECORD[0]} -> {JAX_RITZ_RECORD[1]}), relres "
+          f"{r.residual:.3e}, {t_solve:.3f} s; L2 {e['l2']:.4e}, H10 {e['h10']:.4f}; tag {t_tag:.3f} s, "
+          f"assemble {t_asm:.3f} s; launches {counts}")
+    if len(spent) != len(vc.levels) or any(lv["M"].ritz_lambdas is None for lv in vc.levels):
+        raise AssertionError(f"{label}: a level kept no Ritz mode")
+    if not r.converged or (RITZ_IT is not None and r.iterations != RITZ_IT):
+        raise AssertionError(f"{label}: {r.iterations} it (not {RITZ_IT}), relres {r.residual}")
+    if counts["taps"] <= 0:
+        raise AssertionError(f"{label} never launched the tap kernel")
+    return counts
+
+
+def phase_upmg(pt, cs) -> dict:
+    """P2 S1-U on the perturbed triangle mesh with p_multigrid_preconditioner()
+    and fgmres to 1e-10: n=N_UPMG held to JAX's count, n=N_UPMG_LARGE pinned."""
+    from phifem_tpu_torch.models import WeakDirichletPoissonU
+
+    paths = {}
+    for n in (N_UPMG, N_UPMG_LARGE):
+        label = f"u-pmg P2 s1 n={n}"
+        _reset_all(cs)
+        mesh, t_mesh = _sync_time(_u_mesh, pt, n, DEVICE)
+        circle = lambda x: x[..., 0] ** 2 + x[..., 1] ** 2 - 0.49
+        s = WeakDirichletPoissonU(mesh, mode="bg", primal_degree=2, levelset_degree=2)
+        _, t_setup = _sync_time(s.setup, circle, lambda x: 2.0 * _u_exact(x), u_D=_u_exact)
+        _, t_asm = _sync_time(s.assemble)
+        vc, t_pre = _sync_time(s.p_multigrid_preconditioner)
+        r, t_solve = _sync_time(s.solve, method="fgmres", tol=SCHEME_TOL, maxiter=200, precond=vc)
+        counts = _counts_all(cs)
+        e = s.l2_h1_errors(s.u_h, _u_exact, region=(1, 2))
+        print(f"[{label}] ndofs={s.system.num_dofs}: mesh {t_mesh:.3f} s, setup {t_setup:.3f} s, assemble "
+              f"{t_asm:.3f} s, p_multigrid_preconditioner() {t_pre:.3f} s; fgmres {r.iterations} it, relres "
+              f"{r.residual:.3e}, {t_solve:.3f} s; L2 {e['l2']:.6e}, H10 {e['h10']:.6e}; launches {counts}")
+        if not r.converged or (UPMG_IT[n] is not None and r.iterations != UPMG_IT[n]):
+            raise AssertionError(f"{label}: {r.iterations} it (not {UPMG_IT[n]}), relres {r.residual}")
+        if n == N_UPMG and JAX_UPMG_IT is not None:
+            _within_reference(label, r.iterations, JAX_UPMG_IT)
+        paths[label] = counts
+    return paths
+
+
+def phase_timer(ct, top, launches: int = TIMER_LAUNCHES) -> None:
+    """Timer around ``launches`` calls of the tap kernel on ``top`` (the S1
+    n=N tap form), work that only queues on the card with no host read in
+    between: the phase's time is at least the CUDA-event time of the same
+    calls, less 5%.  A timer that does not wait for the card reads only the
+    time to queue them, which must stay under that 95% (with a margin, 90%)
+    for the check to tell the two apart."""
+    from phifem_tpu_torch.utils import Timer
+
+    rng = np.random.default_rng(SEED)
+    x = {sp.name: torch.as_tensor(rng.standard_normal((sp.shape[0] * sp.shape[1] * sp.nblocks,) + sp.vshape),
+                                  dtype=top.W.dtype, device=top.W.device) for sp in top.specs}
+    ct.tap_matvec(top, top.W, x)
+    timer = Timer(DEVICE)
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with timer.phase("taps"):
+        e0.record()
+        t0 = time.perf_counter()
+        for _ in range(launches):
+            ct.tap_matvec(top, top.W, x)
+        queued = time.perf_counter() - t0
+        e1.record()
+    ev = e0.elapsed_time(e1) / 1e3
+    print(f"[timer] Timer phase {timer.phases['taps']:.4f} s, CUDA events {ev:.4f} s over the same {launches} "
+          f"tap-kernel calls (S1 n={N} tap form, {str(top.W.dtype)[6:]}); queueing them took {queued:.4f} s "
+          f"({queued / ev:.1%} of the events: what a timer that does not wait would read)")
+    if timer.phases["taps"] < 0.95 * ev:
+        raise AssertionError("the Timer's phase ended before the work it queued")
+    if queued > 0.9 * ev:
+        raise AssertionError("queueing the calls took as long as running them: the check cannot tell a Timer "
+                             "that waits from one that does not")
+    del x
+    torch.cuda.empty_cache()
+
+
+def phase_trace(s, out_root: Path) -> None:
+    """device_trace around four iterations of the S1 demo's solve (Jacobi
+    BiCGStab, the tap kernel): the trace names the port's kernel."""
+    from phifem_tpu_torch.utils import device_trace
+
+    with device_trace(str(out_root / "trace")) as path:
+        s.solve(tol=SCHEME_TOL, maxiter=4)
+    with open(path) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"}
+    taps = sorted(n for n in names if KERNELS_2D["tap"] in n)
+    print(f"[trace] device_trace wrote {Path(path).name} ({Path(path).stat().st_size} bytes, {len(names)} kernel "
+          f"names, the tap kernel's: {taps[:1]})")
+    if not taps:
+        raise AssertionError("the device trace names no kernel of the port")
+
+
+def run_slice_i(pt, cs) -> dict:
+    """Every slice-I phase; returns the launches of every kernel per path."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    out_root = Path(tempfile.mkdtemp(prefix="phifem_demos_"))  # removed at the end
+    try:
+        import h5py  # noqa: F401
+
+        print("[demo] h5py present: write_xdmf writes XDMF + HDF5")
+    except ImportError:
+        print("[demo] no h5py here: write_xdmf writes VTU (the JAX package's fallback)")
+    paths, times, s1 = {}, {}, None
+    for label, module, argv in DEMO_RUNS:
+        t = time.perf_counter()
+        paths[label], r = phase_demo(cs, label, module, argv, out_root)
+        times[label] = time.perf_counter() - t
+        if label == "demo weak_dirichlet_flower bg":
+            s1 = r["scheme"]
+        del r
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    phase_trace(s1, out_root)
+    del s1
+    t2 = time.perf_counter()
+    paths[f"s5 n={N_S5_COUPLED} ritz"] = phase_ritz(pt, cs)
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    paths.update(phase_upmg(pt, cs))
+    t4 = time.perf_counter()
+    print(f"[time] slice I: demos {t1 - t0:.1f} s ({', '.join(f'{k[5:]} {v:.1f}' for k, v in times.items())}), "
+          f"trace {t2 - t1:.1f} s, ritz {t3 - t2:.1f} s, u-pmg {t4 - t3:.1f} s; slice I phases "
+          f"{t4 - t0:.1f} s")
+    print(f"[main path I] kernel launches per path: {paths}")
+    shutil.rmtree(out_root)
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -3483,6 +3807,7 @@ def main() -> int:
     _reset(cs)
     paths[f"S1 n={N}"], s1 = phase_s1_large(pt, cs)
     taps_s1 = _tap_kernel_check(ct, s1.op.lattice_form(), f"s1 n={N}")
+    phase_timer(ct, s1.op.lattice_form())  # slice I's Timer check, on the largest tap form
     del s1
     torch.cuda.empty_cache()
     for mode in ("bg", "sub"):
@@ -3564,6 +3889,12 @@ def main() -> int:
                 if t.get(k) is not None:
                     amg_line[f"{cell}_{tab}_{mode}_{str(dt)[6:]}_{k}"] = t[k]
 
+    # slice I: the demo CLIs, the Ritz modes, p-MG on an imported mesh; its
+    # paths count all seven kernels
+    t_i = time.perf_counter()
+    paths_i = run_slice_i(pt, cs)
+    print(f"[time] slice I phases {time.perf_counter() - t_i:.1f} s")
+
     print(f"[main path] kernel launches per path: {paths}")
     if paths["box Poisson"]["stencil"] <= 0:
         raise AssertionError("the box-Poisson path never launched the stencil kernel")
@@ -3601,6 +3932,11 @@ def main() -> int:
         "s5_shape": f"S5 interface elasticity n={N_S5_TAPS} tap form (blocks of 2/2/4/4/2 channels)",
         "s5_launches_by_path": {p: c["taps"] for p, c in paths.items() if p.startswith("S5")},
     }
+    for line, key in ((kernel, "stencil"), (taps, "taps"), (kernels3[0], "hex3"), (kernels3[1], "lattice3"),
+                      (kernels3b[0], "hex3_block"), (kernels3b[1], "lattice3_block"), (amg_line, "amg")):
+        line["launches"] += sum(c[key] for c in paths_i.values())
+        line["launches_by_path"].update({p: c[key] for p, c in paths_i.items()})
+    kernel["masked_launches_by_path"].update({p: c["masked"] for p, c in paths_i.items()})
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     lines = [kernel, taps, *kernels3, *kernels3b, amg_line]
     print(json.dumps({"kernels": [_mark_sources(e) for e in lines]}))

@@ -49,7 +49,7 @@ from .ops.stencil import StencilCellBatch
 from .ops.lattice import LatticeBlockMG, LatticeMG, lattice_cg
 from .ops.lattice3 import Lattice3BlockMG, build_lattice3_block_mg
 from .ops.taps import TapOperator, build_tap_operator
-from .mg import LatticeBulkVCycle, VCycle, attach_interface_solve, build_hierarchy
+from .mg import LatticeBulkVCycle, VCycle, attach_interface_solve, attach_ritz_modes, build_hierarchy
 from .solvers import DirichletBC, solve, solve_ir
 from .models import (
     BoxPoisson,
@@ -112,6 +112,7 @@ __all__ = [
     "VCycle",
     "LatticeBulkVCycle",
     "attach_interface_solve",
+    "attach_ritz_modes",
     "build_hierarchy",
     "DirichletBC",
     "solve",

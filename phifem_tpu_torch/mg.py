@@ -2,7 +2,8 @@
 
 Counterpart of :mod:`phifem_tpu.mg`: the bulk V-cycles, the interface band
 solve, the rank-k Galerkin coarse correction and the coupled multilevel
-hierarchy of interface-transmission systems (Ritz modes are not ported).
+hierarchy of interface-transmission systems, and the Ritz-mode harvest of
+:func:`attach_ritz_modes`.
 
 * hierarchy: grids ``n, n/2, n/4, ...``, each level *re-discretized* by a
   level factory;
@@ -50,6 +51,7 @@ __all__ = [
     "attach_interface_solve",
     "attach_coarse_correction",
     "attach_coarse_correction_device",
+    "attach_ritz_modes",
     "data_dependent_selection",
     "prolong",
     "restrict",
@@ -230,6 +232,7 @@ class VCycle:
     coarse_Z: Optional[torch.Tensor] = None  # (k, n_flat) masked mode basis
     coarse_Ginv: Optional[torch.Tensor] = None  # (k, k) pseudo-inverse of Z A Z^T
     coarse_AZ: Optional[torch.Tensor] = None  # (k, n_flat) rows of A Z^T
+    ritz_lambdas: Optional[np.ndarray] = None  # |lambda| of the kept Ritz modes (attach_ritz_modes)
     _flat_meta: Optional[Tuple] = None  # (names, shapes, sizes) in system order
 
     def _flatten(self, x: Vec) -> torch.Tensor:
@@ -731,6 +734,116 @@ def attach_coarse_correction_device(vc: VCycle, op, active, z_builder, bcs=()) -
     for i in range(Z.shape[0]):
         Az = matvec(unflat(Z[i]))
         AZ[i] = torch.cat([Az[n].reshape(-1) for n in names])
+    return _set_coarse(vc, Z, AZ)
+
+
+def attach_ritz_modes(
+    vc: VCycle,
+    op,
+    active,
+    bcs=(),
+    deflate=(),
+    n_arnoldi: int = 30,
+    n_keep: int = 8,
+    tol_lam: float = 0.5,
+    seed: int = 0,
+) -> VCycle:
+    """Append the dominant Ritz vectors of the preconditioned error
+    propagator ``E = I - M A`` to the rank-k Galerkin coarse space (a
+    GenEO-like spectral coarse space from one global Arnoldi iteration of
+    ``n_arnoldi`` steps, each one matvec and one application of the cycle).
+
+    ``deflate``: mode dicts spanning the operator's known null space (S5's
+    collective rigid motions); E has eigenvalue ~1 on them, so the Krylov
+    space is kept orthogonal to them.  Ritz vectors with ``|lambda| <
+    tol_lam`` are dropped (the cycle already contracts them).  The start
+    vector is ``numpy.random.default_rng(seed).standard_normal`` on the
+    active DoFs, as in the JAX package, with two modified Gram-Schmidt
+    passes per step, the small Hessenberg eigenproblem on the host, the
+    new modes after any closed-form ones, and ``G = Z (A Z)^T`` inverted
+    on the host.  The Krylov vectors are float64 on the operator's device;
+    ``M`` is the cycle as the solve calls it (in its own dtype).  One host
+    read per step."""
+    from .solvers import masked_operator
+
+    matvec, _, _ = masked_operator(op, bcs)
+    names, shapes, sizes = _flat_layout(vc, op)
+    dev = next(iter(active.values())).device
+    f64 = torch.float64
+    act = torch.cat([torch.broadcast_to(active[n], sh).reshape(-1) for n, sh in zip(names, shapes)])
+    act_f = act.to(f64)
+
+    def unflat(z):
+        out, cur = {}, 0
+        for n, sh, sz in zip(names, shapes, sizes):
+            out[n] = z[cur : cur + sz].reshape(sh)
+            cur += sz
+        return out
+
+    def flat(d):
+        return torch.cat([d[n].reshape(-1).to(f64) for n in names])
+
+    def A_(z):
+        return flat(matvec(unflat(z)))
+
+    # orthonormal null basis (masked) for the projection
+    Q = []
+    for v in deflate:
+        q = flat({n: torch.broadcast_to(v[n], sh) for n, sh in zip(names, shapes)}) * act_f
+        for o in Q:
+            q = q - (o @ q) * o
+        nq = float(torch.linalg.vector_norm(q))
+        if nq > 1e-12:
+            Q.append(q / nq)
+
+    def proj(v):
+        for o in Q:
+            v = v - (o @ v) * o
+        return v
+
+    n_flat = int(act.shape[0])
+    start = np.random.default_rng(seed).standard_normal(n_flat)
+    v = proj(torch.as_tensor(start, dtype=f64, device=dev) * act_f)
+    V = [v / torch.linalg.vector_norm(v)]
+    H = torch.zeros((n_arnoldi + 1, n_arnoldi), dtype=f64, device=dev)
+    for j in range(n_arnoldi):
+        w = V[j] - flat(vc(unflat(A_(V[j]))))  # E v = v - M A v
+        w = proj(w * act_f)
+        for _pass in range(2):  # MGS, two passes for orthogonality
+            for i in range(j + 1):
+                c = V[i] @ w
+                H[i, j] += c
+                w = w - c * V[i]
+        H[j + 1, j] = torch.linalg.vector_norm(w)
+        h = float(H[j + 1, j])
+        if h < 1e-12:
+            break
+        V.append(w / h)
+    m = len(V) - 1
+    lam, Y = np.linalg.eig(H[:m, :m].cpu().numpy())
+    order = np.argsort(-np.abs(lam))
+    keep = [i for i in order[:n_keep] if np.abs(lam[i]) >= tol_lam]
+    if not keep:
+        return vc
+    Vm = torch.stack(V[:m], dim=1)  # (n_flat, m)
+    Zs, AZs = [], []
+    for i in keep:
+        z = Vm @ torch.as_tensor(np.real(Y[:, i]).copy(), dtype=f64, device=dev)
+        nz = float(torch.linalg.vector_norm(z))
+        if nz < 1e-12:
+            continue
+        z = z / nz
+        Zs.append(z)
+        AZs.append(A_(z))
+    if not Zs:
+        return vc
+    Z, AZ = torch.stack(Zs), torch.stack(AZs)
+    if vc.coarse_Z is not None:
+        Z = torch.cat([vc.coarse_Z.to(f64), Z])
+        AZ = torch.cat([vc.coarse_AZ.to(f64), AZ])
+    # the Galerkin test space Z A Z^T: near-null slow modes have a tiny
+    # ||A z||, which a residual-minimizing one (AZ AZ^T) would weight least
+    vc.ritz_lambdas = np.abs(lam[keep])
     return _set_coarse(vc, Z, AZ)
 
 

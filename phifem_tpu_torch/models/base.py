@@ -137,9 +137,11 @@ class SchemeBase:
         :meth:`_coarse_modes`) gets its rank-k correction.  Memoized per
         argument set and operator data version; ``refresh=True`` rebuilds.
 
-        ``ritz_modes > 0`` raises ``NotImplementedError``: Ritz modes were
-        measured not to help S5 (docs/s5_preconditioner.md) and are not
-        ported; ``ritz_arnoldi`` is taken for them."""
+        ``ritz_modes > 0`` then appends that many Ritz vectors of the
+        assembled cycle's error propagator to the coarse space
+        (:func:`~phifem_tpu_torch.mg.attach_ritz_modes`, ``ritz_arnoldi``
+        Arnoldi steps, default ``max(24, 3 * ritz_modes)``), orthogonal to
+        the scheme's rigid modes where it has them."""
         from ..mg import (
             LatticeBulkVCycle,
             Level,
@@ -147,6 +149,7 @@ class SchemeBase:
             attach_coarse_correction,
             attach_coarse_correction_device,
             attach_interface_solve,
+            attach_ritz_modes,
             data_dependent_selection,
         )
         from ..ops.lattice import (
@@ -160,14 +163,9 @@ class SchemeBase:
         from ..ops.stencil import StencilCellBatch, orientation_offsets
         from ..solvers import masked_operator
 
-        if ritz_modes > 0:
-            raise NotImplementedError(
-                "Ritz modes are not ported: measured not to help S5 (docs/s5_preconditioner.md), "
-                "they wait for a later PR (ROADMAP queue 1)"
-            )
         key = (
-            "lattice", min_n, str(dtype), interface, ritz_arnoldi, repr(sorted(interface_kw.items())),
-            self.op.data_version,
+            "lattice", min_n, str(dtype), interface, ritz_modes, ritz_arnoldi,
+            repr(sorted(interface_kw.items())), self.op.data_version,
         )
         vc = self._mg_cached(key, refresh)
         if vc is not None:
@@ -244,6 +242,14 @@ class SchemeBase:
             modes = self._coarse_modes()
             if modes:
                 vc = attach_coarse_correction(vc, self.op, active_full, modes, bcs)
+        if ritz_modes > 0:
+            # the slow modes the assembled cycle still leaves, after any
+            # closed-form coarse space
+            defl = self.rigid_modes() if hasattr(self, "rigid_modes") else ()
+            vc = attach_ritz_modes(
+                vc, self.op, active_full, bcs, deflate=defl,
+                n_arnoldi=ritz_arnoldi or max(24, 3 * ritz_modes), n_keep=ritz_modes,
+            )
         self._mg_cache[key] = vc
         return vc
 

@@ -14,6 +14,10 @@ Modes (``--mode``):
   1e-10 (maxiter 5000), as ``demo/unstructured/main.py`` runs it (``--cell
   tet``: ``main3``; ``--cell quad``: the quad mesh above with the circle
   R = 0.7); prints the count and the relative L2 / H10 errors.
+* ``pmg``: S1-U at degree 2 (P2 primal and level set) on the triangle mesh
+  of ``amg`` with ``p_multigrid_preconditioner()``, flexible GMRES to 1e-10
+  (maxiter 200), ``tests/test_torch_upmg.py``'s problem at the scale of
+  ``chip_smoke.py``'s p-MG phase.
 * ``s5``: ``InterfaceElasticityU`` on ``tests/test_usolve.py``'s perturbed
   triangle mesh (amplitude 0.25 h, E_in / E_out 1.0 / 0.1, ``u_vec`` /
   ``f_vec``), rigid-mode deflated BiCGStab to ``--tol`` (default 1e-9) in
@@ -31,6 +35,7 @@ deviations").
     JAX_PLATFORMS=cpu python scripts/reference_amg_counts.py --cell tet --amg-dtype float64 8 12 16
     JAX_PLATFORMS=cpu python scripts/reference_amg_counts.py --cell tet --mode jacobi --scheme s3 12
     JAX_PLATFORMS=cpu python scripts/reference_amg_counts.py --mode s5 10
+    JAX_PLATFORMS=cpu python scripts/reference_amg_counts.py --mode pmg 40
 """
 
 import argparse
@@ -165,7 +170,7 @@ def main():
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("n", type=int, nargs="*")
     p.add_argument("--cell", choices=["tri", "quad", "tet"], default="tri")
-    p.add_argument("--mode", choices=["amg", "jacobi", "s5"], default="amg")
+    p.add_argument("--mode", choices=["amg", "jacobi", "s5", "pmg"], default="amg")
     p.add_argument("--scheme", choices=["s1", "s2", "s3", "s4"], default="s1")
     p.add_argument("--tol", type=float, default=1e-9)
     p.add_argument("--maxiter", type=int, default=400)
@@ -178,6 +183,13 @@ def main():
         if a.mode == "s5":
             r, e = s5(n, a.tol, a.maxiter, a.precond, amg_kw)
             label = f"s5 {a.precond}"
+        elif a.mode == "pmg":
+            s = WeakDirichletPoissonU(perturbed_mesh(n), mode="bg", primal_degree=2, levelset_degree=2)
+            s.setup(lambda x: x[..., 0] ** 2 + x[..., 1] ** 2 - R**2, lambda x: 2.0 * u2(x), u_D=u2)
+            s.assemble()
+            r = s.solve(method="fgmres", tol=1e-10, maxiter=200, precond=s.p_multigrid_preconditioner())
+            e = s.l2_h1_errors(s.u_h, u2, region=(1, 2))
+            label = "tri pmg s1 P2"
         else:
             if a.cell == "tet":
                 s, uex, region = scheme3(a.scheme if a.mode == "jacobi" else "s1", n)

@@ -92,12 +92,16 @@ def test_unported_paths_raise():
     with pytest.raises(ValueError, match="Unknown method"):
         pt.solve(s.op, s.b, bcs=s.bcs, method="minres")
     # the sub mode is ported (slice C); the Ritz modes of the lattice
-    # preconditioner wait for a later PR (they did not help S5)
+    # preconditioner are ported (slice I) and now build: on this 8 x 8 grid
+    # the band's dense inverse leaves no slow mode to keep (|lambda| < 0.5),
+    # and ritz_modes is part of the memo key
     circle = lambda x: x[:, 0] ** 2 + x[:, 1] ** 2 - 0.2
     w = pt.WeakDirichletPoisson(pt.Grid(8, 8, ((-1.0, -1.0), (1.0, 1.0)), device="cpu"), mode="sub")
     w.setup(circle, lambda x: x[:, 0]).assemble()
-    with pytest.raises(NotImplementedError, match="later PR"):
-        w.lattice_preconditioner(ritz_modes=2)
+    vr = w.lattice_preconditioner(ritz_modes=2)
+    assert vr is w.lattice_preconditioner(ritz_modes=2) and vr is not w.lattice_preconditioner()
+    assert vr.ritz_lambdas is None and vr.coarse_Z is None
+    assert w.solve(tol=1e-10, precond=vr).converged
     # the constant block cycle of a vector P1 bulk with a Dirichlet-masked
     # boundary is ported (slice F2): S5 with its displacements taken as such
     # gets a LatticeBlockMG per displacement field

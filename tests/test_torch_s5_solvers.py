@@ -15,7 +15,8 @@ S5, against the JAX package where it has the same function.
 * an unknown method raises ``ValueError`` (JAX's error); gmres and fgmres
   solve the deflated singular system as the sparse path does;
   ``lattice_preconditioner`` takes
-  ``ritz_arnoldi`` and routes S5's ``sweeps_coef`` of 0.6 to the
+  ``ritz_arnoldi`` and ``ritz_modes`` (the Ritz modes go after the
+  Fourier coarse space) and routes S5's ``sweeps_coef`` of 0.6 to the
   interface solve; the reference's S5 YAML loads.
 """
 
@@ -201,8 +202,10 @@ def test_lattice_preconditioner_takes_ritz_arnoldi_and_s5_sweeps_coef(s5_port, m
     # an explicit sweeps_coef wins over the scheme's
     s5_port.lattice_preconditioner(coupled=False, sweeps_coef=0.3, refresh=True)
     assert seen[-1] == {"sweeps_coef": 0.3}
-    with pytest.raises(NotImplementedError, match="Ritz modes"):
-        s5_port.lattice_preconditioner(coupled=False, ritz_modes=2)
+    # the Ritz modes are ported: they go after the Fourier coarse space
+    vr = s5_port.lattice_preconditioner(coupled=False, ritz_modes=2, ritz_arnoldi=12)
+    assert seen[-1] == {"sweeps_coef": 0.6}
+    assert vr.coarse_Z.shape[0] == vc.coarse_Z.shape[0] + len(vr.ritz_lambdas) > vc.coarse_Z.shape[0]
 
 
 def test_s1_keeps_the_default_sweeps_coef(monkeypatch):
