@@ -72,8 +72,8 @@ assemble -> solve:
   versions, timed beside their bounds and no-FMA floors, torch.mv of the
   block operator's CSR and conv3d with 3 in / 3 out channels; S3-3D (Neumann) on the sphere
   at n=16 (BiCGStab with lattice_preconditioner(); against the CPU lane),
-  n=32 (Jacobi BiCGStab, the demo's path), n=64 and n=80 (2.6M DoFs,
-  traced) by flexible GMRES with lattice_preconditioner(); S4-3D (Robin) at
+  n=32 (Jacobi BiCGStab, the demo's path), n=64 (1.4M DoFs, traced) by
+  flexible GMRES with lattice_preconditioner(); S4-3D (Robin) at
   n=32 and 64; S5-3D (two-material elasticity, contrast 1000) by flexible
   GMRES with rigid-mode deflation and lattice_preconditioner() at n=8, 12
   and 16 (against the JAX package's recorded counts and errors) and n=24
@@ -121,7 +121,20 @@ assemble -> solve:
   and ``device_trace`` around one solve;
   S5 n=64 with ``lattice_preconditioner(ritz_modes=12)``; P2 S1-U with
   ``p_multigrid_preconditioner()`` by fgmres at n=40 (against JAX's count)
-  and 160.
+  and 160;
+* slice H (``phifem_tpu_torch.parallel``), four shards on the one card
+  (``make_mesh(devices=["cuda:0"] * 4)``), each run held to the port's
+  single-device solve of the same system: box Poisson n=3200 by
+  ``sharded_lattice_solve`` (row slabs, the tail agglomerated); the S1
+  flower n=200 by ``sharded_solve`` -> ``halo_solve`` (one halo matvec
+  against the masked operator to 1e-13, the stencil kernel on every slab
+  and once against its plain version at a slab's shape); box Poisson 3D
+  n=128 by ``sharded_lattice3_solve`` (the lattice sweep kernel on every
+  slab, bit-equal to its plain version at a slab frame's shape); S1-U n=160
+  by ``partitioned_solve`` and ``element_sharded_solve``; S1 at degree 2
+  (n=9) through ``sharded_solve``'s whole-vector branch; S5-U n=10 by
+  ``partitioned_solve`` with rigid-mode deflation; every count pinned, the
+  bytes moved between shards per iteration printed.
 
 Every check raises; the script exits non-zero without a result when there
 is no card or no checkout.  The line before the last is a JSON record of
@@ -1975,19 +1988,20 @@ def run_slice_f1(pt) -> tuple:
 # (the data of tests/test_interface_elasticity3.py: the sphere r = 1 in
 # [-1.5, 1.5]^3, contrast E_in / E_out = 1000, flexible GMRES with the rigid
 # modes deflated and lattice_preconditioner(), tol 1e-8)
-# the Neumann scale run is at n=80 (2.6M DoFs), not the 10.7M of n=128: its
-# preconditioned solve took 98.6 s at n=96 (100 it, 4.5M DoFs) on an H100
-# (PERF.md), and the whole script must stay within its time limit (n=96 until
-# slice I's phases came)
-N3_NEU_CPU, N3_NEU_JAC, N3_NEU, N3_NEU_LARGE = 16, 32, 64, 80
+# the largest Neumann run is n=64 (1.4M DoFs), not the 10.7M of n=128: its
+# preconditioned solve took 98.6 s at n=96 (100 it, 4.5M DoFs) and 46.9 s at
+# n=80 (80 it, 2.6M) on an H100 (PERF.md), and the whole script must stay
+# within its time limit (n=96 until slice I's phases came, n=80 until slice
+# H's)
+N3_NEU_CPU, N3_NEU_JAC, N3_NEU = 16, 32, 64
 # the port's iteration counts on the H100 (PERF.md): Neumann n=16 BiCGStab
 # with lattice_preconditioner() (JAX's ceiling on the CPU: <= 25 at n=16;
 # the CPU lanes take 8-18: the inner band solve's rounding), n=32 Jacobi
-# BiCGStab (the demo's path), n=64 and 80 flexible GMRES with
+# BiCGStab (the demo's path), n=64 flexible GMRES with
 # lattice_preconditioner() (BiCGStab with it stalls there: relres 0.22 /
 # 0.028 after 201 / 300 it at n=64, Neumann / Robin; the inner band solve
 # makes the preconditioner nonlinear); Robin n=32 Jacobi, n=64 fgmres
-NEU_IT = {N3_NEU_CPU: 11, N3_NEU_JAC: 496, N3_NEU: 40, N3_NEU_LARGE: 80}
+NEU_IT = {N3_NEU_CPU: 11, N3_NEU_JAC: 496, N3_NEU: 40}
 # n=16 against the CPU lane: the inner band solve (m=5,566) run to
 # convergence, 400 sweeps (within 1e-6 of 1,500 sweeps on a CPU); one
 # application then differs by rounding (the float32 bulk cycle) and what
@@ -2372,14 +2386,13 @@ def phase_neumann3(pt, robin: bool = False) -> dict:
     """S3-3D (or S4-3D with ``robin``) on the sphere: (Neumann) n=16,
     BiCGStab with lattice_preconditioner(), and against the CPU lane
     (:func:`_neumann3_against_cpu`); n=32 Jacobi-equilibrated BiCGStab (the
-    demo's path); n=64 flexible GMRES with lattice_preconditioner();
-    (Neumann) n=80, 2.6M DoFs, the same as the scale run with its set-up and
-    a trace of two fgmres steps; every count pinned; hex3 and the lattice
+    demo's path); n=64 flexible GMRES with lattice_preconditioner(), for
+    Neumann with a trace of two fgmres steps; every count pinned; hex3 and the lattice
     sweep held against their plain versions on each n's own mask, cell
     matrix and cycle levels; L2(32) / L2(64) > 2^1.3."""
     name = "robin3" if robin else "neumann3"
     pins = ROB_IT if robin else NEU_IT
-    ns = (N3_NEU_JAC, N3_NEU) if robin else (N3_NEU_CPU, N3_NEU_JAC, N3_NEU, N3_NEU_LARGE)
+    ns = (N3_NEU_JAC, N3_NEU) if robin else (N3_NEU_CPU, N3_NEU_JAC, N3_NEU)
     counts, errs = {}, {}
     for n in ns:
         label = f"{name} n={n}"
@@ -2424,7 +2437,7 @@ def phase_neumann3(pt, robin: bool = False) -> dict:
             _hold_lattice3_levels(M.mg, label)
         if n == N3_NEU_CPU:
             _neumann3_against_cpu(pt, s, label, robin)
-        if n == N3_NEU_LARGE and not robin:
+        if n == N3_NEU and not robin:
             _profile_steps3(s, M, label)
         del s, M, r, r0
         torch.cuda.empty_cache()
@@ -3761,6 +3774,285 @@ def run_slice_i(pt, cs) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------- slice H
+# the sharded solves of phifem_tpu_torch.parallel: SH_SHARDS shards on the
+# one card (a shard mesh may repeat a device); each run is held to the
+# port's single-device solve of the same system
+SH_SHARDS = 4
+N_SH_FLOWER = 200  # the S1 flower of bench.py's s1 section, through halo_solve
+N_SH_U = 160  # S1-U on the G1a mesh, partitioned and element-sharded
+N_SH_P2 = 9  # the degree-2 S1 of tests/test_torch_parallel_halo.py: sharded_solve's whole-vector branch
+N_SH_S5U = N_S5U  # tests/test_parallel.py's deflated partitioned S5-U size
+SH_P2_TOL = 1e-12
+SH_REL_U = 1e-6  # x against the single-device solve, relative to max |x|
+SH_REL_S5U = 1e-5  # the same for the deflated S5-U solve (tests/test_parallel.py's bar)
+# the sharded solves' counts, pinned (the single-device counts are printed
+# beside them: 8, 563, 6, 318, 514 and 133 on the card)
+SH_IT = {"box": 8, "halo": 499, "box3": 6, "partitioned": 331, "element": 320, "p2": 490, "s5u": 135}
+
+
+def _sh_line(label: str, mesh, n: int, ndofs: int, it: int, rel: float, warm: float, moved: int, counts: dict,
+             extra: str = "") -> None:
+    devs = ", ".join(sorted({str(d) for d in mesh.devices}))
+    per_it = moved / max(it, 1)
+    print(f"[{label}] {mesh.size} shards on {devs}; n={n}, {ndofs} DoF; {it} it, relres {rel:.3e}; warm "
+          f"{warm:.3f} s; {per_it:,.0f} bytes between shards an iteration; launches {counts}{extra}")
+
+
+def _sh_pin(label: str, key: str, it: int) -> None:
+    if SH_IT[key] is not None:
+        _pin(label, it, SH_IT[key])
+
+
+def _sh_hold(label: str, x: dict, ref: dict, tol: float, floor: float = 1e-300) -> float:
+    """max over the fields of max |x - ref| / max(max |ref|, floor), raising
+    past ``tol``."""
+    worst = 0.0
+    for k in ref:
+        scale = max(float(ref[k].abs().max()), floor)
+        worst = max(worst, float((x[k] - ref[k]).abs().max()) / scale)
+    if worst > tol:
+        raise AssertionError(f"{label}: the sharded solution differs from the single-device one by {worst:.3e}")
+    return worst
+
+
+def _sh_runs(fn, *args, **kw):
+    """A short call (2 iterations: the path's operator built and its
+    kernels, copies and dots run once) and the warm call; the warm call's
+    result, its seconds and its stats.  A whole cold solve would cost the
+    script's time limit as much as the warm one."""
+    fn(*args, **dict(kw, maxiter=2))
+    stats = {}
+    out, t = _sync_time(fn, *args, stats=stats, **kw)
+    return out, t, stats
+
+
+def phase_sh_box(pt, cs, tpar, mesh) -> dict:
+    """Box Poisson n=N through sharded_lattice_solve (row slabs, one halo row
+    a transfer, the tail agglomerated), against the single-device
+    solve_lattice at the same n."""
+    from phifem_tpu_torch.ops.lattice import vertex_stencil_weights
+    from phifem_tpu_torch.ops.stencil import _TRI_OFFS
+
+    label = f"H box Poisson n={N}"
+    g, _, f = _problem(pt)
+    s = pt.BoxPoisson(g)
+    s.setup(f)
+    s.assemble()
+    mg1 = s.lattice_solver(min_n=16, dtype=torch.float32)
+    s.solve_lattice(tol=TOL, maxiter=40, mg=mg1)
+    r1, t1 = _sync_time(s.solve_lattice, tol=TOL, maxiter=40, mg=mg1)
+    w = vertex_stencil_weights(s.op.batches[0].matrices.numpy(), _TRI_OFFS)
+    mg, t_mg = _sync_time(tpar.build_sharded_lattice_mg, N, N, w, mesh, min_n=16, replicate_rows=32,
+                          dtype=torch.float32)
+    b2d = s.b["u"].reshape(N + 1, N + 1)
+    _reset_all(cs)
+    (u, rel, it), t_warm, stats = _sh_runs(tpar.sharded_lattice_solve, mg, mesh, b2d, tol=TOL, maxiter=40)
+    counts = _counts_all(cs)
+    diff = _sh_hold(label, {"u": u.reshape(-1)}, {"u": r1.x["u"]}, 1e-8)
+    _sh_line(label, mesh, N, s.system.num_dofs, it, rel, t_warm, stats["bytes_moved"], counts,
+             f"; single device {r1.iterations} it in {t1:.3f} s; levels m={[l.m for l in mg.levels]}, tail "
+             f"{'LatticeMG' if mg.tail is not None else 'dense'}; build {t_mg:.3f} s; max|u - u_1|/max|u_1| {diff:.3e}")
+    if not rel < 1e-10:
+        raise AssertionError(f"{label}: relres {rel}")
+    _sh_pin(label, "box", it)
+    return {label: counts}
+
+
+def _hold_slab_stencil(cs, H) -> float:
+    """The stencil kernel on one shard's slab (the halo path's shape) against
+    its plain version, f64; its launches are put back."""
+    n0, m0, s0 = cs.launches, cs.masked_launches, cs.shape_launches.copy()
+    st = H._stencils[1][0]
+    rng = np.random.default_rng(SEED)
+    x = torch.as_tensor(rng.standard_normal(st.nv), device=DEVICE)
+    y0 = torch.as_tensor(rng.standard_normal(st.nv), device=DEVICE)
+    y = cs.stencil_matvec(st.grid, x, st.masks, st.mats, y=y0.clone(), packed=st.packed)
+    ref = cs.stencil_matvec_ref(st.grid, x, st.masks, st.mats, y=y0.clone())
+    torch.cuda.synchronize()
+    cs.launches, cs.masked_launches, cs.shape_launches = n0, m0, s0
+    err = float((y - ref).abs().max() / ref.abs().max())
+    if err > 1e-13:
+        raise AssertionError(f"stencil kernel on a slab ({st.grid.ny} x {st.grid.nx} cells): {err}")
+    return err
+
+
+def phase_sh_halo(pt, cs, tpar, mesh) -> dict:
+    """S1 flower n=N_SH_FLOWER through sharded_solve -> halo_solve: one halo
+    matvec against the single-device masked operator, then Jacobi-equilibrated
+    BiCGStab to SCHEME_TOL against the single-device solve."""
+    from phifem_tpu_torch.solvers import masked_operator
+
+    label = f"H S1 halo n={N_SH_FLOWER}"
+    s = _flower_s1(pt, N_SH_FLOWER, DEVICE)
+    s.assemble()
+    H = tpar.HaloOperator(s.op, s.grid, mesh)
+    rng = np.random.default_rng(SEED)
+    x = {k: torch.as_tensor(rng.standard_normal(tuple(v.shape)), device=DEVICE) for k, v in s.b.items()}
+    y = H.unpad(H.matvec(H.pad(x)))
+    y_ref = masked_operator(s.op)[0](x)
+    mv_err = max(float((y[k] - y_ref[k]).abs().max() / y_ref[k].abs().max()) for k in y)
+    if mv_err > 1e-13:
+        raise AssertionError(f"{label}: the halo matvec differs from the masked operator by {mv_err}")
+    k_err = _hold_slab_stencil(cs, H)
+    r1, t1 = _sync_time(s.solve, tol=SCHEME_TOL)
+    _reset_all(cs)
+    (xs, rel), t_warm, stats = _sh_runs(tpar.sharded_solve, s.op, s.b, mesh, tol=SCHEME_TOL,
+                                        maxiter=25 * int(math.isqrt(s.system.num_dofs)) + 1000)
+    counts = _counts_all(cs)
+    it = stats["iterations"]
+    diff = _sh_hold(label, xs, r1.x, SH_REL_U)
+    _sh_line(label, mesh, N_SH_FLOWER, s.system.num_dofs, it, rel, t_warm, stats["bytes_moved"], counts,
+             f"; path {stats['path']}, slabs of {stats['slab_rows']} rows, halo {stats['halo_rows']}; single "
+             f"device {r1.iterations} it in {t1:.3f} s; max|x - x_1|/max|x_1| {diff:.3e}; one halo matvec against "
+             f"the masked operator {mv_err:.3e}, the stencil kernel on a slab against its plain version {k_err:.3e}")
+    if stats["path"] != "halo" or not rel <= 10 * SCHEME_TOL:
+        raise AssertionError(f"{label}: path {stats['path']}, relres {rel}")
+    if counts["stencil"] <= 0 or counts["masked"] <= 0:
+        raise AssertionError(f"{label} never launched the masked stencil kernel")
+    _sh_pin(label, "halo", it)
+    return {label: counts}
+
+
+def _hold_slab_sweep(mg) -> float:
+    """The lattice sweep kernel on one slab frame (the sharded path's
+    shape, matvec mode) against its plain version, bit for bit; its launch is
+    put back."""
+    from phifem_tpu_torch.ops import cuda_lattice3 as cl
+
+    lvl = mg.levels[0]
+    n0 = cl.launches
+    rng = np.random.default_rng(SEED)
+    slab = torch.as_tensor(rng.standard_normal((lvl.m + 4, lvl.R + 2, lvl.C + 2)), device=DEVICE)
+    got = cl.lattice3_sweep(cl.MATVEC, slab, mg._packed[0])
+    ref = cl.lattice3_sweep_ref(cl.MATVEC, slab, mg._packed[0])
+    torch.cuda.synchronize()
+    cl.launches = n0
+    if not torch.equal(got, ref):
+        raise AssertionError(f"lattice sweep kernel on a slab frame {tuple(slab.shape)}: not its plain version's bits")
+    return 0.0
+
+
+def phase_sh_box3(pt, cs, tpar, mesh) -> dict:
+    """Box Poisson 3D n=N3_BOX through sharded_lattice3_solve (z-plane slabs,
+    each slab's stencil the lattice sweep kernel), against the single-device
+    solve_lattice."""
+    label = f"H box3 n={N3_BOX}"
+    g, _, f = _box3(pt, N3_BOX)
+    s = pt.BoxPoisson3(g)
+    s.setup(f)
+    s.assemble()
+    mg1 = s.lattice_solver(min_n=8, dtype=torch.float32)
+    s.solve_lattice(tol=TOL, maxiter=40, mg=mg1)
+    r1, t1 = _sync_time(s.solve_lattice, tol=TOL, maxiter=40, mg=mg1)
+    n = N3_BOX
+    mg, t_mg = _sync_time(tpar.build_sharded_lattice3_mg, n, n, n, g.spacing, mesh, min_n=8, replicate_planes=8,
+                          dtype=torch.float32)
+    _hold_slab_sweep(mg)
+    _reset_all(cs)
+    (u, rel, it), t_warm, stats = _sh_runs(tpar.sharded_lattice3_solve, mg, mesh, s.b_lat, tol=TOL, maxiter=40)
+    counts = _counts_all(cs)
+    diff = _sh_hold(label, {"u": u}, {"u": s.u_lat}, 1e-8)
+    _sh_line(label, mesh, n, g.num_vertices, it, rel, t_warm, stats["bytes_moved"], counts,
+             f"; single device {r1.iterations} it in {t1:.3f} s; levels m={[l.m for l in mg.levels]}, tail "
+             f"{'Lattice3MG' if mg.tail is not None else 'dense'}; build {t_mg:.3f} s; max|u - u_1|/max|u_1| "
+             f"{diff:.3e}; the sweep kernel on a slab frame equal to its plain version")
+    if not rel < 1e-10:
+        raise AssertionError(f"{label}: relres {rel}")
+    if counts["lattice3"] <= 0:
+        raise AssertionError(f"{label} never launched the lattice sweep kernel")
+    _sh_pin(label, "box3", it)
+    return {label: counts}
+
+
+def phase_sh_u(pt, cs, tpar, mesh) -> dict:
+    """S1-U n=N_SH_U on the G1a mesh by Jacobi-equilibrated BiCGStab through
+    partitioned_solve and element_sharded_solve, each against the
+    single-device solve."""
+    mesh_u = _u_mesh(pt, N_SH_U, DEVICE)
+    s, _, _ = _u_scheme(pt, "s1", mesh_u, 0.49)
+    s.assemble()
+    r1, t1 = _sync_time(s.solve, tol=SCHEME_TOL)
+    paths = {}
+    for name, fn in (("partitioned", tpar.partitioned_solve), ("element", tpar.element_sharded_solve)):
+        label = f"H S1-U {name} n={N_SH_U}"
+        _reset_all(cs)
+        (xs, rel, it), t_warm, stats = _sh_runs(fn, s.op, s.b, mesh, tol=SCHEME_TOL)
+        paths[label] = _counts_all(cs)
+        diff = _sh_hold(label, xs, r1.x, SH_REL_U)
+        _sh_line(label, mesh, N_SH_U, s.system.num_dofs, it, rel, t_warm, stats["bytes_moved"], paths[label],
+                 f"; single device {r1.iterations} it in {t1:.3f} s; max|x - x_1|/max|x_1| {diff:.3e}")
+        if not rel <= 10 * SCHEME_TOL:
+            raise AssertionError(f"{label}: relres {rel}")
+        _sh_pin(label, name, it)
+    return paths
+
+
+def phase_sh_p2(pt, cs, tpar, mesh) -> dict:
+    """S1 at degree 2 (tests/test_parallel.py's circle, n=N_SH_P2) through
+    sharded_solve's whole-vector branch to SH_P2_TOL, against the
+    single-device solve.  Not tests/test_parallel.py's n=17: there the two
+    runs take 1,118 iterations each, 26.8 s of the script's time limit."""
+    label = f"H S1 P2 n={N_SH_P2} whole-vector"
+    g = pt.Grid(N_SH_P2, N_SH_P2, U_BOX, pt.CellType.triangle, device=DEVICE)
+    s = pt.WeakDirichletPoisson(g, mode="bg", primal_degree=2, levelset_degree=2)
+    s.setup(lambda x: x[..., 0] ** 2 + x[..., 1] ** 2 - 0.49, lambda x: 2.0 * _u_exact(x), u_D=_u_exact)
+    s.assemble()
+    # both to 1e-12: the branch stops on the unscaled residual, the
+    # single-device solve on the equilibrated one
+    r1, t1 = _sync_time(s.solve, tol=SH_P2_TOL, maxiter=4000)
+    _reset_all(cs)
+    (xs, rel), t_warm, stats = _sh_runs(tpar.sharded_solve, s.op, s.b, mesh, tol=SH_P2_TOL, maxiter=4000)
+    counts = _counts_all(cs)
+    diff = _sh_hold(label, xs, r1.x, SH_REL_U)
+    _sh_line(label, mesh, N_SH_P2, s.system.num_dofs, stats["iterations"], rel, t_warm, stats["bytes_moved"],
+             counts, f"; single device {r1.iterations} it in {t1:.3f} s; max|x - x_1|/max|x_1| {diff:.3e}")
+    if stats["path"] != "whole-vector" or not rel <= 10 * SH_P2_TOL:
+        raise AssertionError(f"{label}: path {stats['path']}, relres {rel}")
+    _sh_pin(label, "p2", stats["iterations"])
+    return {label: counts}
+
+
+def phase_sh_s5u(pt, cs, tpar, mesh) -> dict:
+    """S5-U n=N_SH_S5U through partitioned_solve with rigid-mode deflation
+    (BiCGStab to 1e-9), against the single-device deflated solve."""
+    label = f"H S5-U partitioned deflated n={N_SH_S5U}"
+    s = _s5u(pt, N_SH_S5U, DEVICE)
+    s.assemble()
+    r1, t1 = _sync_time(s.solve, method="bicgstab", tol=1e-9, maxiter=2000)
+    _reset_all(cs)
+    (xs, rel, it), t_warm, stats = _sh_runs(tpar.partitioned_solve, s.op, s.b, mesh, bcs=s.bcs, tol=1e-9,
+                                            maxiter=2000, deflate=s.rigid_modes())
+    counts = _counts_all(cs)
+    diff = _sh_hold(label, xs, r1.x, SH_REL_S5U, floor=1.0)
+    _sh_line(label, mesh, N_SH_S5U, s.system.num_dofs, it, rel, t_warm, stats["bytes_moved"], counts,
+             f"; single device {r1.iterations} it in {t1:.3f} s; max|x - x_1|/max(|x_1|, 1) {diff:.3e}")
+    if not rel <= 1e-8:
+        raise AssertionError(f"{label}: relres {rel}")
+    _sh_pin(label, "s5u", it)
+    return {label: counts}
+
+
+def run_slice_h(pt, cs) -> dict:
+    """Every slice-H phase on SH_SHARDS shards of the one card; returns the
+    launches of every kernel per path."""
+    import phifem_tpu_torch.parallel as tpar
+
+    mesh = tpar.make_mesh(devices=[f"{DEVICE}:0"] * SH_SHARDS)
+    paths, times = {}, {}
+    for key, phase in (("box", phase_sh_box), ("halo", phase_sh_halo), ("box3", phase_sh_box3),
+                       ("u", phase_sh_u), ("p2", phase_sh_p2), ("s5u", phase_sh_s5u)):
+        t0 = time.perf_counter()
+        paths.update(phase(pt, cs, tpar, mesh))
+        times[key] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    print(f"[time] slice H: {', '.join(f'{k} {v:.1f}' for k, v in times.items())}; slice H phases "
+          f"{sum(times.values()):.1f} s (four shards on one card: the partitioning and the per-shard dispatch, "
+          "not NVLink)")
+    print(f"[main path H] kernel launches per path: {paths}")
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -3895,6 +4187,12 @@ def main() -> int:
     paths_i = run_slice_i(pt, cs)
     print(f"[time] slice I phases {time.perf_counter() - t_i:.1f} s")
 
+    # slice H: the sharded solves, four shards on the one card; the halo
+    # path counts the stencil kernel, the 3D slabs the lattice sweep kernel
+    t_h = time.perf_counter()
+    paths_h = run_slice_h(pt, cs)
+    print(f"[time] slice H phases {time.perf_counter() - t_h:.1f} s")
+
     print(f"[main path] kernel launches per path: {paths}")
     if paths["box Poisson"]["stencil"] <= 0:
         raise AssertionError("the box-Poisson path never launched the stencil kernel")
@@ -3937,6 +4235,11 @@ def main() -> int:
         line["launches"] += sum(c[key] for c in paths_i.values())
         line["launches_by_path"].update({p: c[key] for p, c in paths_i.items()})
     kernel["masked_launches_by_path"].update({p: c["masked"] for p, c in paths_i.items()})
+    for line, key in ((kernel, "stencil"), (taps, "taps"), (kernels3[0], "hex3"), (kernels3[1], "lattice3"),
+                      (kernels3b[0], "hex3_block"), (kernels3b[1], "lattice3_block"), (amg_line, "amg")):
+        line["launches"] += sum(c[key] for c in paths_h.values())
+        line["launches_by_path"].update({p: c[key] for p, c in paths_h.items() if c[key]})
+    kernel["masked_launches_by_path"].update({p: c["masked"] for p, c in paths_h.items() if c["masked"]})
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     lines = [kernel, taps, *kernels3, *kernels3b, amg_line]
     print(json.dumps({"kernels": [_mark_sources(e) for e in lines]}))

@@ -161,12 +161,15 @@ def _pbicgstab(matvec, b: Vec, x0: Vec, *, tol, atol, maxiter, M, dot=tree_dot):
     residual test, a non-finite residual, or runaway divergence (1e8x past
     the best).  The coefficients stay on the device; the loop reads the
     residual norms once per iteration."""
-    bnorm2 = float(dot(b, b))
+    bb = dot(b, b)
+    bnorm2 = float(bb)
     target2 = max(tol * tol * bnorm2, atol * atol)
     r = {k: b[k] - v for k, v in matvec(x0).items()}
     rhat = r
     p = v = {k: torch.zeros_like(t) for k, t in b.items()}
-    one = torch.ones((), dtype=next(iter(b.values())).dtype, device=next(iter(b.values())).device)
+    # the coefficients live where the dots do (a sharded dot over several
+    # cards returns host scalars)
+    one = torch.ones((), dtype=bb.dtype, device=bb.device)
     rho = alpha = omega = one
     x = xb = x0
     rrb = dot(r, r)

@@ -42,6 +42,7 @@ import torch
 
 from phifem_tpu_torch import amg as tamg
 from phifem_tpu_torch.ops import cuda_amg as ca
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 SEED = 0
 MODES = [ca.APPLY, ca.RESIDUAL, ca.JACOBI, ca.PROLONG_ADD]

@@ -12,6 +12,7 @@ import phifem_tpu as pf  # noqa: E402
 import phifem_tpu.assembly as ja  # noqa: E402
 import phifem_tpu_torch as pt  # noqa: E402
 import phifem_tpu_torch.assembly as ta  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 BBOX = ((-1.0, -1.0), (1.0, 1.5))
 

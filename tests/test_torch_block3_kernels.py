@@ -25,6 +25,7 @@ import torch
 
 from phifem_tpu_torch.ops import cuda_hex3, cuda_lattice3 as cl
 from phifem_tpu_torch.ops.lattice3 import _block_terms3, block_vertex_stencil_weights3
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 # (nz, ny, nx): odd, one cell, ragged, a grid of one CTA, nodes an exact
 # multiple of the default tiles (8 x 16 x 32), the tile walks' own shapes

@@ -17,6 +17,7 @@ import torch
 
 import phifem_tpu_torch as pt
 from phifem_tpu_torch.ops import cuda_stencil
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 @pytest.fixture

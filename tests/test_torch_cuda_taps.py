@@ -18,6 +18,7 @@ import torch
 import phifem_tpu_torch as pt
 from phifem_tpu_torch.ops import cuda_taps
 from torch_tap_cases import FOUR_CHANNEL_PAIRS, random_tap_operator, sparse_tap_operator
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 TOL = {torch.float64: 1e-13, torch.float32: 1e-5}
 

@@ -23,6 +23,7 @@ import phifem_tpu.models as jm  # noqa: E402
 import phifem_tpu_torch as pt  # noqa: E402
 from phifem_tpu_torch.models import flower as tflower  # noqa: E402
 from torch_s1_cases import FLOWER_BOX, jflower, random_vec, rel  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 CIRCLE_BOX = ((-1.5, -1.5), (1.5, 1.5))
 ELEMENTS = [("triangle", 2), ("triangle", 3), ("quadrilateral", 2), ("quadrilateral", 3)]

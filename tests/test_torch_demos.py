@@ -26,6 +26,7 @@ from phifem_tpu_torch.demo import (
     weak_dirichlet_flower,
 )
 from phifem_tpu_torch.utils.io import _p1_point_data
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 REPO = Path(__file__).resolve().parents[1]
 # the solutions of two solves stopped at the same relative residual (1e-10)
@@ -44,16 +45,6 @@ JAX_2D = {
     "neumann_square": "neumann/square/main.py",
     "robin_square": "robin/square/main.py",
 }
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """Under the suite's parallel workers torch's intra-op threads only
-    contend for the cores: one thread a worker."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def read_point_data(path: str, name: str) -> np.ndarray:

@@ -36,6 +36,7 @@ from phifem_tpu_torch.models.interface_elasticity import lame  # noqa: E402
 from phifem_tpu_torch.utils.convert import scheme3_data_from_numpy  # noqa: E402
 
 from test_torch_weak3 import _band_bicgstab_f64  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 BOX = ((-1.5, -1.5, -1.5), (1.5, 1.5, 1.5))
 E_IN, E_OUT, NU = 1.0, 0.001, 0.3

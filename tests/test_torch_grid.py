@@ -9,6 +9,7 @@ jax = pytest.importorskip("jax")
 import phifem_tpu as pf  # noqa: E402
 import phifem_tpu_torch as pt  # noqa: E402
 from phifem_tpu_torch.quadrature import cell_rule  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 BBOX = ((-1.0, -2.0), (2.0, 1.5))
 HOST_MAPS = [

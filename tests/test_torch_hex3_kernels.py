@@ -24,6 +24,7 @@ import torch
 
 from phifem_tpu_torch.ops import cuda_hex3, cuda_lattice3
 from phifem_tpu_torch.ops.lattice3 import _terms3, hex_element_matrix, vertex_stencil_weights3
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 HEX_SHAPES = [(3, 4, 5), (7, 5, 6), (1, 1, 1), (9, 2, 4)]  # (nz, ny, nx)
 LATTICE_SHAPES = [(5, 6, 7), (3, 3, 3), (9, 17, 11)]  # padded logical (D, R, C)

@@ -19,6 +19,7 @@ from phifem_tpu.solvers import masked_operator as jmasked  # noqa: E402
 from phifem_tpu_torch.solvers import masked_operator as tmasked  # noqa: E402
 from phifem_tpu_torch.utils.convert import interface_tables_from_numpy  # noqa: E402
 from torch_s1_cases import flower, random_vec, rel  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 N = 24
 DENSE = ("interface_ids", "interface_inv")

@@ -20,6 +20,7 @@ import phifem_tpu_torch as pt  # noqa: E402
 import phifem_tpu_torch.utils.io as tio  # noqa: E402
 from phifem_tpu.grid3 import Grid3 as JGrid3  # noqa: E402
 from phifem_tpu.umesh3 import UMesh3 as JUMesh3  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 BOX = ((-1.0, -0.5), (2.0, 1.0))
 

@@ -34,6 +34,7 @@ from phifem_tpu_torch.assembly import assemble_cellwise  # noqa: E402
 from phifem_tpu_torch.levelset import detection_vector  # noqa: E402
 from phifem_tpu_torch.solvers import _pfgmres  # noqa: E402
 from torch_s1_cases import flower, rel  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 UNIT = ((0.0, 0.0), (1.0, 1.0))
 

@@ -15,6 +15,7 @@ import phifem_tpu_torch as pt  # noqa: E402
 import phifem_tpu_torch.mg as tmg  # noqa: E402
 import phifem_tpu_torch.ops.lattice as tl  # noqa: E402
 from phifem_tpu_torch.utils.convert import lattice_mg_from_numpy  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 # triangle P1 stiffness stencil (5-point) plus a mass-like diagonal coupling
 W = np.array([[0.0, -1.0, 0.1], [-1.0, 4.2, -1.0], [0.1, -1.0, 0.0]])

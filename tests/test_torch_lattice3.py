@@ -21,6 +21,7 @@ from phifem_tpu.ops import lattice3 as jl  # noqa: E402
 import phifem_tpu_torch as pt  # noqa: E402
 from phifem_tpu_torch.ops import lattice3 as tl  # noqa: E402
 from phifem_tpu_torch.utils.convert import lattice3_mg_from_numpy  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 def _rel(a, b) -> float:

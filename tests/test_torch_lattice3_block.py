@@ -31,6 +31,7 @@ from phifem_tpu_torch.ops import cuda_lattice3 as cl  # noqa: E402
 from phifem_tpu_torch.ops import lattice as tlat  # noqa: E402
 from phifem_tpu_torch.ops import lattice3 as tl3  # noqa: E402
 from phifem_tpu_torch.utils.convert import lattice3_block_mg_from_numpy  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 N = 8
 SP = (0.3, 0.25, 0.2)

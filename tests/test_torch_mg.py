@@ -27,6 +27,7 @@ import phifem_tpu_torch as pt  # noqa: E402
 import phifem_tpu_torch.mg as tmg  # noqa: E402
 from phifem_tpu_torch.solvers import masked_operator, solve  # noqa: E402
 from torch_s1_cases import flower, random_vec, rel  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 BOX = ((-1.0, -1.0), (1.0, 1.0))
 

@@ -28,6 +28,7 @@ from phifem_tpu_torch.models import lattice_core  # noqa: E402
 from phifem_tpu_torch.utils.convert import scheme3_data_from_numpy  # noqa: E402
 
 from test_torch_weak3 import _band_bicgstab_f64  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 R = 0.7
 BOX = ((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0))

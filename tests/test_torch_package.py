@@ -1,10 +1,15 @@
 """The port package stands alone: no JAX, explicit devices and dtypes."""
 
+import ast
 import subprocess
 import sys
+from pathlib import Path
 
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
+REPO = Path(__file__).resolve().parents[1]
 
 
 def test_import_leaves_jax_out():
@@ -26,7 +31,9 @@ def test_import_leaves_jax_out():
         "phifem_tpu_torch.models.neumann3, phifem_tpu_torch.models.robin3, "
         "phifem_tpu_torch.models.interface_elasticity3, phifem_tpu_torch.umesh, "
         "phifem_tpu_torch.uassembly, phifem_tpu_torch.amg, phifem_tpu_torch.ops.cuda_amg, "
-        "phifem_tpu_torch.models.unstructured; "
+        "phifem_tpu_torch.models.unstructured, phifem_tpu_torch.parallel, "
+        "phifem_tpu_torch.parallel.halo, phifem_tpu_torch.parallel.lattice, "
+        "phifem_tpu_torch.parallel.lattice3, phifem_tpu_torch.parallel.uop; "
         "assert 'h5py' not in sys.modules, 'importing the port needs no h5py'; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'phifem_tpu')); "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -54,11 +61,60 @@ def test_every_module_leaves_jax_out():
         "'phifem_tpu_torch.models.neumann3', 'phifem_tpu_torch.models.robin3', "
         "'phifem_tpu_torch.models.interface_elasticity3', 'phifem_tpu_torch.umesh', "
         "'phifem_tpu_torch.uassembly', 'phifem_tpu_torch.amg', 'phifem_tpu_torch.ops.cuda_amg', "
-        "'phifem_tpu_torch.models.unstructured'} <= set(names), names\n"
+        "'phifem_tpu_torch.models.unstructured', 'phifem_tpu_torch.parallel', "
+        "'phifem_tpu_torch.parallel.sharding', 'phifem_tpu_torch.parallel.halo', "
+        "'phifem_tpu_torch.parallel.lattice', 'phifem_tpu_torch.parallel.lattice3', "
+        "'phifem_tpu_torch.parallel.uop'} <= set(names), names\n"
         "print(len(names), len(new), bad); sys.exit(1 if bad else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _imported_roots(path: Path) -> set:
+    """Top-level package names that the source file imports, anywhere in it
+    (absolute imports; a relative import stays inside its package)."""
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_sources_import_no_jax():
+    """AST guard: no source file of the port (``phifem_tpu_torch/**.py``,
+    ``parallel/`` included) nor ``chip_smoke.py`` imports ``jax``, ``jaxlib``
+    or ``phifem_tpu``, not even inside a function."""
+    files = sorted((REPO / "phifem_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert REPO / "phifem_tpu_torch" / "parallel" / "uop.py" in files
+    bad = {str(f.relative_to(REPO)): sorted(r & {"jax", "jaxlib", "phifem_tpu"})
+           for f in files for r in [_imported_roots(f)] if r & {"jax", "jaxlib", "phifem_tpu"}}
+    assert not bad, bad
+
+
+def test_shard_mesh_never_shrinks():
+    """``make_mesh`` without devices asks for CUDA cards and raises when the
+    host has fewer than asked (here, where there may be none: ``make_mesh(2)``
+    on a host with fewer than two cards); one device may repeat in an
+    explicit list."""
+    from phifem_tpu_torch.parallel import make_mesh
+
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        make_mesh(have + 1)
+    if have < 2:
+        with pytest.raises(RuntimeError, match="CUDA card"):
+            make_mesh(2)
+    else:
+        assert make_mesh(2).size == 2
+    if have == 0:
+        with pytest.raises(RuntimeError):
+            make_mesh()
+        with pytest.raises(RuntimeError):
+            make_mesh(devices=["cuda:0"] * 4)
+    assert make_mesh(devices=["cpu"] * 4).size == 4
 
 
 def test_no_global_default_changed():

@@ -34,6 +34,7 @@ from phifem_tpu.pmg import _apply_PT as j_apply_PT  # noqa: E402
 from phifem_tpu.pmg import p_transfer as j_p_transfer  # noqa: E402
 from phifem_tpu_torch.pmg import PMGVCycle, Transfer, _apply_P, _apply_PT, p_transfer  # noqa: E402
 from torch_s1_cases import random_vec, rel  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 BOX = ((-1.5, -1.5), (1.5, 1.5))
 ELEMENTS = [("triangle", 2), ("triangle", 3), ("quadrilateral", 2), ("quadrilateral", 3)]

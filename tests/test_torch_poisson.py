@@ -14,6 +14,7 @@ import phifem_tpu as pf  # noqa: E402
 from phifem_tpu.models import BoxPoisson as JBoxPoisson  # noqa: E402
 import phifem_tpu_torch as pt  # noqa: E402
 from phifem_tpu_torch.utils.convert import function_from_numpy  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 N = 32
 

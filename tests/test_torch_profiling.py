@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from phifem_tpu_torch.utils import Timer, device_trace, report_throughput
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 def test_timer_phases_accumulate_and_report():

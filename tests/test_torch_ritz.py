@@ -22,18 +22,9 @@ pytest.importorskip("jax")
 
 from torch_s1_cases import flower  # noqa: E402
 from torch_s5_cases import s5  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 LAM_TOL = 1e-5
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """Under the suite's parallel workers torch's intra-op threads only
-    contend for the cores: one thread a worker."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jax_with_lambdas(build, monkeypatch):

@@ -15,6 +15,7 @@ from phifem_tpu.solvers import masked_operator as jmasked  # noqa: E402
 from phifem_tpu_torch.assembly import Batch  # noqa: E402
 from phifem_tpu_torch.solvers import masked_operator as tmasked  # noqa: E402
 from torch_s1_cases import flower, random_vec, rel  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 N = 24
 

@@ -28,6 +28,7 @@ from phifem_tpu.ops.taps import build_tap_operator as jbuild  # noqa: E402
 from phifem_tpu_torch.models.interface_elasticity import s5_recombine  # noqa: E402
 from phifem_tpu_torch.utils.convert import tap_operator_from_numpy  # noqa: E402
 from torch_s5_cases import random_fields, rel, s5  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 N = 16
 

@@ -28,6 +28,7 @@ import jax.numpy as jnp  # noqa: E402
 from phifem_tpu_torch.mg import CoupledVCycle  # noqa: E402
 from phifem_tpu_torch.models import elasticity_disk as tdisk  # noqa: E402
 from torch_s5_cases import random_fields, rel, s5  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 N = 16
 KW = dict(min_n=4, max_coarse_dofs=2000)

@@ -35,6 +35,7 @@ from phifem_tpu_torch.utils.convert import (  # noqa: E402
     lattice_var_mg_from_numpy,
 )
 from torch_s5_cases import random_fields, rel, s5  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 N = 16
 INTERFACE_FIELDS = (

@@ -37,6 +37,7 @@ from phifem_tpu_torch.assembly import CellTerm, System, assemble_operator, assem
 from phifem_tpu_torch.solvers import DirichletBC  # noqa: E402
 from phifem_tpu_torch.spaces import boundary_dof_mask  # noqa: E402
 from torch_s1_cases import rel  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 def _stiff_j(u, v, d, x, ctx):

@@ -36,6 +36,7 @@ from phifem_tpu_torch.models import flower as tflower  # noqa: E402
 from phifem_tpu_torch.models import neumann_square as tnsq  # noqa: E402
 from phifem_tpu_torch.models import robin_square as trsq  # noqa: E402
 from torch_s1_cases import FLOWER_BOX, jflower, random_vec, rel  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 BOX = ((-1.0, -1.0), (1.0, 1.0))
 CASES = ["s2", "s3", "s4"]

@@ -17,6 +17,7 @@ from phifem_tpu.ops.pallas_stencil import stencil_matvec_pallas  # noqa: E402
 import phifem_tpu_torch as pt  # noqa: E402
 from phifem_tpu_torch.ops import cuda_stencil  # noqa: E402
 from phifem_tpu_torch.utils.convert import stencil_batch_from_numpy  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 BBOX = ((-1.0, -1.0), (1.0, 1.0))
 

@@ -42,6 +42,7 @@ import torch
 
 from phifem_tpu_torch.ops import cuda_hex3, cuda_lattice3 as cl
 from phifem_tpu_torch.ops.lattice3 import _terms3, hex_element_matrix, vertex_stencil_weights3
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 DTYPES = {"f32": torch.float32, "f64": torch.float64}
 MODES = {"matvec": (cl.MATVEC, False), "residual": (cl.RESIDUAL, True), "jacobi_masked": (cl.JACOBI, True),

@@ -31,6 +31,7 @@ import phifem_tpu_torch as pt  # noqa: E402
 from phifem_tpu_torch.ops import cuda_stencil  # noqa: E402
 from phifem_tpu_torch.ops.stencil import orientation_offsets  # noqa: E402
 from phifem_tpu_torch.utils.convert import stencil_batch_from_numpy  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 BBOX = ((-1.0, -1.0), (1.0, 1.0))
 SHAPES = [(37, 53), (4, 3), (129, 65), (1, 1), (1, 9), (9, 1)]  # (nx, ny)

@@ -17,6 +17,7 @@ import jax.numpy as jnp  # noqa: E402
 import phifem_tpu as pf  # noqa: E402
 from phifem_tpu.models.strong_dirichlet3 import StrongDirichletPoisson3 as JStrong3  # noqa: E402
 import phifem_tpu_torch as pt  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 R0 = 0.7
 BOX = ((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0))

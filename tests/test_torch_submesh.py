@@ -22,6 +22,7 @@ import phifem_tpu_torch as pt  # noqa: E402
 from phifem_tpu.tagging import compute_tags_measures as jtags  # noqa: E402
 from torch_s1_cases import CIRCLE_BOX, FLOWER_BOX, jflower, random_vec, rel  # noqa: E402
 from phifem_tpu_torch.models import flower as tflower  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 def _circle(x):

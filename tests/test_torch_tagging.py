@@ -21,6 +21,7 @@ from torch_s1_cases import (  # noqa: E402
     tphi_circle,
 )
 from phifem_tpu_torch.models import flower as tflower  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 CASES = [
     ("flower", 40, "triangle", slc) for slc in (True, False)

@@ -24,6 +24,7 @@ from phifem_tpu_torch.ops import cuda_taps
 from phifem_tpu_torch.ops.lattice import build_lattice_mg
 from phifem_tpu_torch.utils.convert import interface_tables_from_numpy, lattice_mg_from_numpy
 from torch_tap_cases import random_tap_operator, sparse_tap_operator
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 BOX = ((-1.0, -1.0), (1.0, 1.0))
 SCHEMES = ["s1", "s3_quad", "s4"]

@@ -30,6 +30,7 @@ from phifem_tpu_torch.ops import cuda_taps  # noqa: E402
 from phifem_tpu_torch.ops.taps import build_tap_operator, supports_tap_form  # noqa: E402
 from phifem_tpu_torch.utils.convert import tap_operator_from_numpy  # noqa: E402
 from torch_s1_cases import random_vec, rel  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 BOX = ((-1.0, -1.0), (1.0, 1.0))
 CASES = ["s1_bg", "s1_sub", "s2", "s3_quad", "s3_tri", "s4"]

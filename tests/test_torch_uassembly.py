@@ -23,6 +23,7 @@ import torch
 import phifem_tpu.uassembly as ju
 import phifem_tpu_torch.uassembly as tu
 from torch_u_cases import meshes, np_t, rel, schemes
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 N = 12
 TOL = 1e-12

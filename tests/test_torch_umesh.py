@@ -23,6 +23,7 @@ import torch
 import phifem_tpu as pf
 import phifem_tpu_torch as pt
 from torch_u_cases import BOX, circle, ellipse, meshes
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 N = 12
 

@@ -26,6 +26,7 @@ import phifem_tpu_torch as pt
 from phifem_tpu.umesh3 import tet_boundary_points as j_tbp
 from phifem_tpu.umesh3 import triangle_lattice_points as j_tlp
 from phifem_tpu_torch.umesh3 import tet_boundary_points, triangle_lattice_points
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 BOX3 = ((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0))
 R2 = 0.61**2

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 from torch_u_cases import np_t, rel, schemes
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 N = 12
 KW = dict(primal_degree=2, levelset_degree=2)

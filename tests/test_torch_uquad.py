@@ -41,6 +41,7 @@ import phifem_tpu_torch as pt
 import phifem_tpu_torch.uassembly as tu
 from phifem_tpu_torch.quadrature import segment_rule
 from torch_u_cases import BOX, meshes, np_t, rel, schemes, u_t
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 N = 6
 AMP = 0.2

@@ -34,6 +34,7 @@ from phifem_tpu.uassembly import interpolate as j_interp
 from phifem_tpu_torch.models import InterfaceElasticityU as TS5
 from phifem_tpu_torch.models.interface_elasticity import s5_recombine as t_recombine
 from torch_u_cases import mesh_arrays, np_t, rel
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 N = 8
 TOL = 1e-12

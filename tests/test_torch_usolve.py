@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 from torch_u_cases import np_t, schemes
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 N = 12
 CASES = {"s1": ("s1", "bg"), "s2": ("s2", "bg"), "s3": ("s3", "bg"), "s4": ("s4", "bg"), "s1-sub": ("s1", "sub")}

@@ -35,6 +35,7 @@ import phifem_tpu.uassembly as ju
 import phifem_tpu_torch as pt
 import phifem_tpu_torch.uassembly as tu
 from torch_u_cases import np_t, rel
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 BOX3 = ((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0))
 R2 = 0.61**2

@@ -19,18 +19,9 @@ import phifem_tpu as pf
 import phifem_tpu_torch as pt
 from test_torch_utet import TOL, perturbed, scheme
 from torch_u_cases import np_t, rel
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 N = 3
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """Under the suite's parallel workers torch's intra-op threads only
-    contend for the cores: one thread a worker."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _pair(name):

@@ -26,6 +26,7 @@ from phifem_tpu.tagging3 import compute_tags3 as jcompute_tags3  # noqa: E402
 import phifem_tpu_torch as pt  # noqa: E402
 from phifem_tpu_torch.tagging3 import compute_tags3  # noqa: E402
 from phifem_tpu_torch.utils.convert import scheme3_data_from_numpy  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 R0 = 0.7
 BOX = ((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0))

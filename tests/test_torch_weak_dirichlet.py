@@ -21,6 +21,7 @@ import phifem_tpu as pf  # noqa: E402
 import phifem_tpu.models as jm  # noqa: E402
 import phifem_tpu_torch as pt  # noqa: E402
 from torch_s1_cases import CIRCLE_BOX, flower, jphi_circle, rel, tphi_circle  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 def u_mild(x):
