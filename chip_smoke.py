@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels from the checkout's five sources (one nvcc per
+Builds the hand-written CUDA kernels from the checkout's six sources (one nvcc per
 source, in parallel), holds the stencil kernel against its plain PyTorch
 version on the card (both bodies, both cell types, at lattices that are no
 multiple of its tile and at the main path's; the masked one also timed on
@@ -134,7 +134,16 @@ assemble -> solve:
   by ``partitioned_solve`` and ``element_sharded_solve``; S1 at degree 2
   (n=9) through ``sharded_solve``'s whole-vector branch; S5-U n=10 by
   ``partitioned_solve`` with rigid-mode deflation; every count pinned, the
-  bytes moved between shards per iteration printed.
+  bytes moved between shards per iteration printed;
+* the interface band solve (``ops.cuda_band``, every Schwarz band of every
+  path above): on the bands the S1 n=3200, Q1 n=128, S5-3D n=24 and S1-U
+  n=800 paths build, the RAS kernel (three modes), the band's ELL product
+  on the AMG kernel (apply and residual), the dot kernel (one to three
+  pairs), every update mode and one whole inner solve ``torch.equal`` to
+  their plain versions, the launches per inner sweep (at most 16), each
+  kernel timed beside its bound, its plain version and the PyTorch call
+  for the same function; every path that builds a Schwarz band launches
+  all four, every other path none.
 
 Every check raises; the script exits non-zero without a result when there
 is no card or no checkout.  The line before the last is a JSON record of
@@ -181,8 +190,11 @@ JAX_S2_IT, JAX_S3_IT, JAX_S4_IT = 505, 38, 158
 JAX_S3_H1, JAX_S4_H1 = 0.05465, 0.02715
 # the port's iteration counts on the H100 (PERF.md): deterministic, since
 # every sum on the solve path runs in a fixed order; any other count means
-# that an order of summation moved (the tap kernel's, for one)
-S1_IT = 63  # S1 n=3200, cold and warm
+# that an order of summation moved (the tap kernel's, for one).  The counts
+# of paths with a Schwarz band follow the band kernels' sums (their fixed
+# inner sweeps make the preconditioner nonlinear): S1 n=3200 took 63 before
+# them, 77 with them
+S1_IT = 77  # S1 n=3200, cold and warm
 POISSON_IT, POISSON_LATTICE_IT = 10, 8  # box Poisson n=3200: generic CG, lattice CG
 # what the kernels line gives of each tap-kernel timing (ms: per call back to
 # back by CUDA events, as every kernel's ms; device_ms: per launch, profiler;
@@ -201,7 +213,7 @@ S5_TOL = 1e-8
 S5_REF_L2, S5_REF_H10 = 6.694107748208591e-3, 0.24532890594543272
 # the port's iteration counts on the H100: flat preconditioner at n=120
 # (JAX 25 at n=128, docs/s5_preconditioner.md), coupled hierarchy at n=64
-S5_FLAT_IT, S5_COUPLED_IT = 27, 13
+S5_FLAT_IT, S5_COUPLED_IT = 26, 15  # 27 / 13 before the band kernels
 # slice E: S1 on the demo's flower at degree 2 and 3 (P2 / P3 level set),
 # p-multigrid + flexible GMRES to S1_TOL, in whole restart cycles of 20; the
 # counts are the port's own on the H100 and its CPU lane's (JAX converges in
@@ -802,7 +814,7 @@ def _band(vc) -> str:
     if vc.interface_inv is not None:
         return f"dense interface branch, m={vc.interface_ids.numel()}"
     return (f"Schwarz/ELL interface branch, m={vc.band_ids.numel()}, "
-            f"{vc.schwarz_ids.shape[0]} blocks of <= {vc.schwarz_ids.shape[1]}, "
+            f"{vc.band_tables.nb} blocks of <= {vc.band_tables.K}, "
             f"schwarz_sweeps={vc.schwarz_sweeps}")
 
 
@@ -956,18 +968,19 @@ def phase_s1_large(pt, cs):
     print(f"[s1 n={N}] CPU lane {time.perf_counter() - t0:.1f} s")
     _hold(f"s1 n={N}", errs)
     del h
-    if vc.schwarz_inv is None:
+    if vc.band_tables is None:
         raise AssertionError(f"S1 n={N} should take the Schwarz/ELL interface branch")
     for res in (r0, r):
-        if res.iterations != S1_IT:
-            raise AssertionError(f"S1 n={N} took {res.iterations} iterations, not {S1_IT}: the order of "
-                                 "summation moved")
+        _pin(f"S1 n={N}", res.iterations, S1_IT)  # any other count: an order of summation moved
         if not (res.recurrence <= S1_TOL and res.residual <= 2 * S1_TOL):
             raise AssertionError(
                 f"S1 n={N} solve: recurrence {res.recurrence}, true relres {res.residual} after "
                 f"{res.iterations} iterations")
     if counts["masked"] <= 0:
         raise AssertionError(f"S1 n={N} never launched the masked stencil kernel")
+    t0 = time.perf_counter()
+    _hold_band(f"S1 n={N}", vc.band_tables, vc.schwarz_sweeps, timed=True)
+    print(f"[time] S1 n={N} band kernels {time.perf_counter() - t0:.1f} s")
     return counts, s
 
 
@@ -982,10 +995,190 @@ def _reset(cs) -> None:
     cs.launches = cs.masked_launches = 0
     cs.shape_launches.clear()
     _taps().launches = 0
+    _band_reset()
 
 
 def _counts(cs) -> dict:
-    return {"stencil": cs.launches, "masked": cs.masked_launches, "taps": _taps().launches}
+    return {"stencil": cs.launches, "masked": cs.masked_launches, "taps": _taps().launches, **_band_read()}
+
+
+def _band_mod():
+    from phifem_tpu_torch.ops import cuda_band
+
+    return cuda_band
+
+
+# the band solve's kernels count on every path: the 2D and 3D counters
+# above and below carry them, the imported-mesh paths (whose own count is
+# the AMG kernel's) keep them in BAND_U by path; "band_tables" counts the
+# Schwarz bands the path built (cuda_band.tables_built)
+BAND_U = {}
+# the band solve's kernels in the kernels line: (name and count key,
+# profiler name, source, the JAX loop it replaces)
+BAND_KERNELS = (
+    ("band_ras", "band_ras_kernel", "phifem_tpu_torch/csrc/band_solve.cu",
+     "phifem_tpu/mg.py:389-398 (band_ras in VCycle._band_correct_flat; XLA-fused, not a Pallas kernel)"),
+    ("band_dots", "band_dots_kernel", "phifem_tpu_torch/csrc/band_solve.cu",
+     "phifem_tpu/mg.py:85-139 (the dots of _band_bicgstab; XLA-fused, not a Pallas kernel)"),
+    ("band_update", "band_update_kernel", "phifem_tpu_torch/csrc/band_solve.cu",
+     "phifem_tpu/mg.py:85-139 (the vector updates of _band_bicgstab; XLA-fused, not a Pallas kernel)"),
+    ("band_ell", "amg_ell_kernel", "phifem_tpu_torch/csrc/amg_ell.cu",
+     "phifem_tpu/mg.py:383-387 (band_mv; XLA-fused, not a Pallas kernel): the AMG ELL kernel, reused"),
+)
+# what the band phase measures of each kernel, by band (the label of the
+# path that built it)
+BAND_TIMES = {}
+BAND_REPS = 20
+
+
+def _band_reset() -> None:
+    cb = _band_mod()
+    cb.launches = cb.ras_launches = cb.ell_launches = cb.dot_launches = cb.update_launches = 0
+    cb.tables_built = 0
+
+
+def _band_read() -> dict:
+    cb = _band_mod()
+    return {"band": cb.launches, "band_ras": cb.ras_launches, "band_ell": cb.ell_launches,
+            "band_dots": cb.dot_launches, "band_update": cb.update_launches, "band_tables": cb.tables_built}
+
+
+def _band_update_state(m: int, rng) -> dict:
+    """Vectors and scalar slots for one call of each update mode: rr below
+    the best residual of slot 0 and above that of slot 1, so that the
+    select takes x at sweep 0 and keeps xb at sweep 1."""
+    cb = _band_mod()
+    st = {k: torch.as_tensor(rng.standard_normal(m), device=DEVICE)
+          for k in ("r", "p", "v", "s", "t", "x", "ph", "sh", "xb", "rout")}
+    sc = torch.as_tensor(0.5 + rng.random(cb.SLOTS), device=DEVICE)
+    sc[cb.RR], sc[cb.RRB0], sc[cb.RRB1] = 0.5, 1.0, 0.25
+    return {"sc": sc, **st}
+
+
+def _hold_band(label: str, tab, sweeps: int, timed: bool = False) -> None:
+    """The band solve's kernels on a band the path built (after the path's
+    counts are read): the RAS apply in its three modes, the ELL product
+    (apply and residual), the dots of one to three pairs, every update mode
+    and one whole inner solve (and 4 Richardson sweeps), each ``torch.equal``
+    to its plain version; launches per inner sweep.  With ``timed``, each
+    kernel timed per call by CUDA events, its device ms per launch, the
+    wrapper's host ms per call, the plain version, the bound (each input
+    once, each output once over the memory rate) and the one PyTorch call
+    where there is one, and one inner solve, kept in BAND_TIMES[label]
+    (the main path's band here; ``scripts/tune_torch_band.py`` times every
+    band)."""
+    cb = _band_mod()
+    f64 = torch.float64
+    m, nb, K = tab.m, tab.nb, tab.K
+    rng = np.random.default_rng(SEED + m)
+    vec = lambda: torch.as_tensor(rng.standard_normal(m), device=DEVICE)
+    x, c = vec(), vec()
+    own = tab.owner < nb * K
+    n_own = int(own.sum())
+    n_blk = int(torch.unique(torch.div(tab.owner[own].long(), K, rounding_mode="floor")).numel())
+    w = tab.ell_cols.shape[0]
+    nnz = int((tab.ell_cols < m).sum())
+    ras_bytes = n_own * K * 8 + n_blk * K * 4 + m * (4 + 8 + 8)
+    print(f"[{label} band] m={m}, nb={nb} blocks of K={K} ({n_own} owned DoFs in {n_blk} blocks), ELL width {w} "
+          f"({nnz} nonzeros, {tab.lanes} lanes a row), {sweeps} inner sweeps; the RAS apply reads "
+          f"{ras_bytes / 1e6:.3f} MB (one row of K a DoF; x, owner, y), the whole block table "
+          f"{nb * K * K * 8 / 1e6:.3f} MB")
+
+    # agreement, every kernel and mode
+    t0 = time.perf_counter()
+    for mode in (cb.RAS_APPLY, cb.RAS_SCALE, cb.RAS_ADD):
+        if not torch.equal(cb.band_ras(tab, x, mode=mode, om=0.7, c=c), cb.band_ras_ref(tab, x, mode=mode, om=0.7, c=c)):
+            raise AssertionError(f"{label}: the RAS kernel (mode {mode}) differs from its plain version")
+    for b in (None, c):
+        if not torch.equal(cb.band_ell(tab, x, b=b), cb.band_ell_ref(tab, x, b=b)):
+            raise AssertionError(f"{label}: the band's ELL product (b {b is not None}) differs from its plain version")
+    for q in (1, 2, 3):
+        pairs = [(x, c), (c, c), (x, x)][:q]
+        if not torch.equal(cb.band_dots(pairs), cb.band_dots_ref(pairs)):
+            raise AssertionError(f"{label}: the dot kernel ({q} pairs) differs from its plain version")
+    for mode, sweep in ((cb.P, 0), (cb.P, 1), (cb.P, 2), (cb.S, 1), (cb.XR, 1), (cb.SEL, 3)):
+        st = _band_update_state(m, rng)
+        ref = {k: v.clone() for k, v in st.items()}
+        vecs = {k: st[k] for k in cb.MODE_VECS[mode]}
+        cb.band_update(mode, sweep, st["sc"], **vecs)
+        cb.band_update_ref(mode, sweep, ref["sc"], **{k: ref[k] for k in cb.MODE_VECS[mode]})
+        bad = [k for k in st if not torch.equal(st[k], ref[k])]
+        if bad:
+            raise AssertionError(f"{label}: the update kernel (mode {mode}, sweep {sweep}) differs from its plain "
+                                 f"version in {bad}")
+    rb = vec()
+    n0 = cb.launches
+    e = cb.band_bicgstab(tab, rb, sweeps)
+    torch.cuda.synchronize()
+    launches = cb.launches - n0
+    per_sweep = (launches - cb.dot_stages(m) - 1) / sweeps
+    if not torch.equal(e, cb.band_bicgstab_ref(tab, rb, sweeps)):
+        raise AssertionError(f"{label}: the inner solve on the kernels differs from its plain version")
+    if not torch.equal(cb.band_richardson(tab, rb, 4, 0.8), cb.band_richardson_ref(tab, rb, 4, 0.8)):
+        raise AssertionError(f"{label}: the Richardson inner solve on the kernels differs from its plain version")
+    print(f"[{label} band] every kernel, mode and the whole inner solve ({sweeps} sweeps, |e| max "
+          f"{float(e.abs().max()):.3e}) torch.equal to their plain versions ({time.perf_counter() - t0:.1f} s); "
+          f"{launches} launches a solve, {per_sweep:g} an inner sweep (at most 16)")
+    if not per_sweep <= 16:
+        raise AssertionError(f"{label}: {per_sweep} launches an inner sweep")
+    # how far the fixed sweeps take the inner solve: the true relative
+    # residual of its best iterate, at the default sweeps and twice and
+    # four times as many (reported: a solve stopped far from convergence
+    # makes the preconditioner nonlinear, and the outer count follows its
+    # rounding)
+    nrb = float(torch.linalg.norm(rb))
+    relres = {k * sweeps: float(torch.linalg.norm(cb.band_ell(tab, cb.band_bicgstab(tab, rb, k * sweeps), b=rb))) / nrb
+              for k in (1, 2, 4)}
+    print(f"[{label} band] inner solve on a random right-hand side, true relative residual of the best iterate: "
+          + ", ".join(f"{v:.3e} after {k} sweeps" for k, v in relres.items()))
+    if not timed:
+        return
+
+    # times
+    zero = x.new_zeros(1)
+    ids64, owner64 = tab.ids.long(), tab.owner.long()
+    A = _ell_csr(tab.ell_cols, tab.ell_vals, m)
+    t, s_ = vec(), vec()
+    sc = _band_update_state(m, rng)
+    xr = {k: sc[k] for k in cb.MODE_VECS[cb.XR]}
+    work = torch.empty(max(1, cb.dot_work(m, 2)), dtype=f64, device=DEVICE)
+    out = torch.empty(2, dtype=f64, device=DEVICE)
+    y = torch.empty(m, dtype=f64, device=DEVICE)
+    cases = {
+        "band_ras": (lambda: cb.band_ras(tab, x, y), lambda: cb.band_ras_ref(tab, x, y),
+                     lambda: torch.cat([torch.einsum("bkl,bl->bk", tab.inv, torch.cat([x, zero])[ids64]).reshape(-1),
+                                        zero])[owner64],
+                     _bound(ras_bytes, 2 * K * n_own, f64), "einsum over every block entry + the owner gather"),
+        "band_ell": (lambda: cb.band_ell(tab, x, y), lambda: cb.band_ell_ref(tab, x, y), lambda: torch.mv(A, x),
+                     _ell_bound(_amg().APPLY, nnz, m, m, f64)[:2], "torch.mv of the band matrix as CUDA CSR"),
+        "band_dots": (lambda: cb.band_dots([(t, s_), (t, t)], out, work), lambda: cb.band_dots_ref([(t, s_), (t, t)]),
+                      lambda: (torch.dot(t, s_), torch.dot(t, t)), _bound(2 * m * 8 + 16, 4 * m, f64),
+                      "two torch.dot (t.s, t.t)"),
+        "band_update": (lambda: cb.band_update(cb.XR, 1, sc["sc"], **xr),
+                        lambda: cb.band_update_ref(cb.XR, 1, sc["sc"], **xr), None,
+                        _bound(7 * m * 8, 6 * m, f64), None),
+    }
+    times = {}
+    for name, (fn, plain, lib, (bound, by), lib_name) in cases.items():
+        kname = next(k for n, k, _, _ in BAND_KERNELS if n == name)
+        tt = {"ms": _event_ms(fn, BAND_REPS), "device_ms": _device_ms(fn, BAND_REPS, kname),
+              "host_ms": _host_ms(fn, BAND_REPS), "plain_ms": _event_ms(plain, BAND_REPS), "bound_ms": bound,
+              "bound_by": by, "library_ms": None if lib is None else _event_ms(lib, BAND_REPS)}
+        times[name] = tt
+        print(f"[{label} band] {name}: {tt['ms']:.4f} ms a call (events), device {tt['device_ms']:.4f} ms a launch"
+              + (f" ({cb.dot_stages(m)} launches a call)" if name == "band_dots" else "")
+              + f", host {tt['host_ms']:.4f} ms a call; plain {tt['plain_ms']:.4f} ms; bound {bound:.4f} ms by {by} "
+              f"({bound / tt['device_ms']:.1%} of it by device time)"
+              + ("" if lib is None else f"; {lib_name} {tt['library_ms']:.4f} ms"))
+    solve = lambda: cb.band_bicgstab(tab, rb, sweeps)
+    times["solve"] = {"ms": _event_ms(solve, 3), "host_ms": _host_ms(solve, 3),
+                      "plain_ms": _event_ms(lambda: cb.band_bicgstab_ref(tab, rb, sweeps), 1), "launches": launches,
+                      "launches_per_sweep": per_sweep, "sweeps": sweeps}
+    ts = times["solve"]
+    print(f"[{label} band] one inner solve ({sweeps} sweeps): {ts['ms']:.3f} ms (events), host {ts['host_ms']:.3f} ms "
+          f"to issue its {launches} launches; plain {ts['plain_ms']:.3f} ms")
+    times["shape"] = f"m={m}, nb={nb}, K={K}, ELL width {w}, {nnz} nonzeros"
+    BAND_TIMES[label] = times
 
 
 def _flower_s2(pt, n: int, device: str, mode: str):
@@ -1045,12 +1238,13 @@ def phase_s2(pt, cs, mode: str) -> dict:
     print(f"[{label}] CPU lane {time.perf_counter() - t0:.1f} s, CPU solve {rh.iterations} it")
     _hold(label, errs)
     for res in (r, r_warm):
-        if not (res.converged and res.recurrence <= SCHEME_TOL and res.iterations == S2_IT):
-            raise AssertionError(f"{label} default solve: {res.iterations} it (not {S2_IT}), "
-                                 f"recurrence {res.recurrence}")
+        if not (res.converged and res.recurrence <= SCHEME_TOL):
+            raise AssertionError(f"{label} default solve: {res.iterations} it, recurrence {res.recurrence}")
+        _pin(f"{label} default solve", res.iterations, S2_IT)
     for res in (r_mg, r_mg2):
-        if not (res.converged and res.iterations == S2_MG_IT):
+        if not res.converged:
             raise AssertionError(f"{label} mg solve: {res.iterations} it, relres {res.residual}")
+        _pin(f"{label} mg solve", res.iterations, S2_MG_IT)
     return counts
 
 
@@ -1089,8 +1283,9 @@ def phase_s3(pt, cs) -> dict:
           f"{JAX_S3_IT}), relres {r.residual:.3e}, cold {t_cold:.3f} s, warm {t_warm:.4f} s; relative "
           f"H1 error {err['h1']:.5f} (JAX {JAX_S3_H1}), L2 {err['l2']:.3e}; launches {counts}")
     for res in (r, r2):
-        if not (res.converged and res.recurrence <= SCHEME_TOL and res.iterations == S3_IT):
-            raise AssertionError(f"s3 n={n} solve: {res.iterations} it (not {S3_IT}), recurrence {res.recurrence}")
+        if not (res.converged and res.recurrence <= SCHEME_TOL):
+            raise AssertionError(f"s3 n={n} solve: {res.iterations} it, recurrence {res.recurrence}")
+        _pin(f"s3 n={n}", res.iterations, S3_IT)
     if err["h1"] > 1.01 * JAX_S3_H1:
         raise AssertionError(f"s3 n={n}: H1 error {err['h1']} > 1.01 x {JAX_S3_H1}")
     return counts
@@ -1129,13 +1324,15 @@ def phase_s4(pt, cs) -> dict:
     print(f"[s4 n={N_S1}] CPU lane {time.perf_counter() - t0:.1f} s, CPU solve {rh.iterations} it")
     _hold(f"s4 n={N_S1}", errs)
     for res in (r, r2):
-        if not (res.converged and res.recurrence <= SCHEME_TOL and res.iterations == S4_IT):
-            raise AssertionError(f"s4 solve: {res.iterations} it (not {S4_IT}), recurrence {res.recurrence}")
+        if not (res.converged and res.recurrence <= SCHEME_TOL):
+            raise AssertionError(f"s4 solve: {res.iterations} it, recurrence {res.recurrence}")
+        _pin("s4", res.iterations, S4_IT)
     if err["h1"] > 1.01 * JAX_S4_H1:
         raise AssertionError(f"s4: H1 error {err['h1']} > 1.01 x {JAX_S4_H1}")
     for res in (r_mg, r_mg2):
-        if not (res.converged and res.iterations == S4_MG_IT):
+        if not res.converged:
             raise AssertionError(f"s4 mg solve: {res.iterations} it, relres {res.residual}")
+        _pin("s4 mg", res.iterations, S4_MG_IT)
     return counts
 
 
@@ -1221,8 +1418,9 @@ def phase_s5_flat(pt, cs, s, e_direct) -> dict:
           f"{e['l2']:.4e}, H10 {e['h10']:.4f} (direct {e_direct['l2']:.4e}, {e_direct['h10']:.4f}); "
           f"launches {counts}")
     for res in (r, r2):
-        if not (res.converged and res.iterations == S5_FLAT_IT):
-            raise AssertionError(f"{label}: {res.iterations} it (not {S5_FLAT_IT}), relres {res.residual}")
+        if not res.converged:
+            raise AssertionError(f"{label}: {res.iterations} it, relres {res.residual}")
+        _pin(label, res.iterations, S5_FLAT_IT)
     if not _within(e, e_direct):
         raise AssertionError(f"{label} errors {e} not within 5% of the direct solve's {e_direct}")
     return counts
@@ -1246,8 +1444,9 @@ def phase_s5_coupled(pt, cs) -> dict:
           f"relres {r.residual:.3e}, cold {t_cold:.3f} s, warm {t_warm:.3f} s ({r2.iterations} it); "
           f"relative L2 {e['l2']:.4e}, H10 {e['h10']:.4f}; launches {counts}")
     for res in (r, r2):
-        if not (res.converged and res.iterations == S5_COUPLED_IT):
-            raise AssertionError(f"{label}: {res.iterations} it (not {S5_COUPLED_IT}), relres {res.residual}")
+        if not res.converged:
+            raise AssertionError(f"{label}: {res.iterations} it, relres {res.residual}")
+        _pin(label, res.iterations, S5_COUPLED_IT)
     return counts
 
 
@@ -1308,10 +1507,14 @@ def phase_gmres(pt, cs, s, vc, r_bicg) -> dict:
     return counts
 
 
-KERNELS_2D = {"stencil": "stencil_matvec_kernel", "tap": "tap_matvec_kernel"}
+# the band solve's kernels in a trace; off the AMG paths every ELL launch is
+# the band's product
+KERNELS_BAND = {"band RAS": "band_ras_kernel", "band dots": "band_dots_kernel", "band updates": "band_update_kernel",
+                "band ELL (amg_ell)": "amg_ell_kernel"}
+KERNELS_2D = {"stencil": "stencil_matvec_kernel", "tap": "tap_matvec_kernel", **KERNELS_BAND}
 # the device-to-device copies include hex3 block's copy of K, one per launch
 KERNELS_3D = {"hex3": "hex1_stencil3", "hex3 block": "hexblock_stencil3", "lattice3": "lattice3_sweep_kernel",
-              "lattice3 block": "lattice3_block_kernel", "device-to-device copies": "Memcpy DtoD"}
+              "lattice3 block": "lattice3_block_kernel", "device-to-device copies": "Memcpy DtoD", **KERNELS_BAND}
 
 
 def _trace_report(label: str, kernels: dict, wall: float, iters: int, solver: str = "fgmres",
@@ -1324,8 +1527,9 @@ def _trace_report(label: str, kernels: dict, wall: float, iters: int, solver: st
     kernels."""
     busy = sum(t for _, t in kernels.values())
     count = sum(c for c, _ in kernels.values())
-    parts = ", ".join(f"{name} {sum(t for k, (_, t) in kernels.items() if key in k):.2f} ms in "
-                      f"{sum(c for k, (c, _) in kernels.items() if key in k)}" for name, key in named.items())
+    hit = lambda key, k: any(x in k for x in ((key,) if isinstance(key, str) else key))
+    parts = ", ".join(f"{name} {sum(t for k, (_, t) in kernels.items() if hit(key, k)):.2f} ms in "
+                      f"{sum(c for k, (c, _) in kernels.items() if hit(key, k))}" for name, key in named.items())
     print(f"[{label} profile] {iters} {solver} iterations, wall {wall:.3f} s unprofiled: {count} kernels "
           f"({count / max(iters, 1):.0f} per {solver} iteration), device busy {busy:.1f} ms = "
           f"{busy / 1e3 / wall:.1%} of the wall; {parts}; top kernels by device time:")
@@ -1387,9 +1591,9 @@ def phase_pmg(pt, cs, degree: int, n: int, expect_it, cpu: str = "", trace: bool
         print(f"[{label}] CPU lane {time.perf_counter() - t0:.1f} s")
         _hold(label, errs)
     for res in (r0, r):
-        if not (res.converged and res.recurrence <= S1_TOL and res.iterations == expect_it):
-            raise AssertionError(f"{label}: {res.iterations} it (not {expect_it}), recurrence {res.recurrence}, "
-                                 f"relres {res.residual}")
+        if not (res.converged and res.recurrence <= S1_TOL):
+            raise AssertionError(f"{label}: {res.iterations} it, recurrence {res.recurrence}, relres {res.residual}")
+        _pin(label, res.iterations, expect_it)
     return counts
 
 
@@ -1416,8 +1620,9 @@ def phase_q3(pt, cs) -> dict:
               f"{t_cold:.3f} s ({r0.iterations} it), warm {t_warm:.3f} s, {r.iterations} it, recurrence relres "
               f"{r.recurrence:.3e}, true relres {r.residual:.3e}; relative L2 {e['l2']:.4e}, H10 {e['h10']:.4e}")
         for res in (r0, r):
-            if not (res.converged and res.recurrence <= SCHEME_TOL and res.iterations == it):
-                raise AssertionError(f"S1 Q3 n={n}: {res.iterations} it (not {it}), recurrence {res.recurrence}")
+            if not (res.converged and res.recurrence <= SCHEME_TOL):
+                raise AssertionError(f"S1 Q3 n={n}: {res.iterations} it, recurrence {res.recurrence}")
+            _pin(f"S1 Q3 n={n}", res.iterations, it)
     counts = _counts(cs)
     print(f"[s1 Q3] L2({N_Q3[0]}) / L2({N_Q3[1]}) = {errs[0] / errs[1]:.2f} (> 10: O(h^4) is 16); peak "
           f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {counts}")
@@ -1441,10 +1646,15 @@ N3_Q1, N3_Q1_CPU, N3_Q2, N3_Q3, N3_STRONG = 128, 32, 32, 8, 64
 # n=128, BENCH_r04.json), Q1 at n=32 / 64 / 128 (BiCGStab, tol 1e-10; n=32
 # equals the CPU lane's), Q2 at n=16 / 32 (tol 1e-10, maxiter 2000; JAX on the
 # CPU 76 at n=16: the inner band solve's rounding moves this count, ROADMAP),
-# S2-3D at n=64
+# S2-3D at n=64; before the band kernels Q1 n=64 took 9, Q2 101 / 26.  Q2
+# n=32 at the default inner sweeps (76) is reported, not pinned: three
+# summation orders of the band solve gave 26, 29 and 39 on an H100
+# (scripts/compare_band_counts.py); with four times the sweeps (304) the
+# inner solve converges and the count is 18 in every order (Q2_CONVERGED)
 BOX3_IT = {N3_BOX: 6, N3_BOX_LARGE: 6}
-Q1_IT = {N3_Q1_CPU: 6, N3_Q1 // 2: 9, N3_Q1: 10}
-Q2_IT = {N3_Q2 // 2: 101, N3_Q2: 26}
+Q1_IT = {N3_Q1_CPU: 6, N3_Q1 // 2: 10, N3_Q1: 10}
+Q2_IT = {N3_Q2 // 2: 90, N3_Q2: None}
+Q2_CONVERGED = {N3_Q2: (304, 18)}  # n: (inner sweeps, count)
 STRONG3_IT = 93
 # the hex3 kernel checks: (degree, n) on the sphere's mask; the first three
 # are timed; then every other shape the 3D weak paths run (Q1 n=32 / 64, Q2
@@ -1480,12 +1690,13 @@ def _k3():
 def _reset3() -> None:
     ch, cl = _k3()
     ch.launches = cl.launches = ch.block_launches = cl.block_launches = 0
+    _band_reset()
 
 
 def _counts3() -> dict:
     ch, cl = _k3()
     return {"hex3": ch.launches, "lattice3": cl.launches, "hex3_block": ch.block_launches,
-            "lattice3_block": cl.block_launches}
+            "lattice3_block": cl.block_launches, **_band_read()}
 
 
 def _hex3_csr(mask: torch.Tensor, A: torch.Tensor, degree: int) -> torch.Tensor:
@@ -1813,7 +2024,8 @@ def _against_cpu3(s, h) -> dict:
 
 
 def _solve_weak3(s, label: str, expect, tol=TOL, maxiter=200) -> tuple:
-    """lattice_preconditioner() + BiCGStab, cold and warm; the count pinned."""
+    """lattice_preconditioner() + BiCGStab, cold and warm; the count pinned
+    (``expect`` None: cold and warm take the same count)."""
     M, t_pre = _sync_time(s.lattice_preconditioner)
     kw = dict(method="bicgstab", tol=tol, maxiter=maxiter, precond=M)
     r0, t_cold = _sync_time(s.solve, **kw)
@@ -1826,8 +2038,7 @@ def _solve_weak3(s, label: str, expect, tol=TOL, maxiter=200) -> tuple:
     for res in (r0, r):
         if not (res.converged and res.residual <= 10 * tol):
             raise AssertionError(f"{label}: not converged, relres {res.residual}, {res.iterations} it")
-        if res.iterations != expect:
-            raise AssertionError(f"{label}: {res.iterations} iterations, not {expect}")
+        _pin(label, res.iterations, r0.iterations if expect is None else expect)
     _hold_lattice3_levels(M.mg, label)
     return M, r
 
@@ -1869,6 +2080,9 @@ def phase_weak3_q1(pt) -> dict:
             kern = _device_kernels(lambda: s.solve(tol=TOL, maxiter=2, precond=M), 1)
             _, wall = _sync_time(lambda: s.solve(tol=TOL, maxiter=2, precond=M))
             _trace_report(label, kern, wall, 2, "BiCGStab", KERNELS_3D, top=10)
+            t0 = time.perf_counter()
+            _hold_band(label, s._band.band_tables, s._band.schwarz_sweeps)
+            print(f"[time] {label} band kernels {time.perf_counter() - t0:.1f} s")
         del s, M, r
         torch.cuda.empty_cache()
     ratio = errs[N3_Q1 // 2]["l2"] / errs[N3_Q1]["l2"]
@@ -1881,7 +2095,8 @@ def phase_weak3_q1(pt) -> dict:
 def phase_weak3_q2(pt) -> dict:
     """Q2 on the sphere with the low-order-refined lattice_preconditioner()
     and BiCGStab to 1e-10 (maxiter 2000) at n=16 and n=32 (549,250 DoFs),
-    the counts pinned, L2(16) / L2(32) > 6; at n=16 the tags, b and one
+    n=16's count pinned, n=32's with the inner band solve converged
+    (Q2_CONVERGED), L2(16) / L2(32) > 6; at n=16 the tags, b and one
     seeded matvec against the CPU lane's; then Q3 at n=N3_Q3 by the sparse
     direct solve, which reproduces a cubic (L2 and H10 < 1e-9)."""
     counts, errs = {}, {}
@@ -1894,6 +2109,16 @@ def phase_weak3_q2(pt) -> dict:
         counts[n] = _counts3()
         e = errs[n] = s.l2_h1_errors(_p3().u_smooth)
         print(f"[{label}] relative L2 {e['l2']:.4e}, H10 {e['h10']:.4e}; launches {counts[n]}")
+        if n in Q2_CONVERGED:
+            sweeps, expect = Q2_CONVERGED[n]
+            M = s.lattice_preconditioner(sweeps=sweeps)
+            rc, t_c = _sync_time(s.solve, method="bicgstab", tol=TOL, maxiter=2000, precond=M)
+            print(f"[{label}] lattice_preconditioner(sweeps={sweeps}) (the inner band solve converged): {t_c:.3f} s, "
+                  f"{rc.iterations} it, relres {rc.residual:.3e} (the default sweeps: {r.iterations} it, not pinned)")
+            if not (rc.converged and rc.residual <= 10 * TOL):
+                raise AssertionError(f"{label} ({sweeps} sweeps): not converged, relres {rc.residual}")
+            _pin(f"{label} ({sweeps} sweeps)", rc.iterations, expect)
+            del M, rc
         if n == N3_Q2 // 2:
             h = _weak3(pt, n, 2, "cpu").assemble()
             _check_tags3(s, h, label)
@@ -2000,13 +2225,18 @@ N3_NEU_CPU, N3_NEU_JAC, N3_NEU = 16, 32, 64
 # BiCGStab (the demo's path), n=64 flexible GMRES with
 # lattice_preconditioner() (BiCGStab with it stalls there: relres 0.22 /
 # 0.028 after 201 / 300 it at n=64, Neumann / Robin; the inner band solve
-# makes the preconditioner nonlinear); Robin n=32 Jacobi, n=64 fgmres
-NEU_IT = {N3_NEU_CPU: 11, N3_NEU_JAC: 496, N3_NEU: 40}
+# makes the preconditioner nonlinear); Robin n=32 Jacobi, n=64 fgmres.
+# Neumann n=16 at the default inner sweeps (59) is reported, not pinned: it
+# took 11 before the band kernels, 31 with them, 7 in a third summation
+# order on an H100 (scripts/compare_band_counts.py); with the inner solve
+# converged, 400 sweeps, it takes NEU_CPU_IT on the card and on the CPU
+# (below)
+NEU_IT = {N3_NEU_CPU: None, N3_NEU_JAC: 496, N3_NEU: 40}
 # n=16 against the CPU lane: the inner band solve (m=5,566) run to
 # convergence, 400 sweeps (within 1e-6 of 1,500 sweeps on a CPU); one
 # application then differs by rounding (the float32 bulk cycle) and what
 # 400 sweeps leave
-NEU_CPU_SWEEPS, NEU_PRECOND_TOL = 400, 1e-5
+NEU_CPU_SWEEPS, NEU_PRECOND_TOL, NEU_CPU_IT = 400, 1e-5, 5
 ROB_IT = {N3_NEU_JAC: 388, N3_NEU: 40}
 S53D_BOX = ((-1.5, -1.5, -1.5), (1.5, 1.5, 1.5))
 S53D_E_IN, S53D_E_OUT, S53D_NU, S53D_TOL = 1.0, 0.001, 0.3, 1e-8
@@ -2027,8 +2257,17 @@ N_S53D_LARGE = 24
 N3_BLOCK_LATTICE = (128, 64)  # the block sweep's checks: the S5-3D bulk at n=128 and 64
 N3_BLOCK_HEX = (32, 64)  # the block hex stencil's checks: S5-3D's masks, timed at the second
 # the port's S5-3D counts on the H100 (PERF.md), n=8, 12 and 16 also held to
-# the JAX package's records (S53D_REF)
-S53D_IT = {8: 20, 12: 40, 16: 40, N_S53D_LARGE: 120}
+# the JAX package's records (S53D_REF).  n=24 is reported, not pinned: it
+# took 120 before the band kernels and 160 with them, and with twice the
+# inner sweeps (442) 120 with the kernels and 140 / 160 in the former
+# summation order in two calls on an H100 (scripts/compare_band_counts.py):
+# its inner band solve stops far from convergence at any sweep count the run
+# can afford, and rounding sets the count.  Its errors, which rounding does
+# not move, are held within 1% of the ones the port took on an H100 before
+# the band kernels (L2, H10; 120 it) and with them (160 it), equal to 5
+# digits
+S53D_IT = {8: 20, 12: 40, 16: 40, N_S53D_LARGE: None}
+S53D_ERR = {N_S53D_LARGE: (0.16213, 0.70342)}
 
 
 def _du_dn(x):
@@ -2380,6 +2619,7 @@ def _neumann3_against_cpu(pt, s, label: str, robin: bool) -> None:
         raise AssertionError(f"{label}: the preconditioner on the card disagrees with the CPU lane's: {e_pre}")
     if not (rc.converged and rc.iterations == rh.iterations):
         raise AssertionError(f"{label}: {rc.iterations} iterations on the card, {rh.iterations} on the CPU")
+    _pin(f"{label} ({NEU_CPU_SWEEPS} sweeps)", rc.iterations, NEU_CPU_IT)
 
 
 def phase_neumann3(pt, robin: bool = False) -> dict:
@@ -2387,7 +2627,8 @@ def phase_neumann3(pt, robin: bool = False) -> dict:
     BiCGStab with lattice_preconditioner(), and against the CPU lane
     (:func:`_neumann3_against_cpu`); n=32 Jacobi-equilibrated BiCGStab (the
     demo's path); n=64 flexible GMRES with lattice_preconditioner(), for
-    Neumann with a trace of two fgmres steps; every count pinned; hex3 and the lattice
+    Neumann with a trace of two fgmres steps; every count pinned (Neumann
+    n=16 with the inner band solve converged, NEU_CPU_IT); hex3 and the lattice
     sweep held against their plain versions on each n's own mask, cell
     matrix and cycle levels; L2(32) / L2(64) > 2^1.3."""
     name = "robin3" if robin else "neumann3"
@@ -2418,7 +2659,7 @@ def phase_neumann3(pt, robin: bool = False) -> dict:
         if M is not None:
             bd = getattr(M.iface, "band", None)
             band = (f"; interface m={M.iface.m}, " + ("dense inverse" if bd is None else
-                    f"{bd.schwarz_ids.shape[0]} blocks of <= {bd.schwarz_ids.shape[1]}, {bd.schwarz_sweeps} sweeps"))
+                    f"{bd.band_tables.nb} blocks of <= {bd.band_tables.K}, {bd.schwarz_sweeps} sweeps"))
         print(f"[{label}] ndofs={nd} ({sum(int(v.sum()) for v in s.active.values())} active, "
               f"{s.tags.num_cut_cells} cut cells): tag {t_tag:.3f} s, assemble {t_asm:.3f} s, "
               f"{'Jacobi' if M is None else 'lattice_preconditioner() %.3f s' % t_pre}{band}; "
@@ -2431,7 +2672,8 @@ def phase_neumann3(pt, robin: bool = False) -> dict:
                 raise AssertionError(f"{label}: not converged, relres {res.residual}, {res.iterations} it")
         if r0.iterations != r.iterations:
             raise AssertionError(f"{label}: cold {r0.iterations} and warm {r.iterations} iterations")
-        _pin(label, r.iterations, pins[n])
+        if pins[n] is not None:
+            _pin(label, r.iterations, pins[n])
         _hold_hex3_scheme(label, [(s.bulk_mask, s.A8)])
         if M is not None:
             _hold_lattice3_levels(M.mg, label)
@@ -2453,7 +2695,8 @@ def phase_s53d(pt) -> dict:
     default lattice_preconditioner() (block V-cycles on both bulks, the band
     solve on per-vertex blocks, the solid-harmonic coarse step) at n=8, 12
     and 16 (counts and errors against the JAX package's records, S53D_REF)
-    and at n=24 (the scale run), every count pinned; at each n the block hex stencil and hex3 held
+    and at n=24 (the scale run: its errors held, S53D_ERR, its count
+    reported), the other counts pinned; at each n the block hex stencil and hex3 held
     against their plain versions on the scheme's own masks and cell
     matrices and the block sweep on every smoothed level of both cycles; at
     n=24 set-up, solve wall and a trace of two fgmres steps."""
@@ -2474,7 +2717,7 @@ def phase_s53d(pt) -> dict:
         print(f"[{label}] ndofs={nd} ({sum(int(v.sum()) for v in s.active.values())} active, "
               f"{s.tags.num_cut_cells} cut cells): tag {t_tag:.3f} s, assemble {t_asm:.3f} s, "
               f"lattice_preconditioner() {t_pre:.3f} s (interface m={M.iface.m}, "
-              f"{M.iface.band.schwarz_ids.shape[0]} vertex blocks, {M.iface.band.schwarz_sweeps} inner sweeps; "
+              f"{M.iface.band.band_tables.nb} vertex blocks, {M.iface.band.schwarz_sweeps} inner sweeps; "
               f"coarse basis k={s._coarse_Z.shape[0]}); fgmres tol {S53D_TOL:.0e}: {t_solve:.3f} s, "
               f"{r.iterations} it, relres {r.residual:.3e}; relative L2 {e['l2']:.4e}, H10 {e['h10']:.4e}; peak "
               f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {counts[n]}")
@@ -2490,13 +2733,23 @@ def phase_s53d(pt) -> dict:
                   f"(JAX {l2:.4f}){h10_vs}")
             if not (ok_it and ok_e):
                 raise AssertionError(f"{label}: {r.iterations} it, errors {e}, against {S53D_REF[n]}")
-        _pin(label, r.iterations, S53D_IT[n])
+        if n in S53D_ERR:
+            l2, h10 = S53D_ERR[n]
+            print(f"[{label}] {r.iterations} it (not pinned); L2 {e['l2']:.5f}, H10 {e['h10']:.5f} (held within 1% "
+                  f"of {l2}, {h10})")
+            if not (abs(e["l2"] - l2) <= 0.01 * l2 and abs(e["h10"] - h10) <= 0.01 * h10):
+                raise AssertionError(f"{label}: errors {e}, against {S53D_ERR[n]}")
+        if S53D_IT[n] is not None:
+            _pin(label, r.iterations, S53D_IT[n])
         A8 = torch.as_tensor(np.random.default_rng(SEED + 8).standard_normal((8, 8)), device=DEVICE)
         _hold_hex3_scheme(label, [(s.mask_in, s.K_in), (s.mask_out, s.K_out), (s.mask_in, A8), (s.mask_out, A8)])
         for mg in M.mgs.values():
             _hold_lattice3_block_levels(mg, label)
         if n == N_S53D_LARGE:
             _profile_steps3(s, M, label, deflate=modes)
+            t0 = time.perf_counter()
+            _hold_band(label, M.iface.band.band_tables, M.iface.band.schwarz_sweeps)
+            print(f"[time] {label} band kernels {time.perf_counter() - t0:.1f} s")
         del s, M, r, modes
         torch.cuda.empty_cache()
     return counts
@@ -2560,12 +2813,17 @@ N_AMG_LARGE = 800
 # the port's counts on the H100 (PERF.md): exact, since every sum on the
 # solve path runs in a fixed order
 U_DEMO_IT = {"s1": 114, "s2": 76, "s3": 319, "s4": 266}
-AMG_IT = {40: 14, 80: 15, 160: 17, N_AMG_LARGE: 66}
+# n=800 (a Schwarz band) took 66 before the band kernels, 2,112 launches
+AMG_IT = {40: 14, 80: 15, 160: 17, N_AMG_LARGE: 48}
 # the AMG kernel's launches on each S1-U path: 4 per level and V-cycle
 # (residual, R, P with the prolongation's add, the post sweep; the first
 # sweep from zero needs no launch)
-AMG_LAUNCHES = {40: 112, 80: 240, 160: 272, N_AMG_LARGE: 2112}
-KERNELS_G1A = {"amg_ell": "amg_ell_kernel"}
+AMG_LAUNCHES = {40: 112, 80: 240, 160: 272, N_AMG_LARGE: 1536}
+# the AMG cycle runs the ELL kernel in float32, the band's product in
+# float64 (a name demangled or not)
+KERNELS_G1A = {"amg_ell": ("amg_ell_kernel<float", "amg_ell_kernelIf"),
+               "band ELL (amg_ell f64)": ("amg_ell_kernel<double", "amg_ell_kernelId"),
+               **{k: v for k, v in KERNELS_BAND.items() if "ELL" not in k}}
 
 
 def _u_mesh(pt, n: int, device: str, amp: float = 0.25, seed: int = 0, quad: bool = False):
@@ -2657,10 +2915,12 @@ def phase_u_demo(pt) -> dict:
     for name in ("s1", "s2", "s3", "s4"):
         label = f"u-demo {name} n={N_U_DEMO}"
         ca.launches = 0
+        _band_reset()
         (s, uex, region), t_set = _sync_time(_u_scheme, pt, name, _u_mesh(pt, N_U_DEMO, DEVICE), U_DEMO_R2)
         _, t_asm = _sync_time(s.assemble)
         r, t_solve = _sync_time(s.solve, method="bicgstab", tol=SCHEME_TOL)
         counts[name] = ca.launches
+        BAND_U[f"u-demo {name}"] = _band_read()
         e = s.l2_h1_errors(s.u_h, uex, region=region)
         h, _, _ = _u_scheme(pt, name, _u_mesh(pt, N_U_DEMO, "cpu"), U_DEMO_R2)
         h.assemble()
@@ -2879,8 +3139,8 @@ def _amg_table_times(amg, label: str = "kernel amg_ell", graphs: bool = True) ->
             nnz = int((c < n_x).sum())
             bound_ms, by, mb = _ell_bound(mode, nnz, n, n_x, dt)
             pad_bytes = (w * n - nnz) * (torch.tensor([], dtype=dt).element_size() + 4)
-            t = {"ms": _event_ms(call, 50), "device_ms": _device_ms(call, 20, KERNELS_G1A["amg_ell"], flush=flush),
-                 "device_ms_clean": _device_ms(call, 20, KERNELS_G1A["amg_ell"], flush=flush, clean=True),
+            t = {"ms": _event_ms(call, 50), "device_ms": _device_ms(call, 20, "amg_ell_kernel", flush=flush),
+                 "device_ms_clean": _device_ms(call, 20, "amg_ell_kernel", flush=flush, clean=True),
                  "host_ms": _host_ms(call, 50),
                  "plain_ms": _event_ms(lambda: ca.amg_ell_sweep_ref(mode, c, v, x, b, d), 5),
                  "bound_ms": bound_ms, "bound_by": by, "library_ms": None, "rows": n, "width": w, "nnz": nnz,
@@ -2963,13 +3223,13 @@ def _amg_trace(s, vc, label: str) -> None:
             "AMG V-cycle + Jacobi rows (f32)": lambda: vc._cycle(0, r)}
     xf = vc._flatten({k: torch.zeros_like(v) for k, v in r.items()})
     rf = vc._flatten(r)
-    fams["band solve (plain sweeps, f64)"] = lambda: vc._band_correct_flat(xf.clone(), rf)
+    fams["band solve (the band kernels, f64)"] = lambda: vc._band_correct_flat(xf.clone(), rf)
     for fam, fn in fams.items():
         # a trace may lose launches (PERF.md): keep the fullest of three
         ker = max((_device_kernels(fn, 3) for _ in range(3)), key=lambda k: sum(c for c, _ in k.values()))
         busy = sum(t for _, t in ker.values()) / 3
         cnt = sum(c for c, _ in ker.values()) / 3
-        amg_ms = sum(t for k, (_, t) in ker.items() if KERNELS_G1A["amg_ell"] in k) / 3
+        amg_ms = sum(t for k, (_, t) in ker.items() if any(x in k for x in KERNELS_G1A["amg_ell"])) / 3
         print(f"[{label} profile] {fam}: {busy:.3f} ms of device time in {cnt:.0f} kernels per call"
               + (f", of which the AMG kernel {amg_ms:.3f} ms" if amg_ms else ""))
 
@@ -2985,6 +3245,7 @@ def phase_u_amg(pt) -> tuple:
     for n in (40, 80, 160, N_AMG_LARGE):
         label = f"u-amg s1 n={n}"
         ca.launches = 0
+        _band_reset()
         torch.cuda.reset_peak_memory_stats()
         mesh, t_mesh = _sync_time(_u_mesh, pt, n, DEVICE)
         (s, _, _), t_tag = _sync_time(_u_scheme, pt, "s1", mesh, 0.49)
@@ -2993,6 +3254,7 @@ def phase_u_amg(pt) -> tuple:
         kw = dict(method="bicgstab", tol=SCHEME_TOL, maxiter=500, precond=vc)
         r, t_solve = _sync_time(s.solve, **kw)
         counts[label] = ca.launches
+        BAND_U[label] = _band_read()
         e, t_err = _sync_time(s.l2_h1_errors, s.u_h, _u_exact)
         su = vc.setup_seconds
         print(f"[{label}] {s.mesh.num_vertices} vertices, {s.mesh.num_cells} triangles, "
@@ -3006,8 +3268,7 @@ def phase_u_amg(pt) -> tuple:
             raise AssertionError(f"{label}: not converged, relres {r.residual}")
         if counts[label] <= 0:
             raise AssertionError(f"{label} never launched the AMG kernel")
-        if counts[label] != AMG_LAUNCHES[n]:
-            raise AssertionError(f"{label}: {counts[label]} AMG kernel launches, not {AMG_LAUNCHES[n]}")
+        _pin_launches(label, counts[label], AMG_LAUNCHES[n])
         if n in JAX_AMG_IT:
             _within_reference(label, r.iterations, JAX_AMG_IT[n])
         _pin(label, r.iterations, AMG_IT[n])
@@ -3018,8 +3279,10 @@ def phase_u_amg(pt) -> tuple:
             times = _amg_table_times(vc.amgs["u"])
             t2 = time.perf_counter()
             _amg_trace(s, vc, label)
+            t3 = time.perf_counter()
+            _hold_band(label, vc.band_tables, vc.schwarz_sweeps)
             print(f"[time] {label}: kernel held on every table {t1 - t0:.1f} s, timed {t2 - t1:.1f} s, traced "
-                  f"{time.perf_counter() - t2:.1f} s")
+                  f"{t3 - t2:.1f} s, band kernels {time.perf_counter() - t3:.1f} s")
         del s, vc, r, mesh
         torch.cuda.empty_cache()
     return counts, times
@@ -3117,16 +3380,18 @@ TET_AMG_ROUNDING = (8, 12)
 # JAX too (n=32: 500 it to relres 1.5e-4, `--cell tet 24 32`; on the H100 at
 # n=64, 183 it to relres 0.12: PERF.md), so the scale run takes flexible GMRES
 N_TET_LARGE = 64
-# the port's counts and the AMG kernel's launches on the H100 (PERF.md), exact
+# the port's counts and the AMG kernel's launches on the H100 (PERF.md),
+# exact; before the band kernels the quad n=800 run took 42 it (1,344
+# launches), the tet n=64 run 180 (2,160)
 QUAD_IT = {"s1": 79, "s3": 261}
-QUAD_AMG_IT = {40: 12, 80: 12, 160: 12, N_AMG_LARGE: 42}
-QUAD_AMG_LAUNCHES = {40: 96, 80: 96, 160: 192, N_AMG_LARGE: 1344}
+QUAD_AMG_IT = {40: 12, 80: 12, 160: 12, N_AMG_LARGE: 34}
+QUAD_AMG_LAUNCHES = {40: 96, 80: 96, 160: 192, N_AMG_LARGE: 1088}
 S5U_IT = {N_S5U: 133, "jacobi": 1294}
 TET_IT = {"s1": 104, "s2": 38, "s3": 180, "s4": 199}
-TET_AMG_IT = {8: 5, 12: 9, 16: 16, N_TET_LARGE: 180}
+TET_AMG_IT = {8: 5, 12: 9, 16: 16, N_TET_LARGE: 160}
 # n=8: no AMG (a bulk under 32 DoFs); n=12 and 16: a one-level AMG (its
 # coarse inverse alone)
-TET_AMG_LAUNCHES = {8: 0, 12: 0, 16: 0, N_TET_LARGE: 2160}
+TET_AMG_LAUNCHES = {8: 0, 12: 0, 16: 0, N_TET_LARGE: 1920}
 
 
 def _pin_launches(label: str, got: int, expect: int) -> None:
@@ -3206,11 +3471,13 @@ def phase_quad(pt) -> dict:
     for name in ("s1", "s3"):
         label = f"u-quad {name} n={N_QUAD}"
         ca.launches = 0
+        _band_reset()
         mesh = _u_mesh(pt, N_QUAD, DEVICE, amp=QUAD_AMP, quad=True)
         (s, uex, region), t_set = _sync_time(_u_scheme, pt, name, mesh, 0.49)
         _, t_asm = _sync_time(s.assemble)
         r, t_solve = _sync_time(s.solve, method="bicgstab", tol=SCHEME_TOL, maxiter=5000)
         paths[label] = ca.launches
+        BAND_U[label] = _band_read()
         e = s.l2_h1_errors(s.u_h, uex, region=region)
         h, _, _ = _u_scheme(pt, name, _u_mesh(pt, N_QUAD, "cpu", amp=QUAD_AMP, quad=True), 0.49)
         h.assemble()
@@ -3228,11 +3495,13 @@ def phase_quad(pt) -> dict:
     for n in (40, 80, 160, N_AMG_LARGE):
         label = f"u-quad-amg s1 n={n}"
         ca.launches = 0
+        _band_reset()
         torch.cuda.reset_peak_memory_stats()
         mesh, t_mesh = _sync_time(_u_mesh, pt, n, DEVICE, amp=QUAD_AMP, quad=True)
         (s, uex, _), t_tag = _sync_time(_u_scheme, pt, "s1", mesh, 0.49)
         vc, r, _, launches = _amg_run(label, s, uex, t_mesh, t_tag, "quadrilaterals")
         paths[label] = launches
+        BAND_U[label] = _band_read()
         _pin_launches(label, launches, QUAD_AMG_LAUNCHES[n])
         if n in JAX_QUAD_AMG_IT:
             _amg_against_jax(label, r.iterations, JAX_QUAD_AMG_IT[n])
@@ -3274,6 +3543,7 @@ def _s5u_scale(pt, n: int, pre: str, label: str, paths: dict):
     u_vec.  Returns (result, converged)."""
     ca = _amg()
     ca.launches = 0
+    _band_reset()
     torch.cuda.reset_peak_memory_stats()
     s, t_set = _sync_time(_s5u, pt, n, DEVICE)
     _, t_asm = _sync_time(s.assemble)
@@ -3283,6 +3553,7 @@ def _s5u_scale(pt, n: int, pre: str, label: str, paths: dict):
         kw = {"precond": vc}
     r, t_solve = _sync_time(s.solve, method="bicgstab", tol=1e-8, maxiter=5000, **kw)
     paths[label] = ca.launches
+    BAND_U[label] = _band_read()
     u_vec, _, u_grad = _s5u_data()
     e = s.l2_h1_errors(s.u_h, u_vec, exact_grad=u_grad, region=(1, 2, 3))
     print(f"[{label}] {s.mesh.num_vertices} vertices, {s.mesh.num_cells} triangles, "
@@ -3309,10 +3580,12 @@ def phase_s5u(pt) -> dict:
     paths = {}
     label = f"u-s5 n={N_S5U}"
     ca.launches = 0
+    _band_reset()
     s, t_set = _sync_time(_s5u, pt, N_S5U, DEVICE)
     _, t_asm = _sync_time(s.assemble)
     r, t_solve = _sync_time(s.solve, method="bicgstab", tol=1e-9, maxiter=400)
     paths[label] = ca.launches
+    BAND_U[label] = _band_read()
     h = _s5u(pt, N_S5U, "cpu").assemble()
     rh = h.solve(method="bicgstab", tol=1e-9, maxiter=400)
     print(f"[{label}] {s.mesh.num_vertices} vertices, {sum(v.numel() for v in s.b.values())} DoFs: setup {t_set:.3f} s, "
@@ -3328,10 +3601,12 @@ def phase_s5u(pt) -> dict:
     for pre in ("jacobi", "amg"):
         label = f"u-s5 n={N_S5U_PICK} {pre}"
         ca.launches = 0
+        _band_reset()
         s = _s5u(pt, N_S5U_PICK, DEVICE).assemble()
         kw = {} if pre == "jacobi" else {"precond": s.amg_preconditioner()}
         r, t_solve = _sync_time(s.solve, method="bicgstab", tol=1e-8, maxiter=5000, **kw)
         paths[label] = ca.launches
+        BAND_U[label] = _band_read()
         picks[pre] = r.iterations if r.converged else 10**9
         print(f"[{label}] deflated bicgstab to 1e-8: {r.iterations} it in {t_solve:.3f} s, relres {r.residual:.3e} "
               f"(JAX {JAX_S5U_PICK_IT[pre]} on the CPU)" + ("" if pre == "jacobi" else f"; {_band(kw['precond'])}"))
@@ -3395,11 +3670,13 @@ def phase_tet(pt) -> dict:
     for name in ("s1", "s2", "s3", "s4"):
         label = f"u-tet {name} n={N_TET}"
         ca.launches = 0
+        _band_reset()
         mesh = pt.UMesh3.box(N_TET, N_TET, N_TET, TET_BOX, device=DEVICE)
         (s, uex, region), t_set = _sync_time(_tet_scheme, pt, name, mesh)
         _, t_asm = _sync_time(s.assemble)
         r, t_solve = _sync_time(s.solve, method="bicgstab", tol=SCHEME_TOL, maxiter=5000)
         paths[label] = ca.launches
+        BAND_U[label] = _band_read()
         e = s.l2_h1_errors(s.u_h, uex, region=region)
         t0 = time.perf_counter()
         h, _, _ = _tet_scheme(pt, name, pt.UMesh3.box(N_TET, N_TET, N_TET, TET_BOX, device="cpu"))
@@ -3431,12 +3708,14 @@ def phase_tet_amg(pt) -> tuple:
     for n in (8, 12, 16, N_TET_LARGE):
         label = f"u-tet-amg s1 n={n}"
         ca.launches = 0
+        _band_reset()
         torch.cuda.reset_peak_memory_stats()
         mesh, t_mesh = _sync_time(pt.UMesh3.box, n, n, n, TET_BOX, device=DEVICE)
         (s, uex, _), t_tag = _sync_time(_tet_scheme, pt, "s1", mesh)
         vc, r, _, launches = _amg_run(label, s, uex, t_mesh, t_tag, "tets",
                                       "fgmres" if n == N_TET_LARGE else "bicgstab")
         paths[label] = launches
+        BAND_U[label] = _band_read()
         _pin_launches(label, launches, TET_AMG_LAUNCHES[n])
         if n in JAX_TET_AMG_IT:
             _amg_against_jax(label, r.iterations, JAX_TET_AMG_IT[n], held=n not in TET_AMG_ROUNDING,
@@ -3604,8 +3883,8 @@ def phase_demo(cs, label: str, module: str, argv: list, out_root: Path) -> tuple
           f"equals the scheme's)")
     if not r["converged"]:
         raise AssertionError(f"{label}: not converged ({r['residual']})")
-    if DEMO_IT.get(label) is not None and its != DEMO_IT[label]:
-        raise AssertionError(f"{label}: {its} it, not {DEMO_IT[label]}")
+    if DEMO_IT.get(label) is not None:
+        _pin(label, its, DEMO_IT[label])
     for k in DEMO_KERNELS[label]:
         if counts[k] <= 0:
             raise AssertionError(f"{label} never launched the {k} kernel")
@@ -3649,8 +3928,10 @@ def phase_ritz(pt, cs) -> dict:
           f"assemble {t_asm:.3f} s; launches {counts}")
     if len(spent) != len(vc.levels) or any(lv["M"].ritz_lambdas is None for lv in vc.levels):
         raise AssertionError(f"{label}: a level kept no Ritz mode")
-    if not r.converged or (RITZ_IT is not None and r.iterations != RITZ_IT):
-        raise AssertionError(f"{label}: {r.iterations} it (not {RITZ_IT}), relres {r.residual}")
+    if not r.converged:
+        raise AssertionError(f"{label}: {r.iterations} it, relres {r.residual}")
+    if RITZ_IT is not None:
+        _pin(label, r.iterations, RITZ_IT)
     if counts["taps"] <= 0:
         raise AssertionError(f"{label} never launched the tap kernel")
     return counts
@@ -3677,8 +3958,10 @@ def phase_upmg(pt, cs) -> dict:
         print(f"[{label}] ndofs={s.system.num_dofs}: mesh {t_mesh:.3f} s, setup {t_setup:.3f} s, assemble "
               f"{t_asm:.3f} s, p_multigrid_preconditioner() {t_pre:.3f} s; fgmres {r.iterations} it, relres "
               f"{r.residual:.3e}, {t_solve:.3f} s; L2 {e['l2']:.6e}, H10 {e['h10']:.6e}; launches {counts}")
-        if not r.converged or (UPMG_IT[n] is not None and r.iterations != UPMG_IT[n]):
-            raise AssertionError(f"{label}: {r.iterations} it (not {UPMG_IT[n]}), relres {r.residual}")
+        if not r.converged:
+            raise AssertionError(f"{label}: {r.iterations} it, relres {r.residual}")
+        if UPMG_IT[n] is not None:
+            _pin(label, r.iterations, UPMG_IT[n])
         if n == N_UPMG and JAX_UPMG_IT is not None:
             _within_reference(label, r.iterations, JAX_UPMG_IT)
         paths[label] = counts
@@ -4053,6 +4336,38 @@ def run_slice_h(pt, cs) -> dict:
     return paths
 
 
+def _band_lines(counts: dict) -> list:
+    """The band kernels' launch checks over every path's counts (a path
+    that built a Schwarz band launched each band kernel; one that built
+    none launched none) and their lines of the kernels record, with the
+    S1 n=N band's times."""
+    band = {p: {k: c[k] for k in ("band", "band_ras", "band_ell", "band_dots", "band_update", "band_tables")}
+            for p, c in counts.items()}
+    schwarz = [p for p, c in band.items() if c["band_tables"]]
+    print(f"[main path band] band kernel launches on the {len(schwarz)} paths that build a Schwarz band: "
+          + "; ".join(f"{p}: {c['band']} ({c['band_ras']} RAS, {c['band_ell']} ELL, {c['band_dots']} dots, "
+                      f"{c['band_update']} updates; {c['band_tables']} bands)" for p, c in band.items() if c["band_tables"])
+          + f"; no Schwarz band, no band launch: {[p for p in band if p not in schwarz]}")
+    for p, c in band.items():
+        if c["band_tables"] and min(c[k] for k in ("band_ras", "band_ell", "band_dots", "band_update")) <= 0:
+            raise AssertionError(f"{p} built a Schwarz band but did not launch every band kernel: {c}")
+        if not c["band_tables"] and c["band"]:
+            raise AssertionError(f"{p} built no Schwarz band but launched the band kernels: {c}")
+    main = f"S1 n={N}"
+    lines = []
+    for name, _, source, replaces in BAND_KERNELS:
+        t = BAND_TIMES[main][name]
+        line = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": sum(c[name] for c in band.values()),
+                "launches_by_path": {p: c[name] for p, c in band.items() if c[name]}, "max_abs_err": 0.0,
+                **{k: t[k] for k in ("ms", "device_ms", "host_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                "shape": f"{main} band: {BAND_TIMES[main]['shape']}"}
+        if name == "band_update":
+            line["inner_solve"] = BAND_TIMES[main]["solve"]
+        lines.append(line)
+    return lines
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -4072,9 +4387,9 @@ def main() -> int:
     t_start = time.perf_counter()
     print(SEP)
     name = phase_device()
-    from phifem_tpu_torch.ops import cuda_amg, cuda_hex3, cuda_lattice3
+    from phifem_tpu_torch.ops import cuda_amg, cuda_band, cuda_hex3, cuda_lattice3
 
-    phase_build(cs, ct, cuda_hex3, cuda_lattice3, cuda_amg)
+    phase_build(cs, ct, cuda_hex3, cuda_lattice3, cuda_amg, cuda_band)
     kernel = phase_kernel(pt, cs)
 
     # each main path counts its own launches, from 0 just before it
@@ -4240,8 +4555,9 @@ def main() -> int:
         line["launches"] += sum(c[key] for c in paths_h.values())
         line["launches_by_path"].update({p: c[key] for p, c in paths_h.items() if c[key]})
     kernel["masked_launches_by_path"].update({p: c["masked"] for p, c in paths_h.items() if c["masked"]})
+    band_lines = _band_lines({**paths, **paths3, **paths3b, **paths_i, **paths_h, **BAND_U})
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
-    lines = [kernel, taps, *kernels3, *kernels3b, amg_line]
+    lines = [kernel, taps, *kernels3, *kernels3b, amg_line, *band_lines]
     print(json.dumps({"kernels": [_mark_sources(e) for e in lines]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

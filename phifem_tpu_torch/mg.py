@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from .grid import Grid
+from .ops import cuda_band
 
 Vec = Dict[str, torch.Tensor]
 
@@ -92,44 +93,6 @@ def restrict(fine: torch.Tensor, gf: Grid, gc: Grid) -> torch.Tensor:
     out[1:, :-1] += q
     out[1:, 1:] += q
     return out.reshape((-1,) + tail)
-
-
-def _band_bicgstab(mv, M, b: torch.Tensor, iters: int) -> torch.Tensor:
-    """Fixed-iteration preconditioned BiCGStab on a flat vector: the inner
-    band solver of the multiplicative interface correction.  Bounded work,
-    no exit test and no host read; divisions are guarded and the BEST
-    iterate (smallest residual seen) is returned.  Dots in b's dtype."""
-    tiny = torch.tensor(1e-300, dtype=b.dtype, device=b.device)
-
-    def safe(d):
-        return torch.where(torch.abs(d) > 1e-300, d, tiny)
-
-    x = torch.zeros_like(b)
-    r, rhat = b, b
-    p = v = torch.zeros_like(b)
-    rho = alpha = omega = torch.ones((), dtype=b.dtype, device=b.device)
-    xb, rrb = x, torch.dot(b, b)
-    for i in range(int(iters)):
-        rho_new = torch.dot(rhat, r)
-        if i == 0:
-            p = r
-        else:
-            p = r + ((rho_new / safe(rho)) * (alpha / safe(omega))) * (p - omega * v)
-        ph = M(p)
-        v = mv(ph)
-        alpha = rho_new / safe(torch.dot(rhat, v))
-        s = r - alpha * v
-        sh = M(s)
-        t = mv(sh)
-        omega = torch.dot(t, s) / safe(torch.dot(t, t))
-        x = x + alpha * ph + omega * sh
-        r = s - omega * t
-        rho = rho_new
-        rr = torch.dot(r, r)
-        better = torch.isfinite(rr) & (rr < rrb)
-        xb = torch.where(better, x, xb)
-        rrb = torch.where(better, rr, rrb)
-    return xb
 
 
 @dataclasses.dataclass
@@ -212,20 +175,19 @@ class VCycle:
     # optional multiplicative interface (cut-band) correction: an exact
     # dense inverse on the whole band (small bands) or an inner BiCGStab on
     # the ELL band matrix preconditioned by restricted additive Schwarz
-    # blocks; the tables are float64 (TABLE_DTYPE)
+    # blocks (ops.cuda_band: its kernels on the card); the tables are
+    # float64 (TABLE_DTYPE)
     interface_ids: Optional[torch.Tensor] = None  # global flat DoF ids
     interface_inv: Optional[torch.Tensor] = None  # dense inverse on those DoFs
-    schwarz_ids: Optional[torch.Tensor] = None  # (nb, K) compact band ids, pad -> m
-    schwarz_inv: Optional[torch.Tensor] = None  # (nb, K, K) block inverses
-    # RAS ownership: per band DoF, the flat (nb * K) slot of the one block
-    # entry that corrects it (nb * K: none).  The JAX package keeps an
-    # (nb, K) mask and scatter-adds the masked block outputs; with one owner
-    # per DoF that sum is this gather, exactly and without atomics
-    schwarz_owner: Optional[torch.Tensor] = None
     schwarz_sweeps: int = 10  # inner Krylov iterations on the band system
     band_ids: Optional[torch.Tensor] = None  # (m,) global flat band DoF ids
-    band_ell_cols: Optional[torch.Tensor] = None  # (m, nnz) compact cols, pad -> m
-    band_ell_vals: Optional[torch.Tensor] = None  # (m, nnz)
+    # the Schwarz branch's tables as the band kernels read them: the (nb, K)
+    # blocks and their inverses, per band DoF the flat (nb * K) slot of the
+    # one block entry that corrects it (the JAX package keeps an (nb, K)
+    # mask and scatter-adds the masked block outputs; with one owner per DoF
+    # that sum is this gather, exactly and without atomics), and the band
+    # matrix slot-major (ops.cuda_band.BandTables)
+    band_tables: Optional[cuda_band.BandTables] = None
     # optional rank-k Galerkin coarse correction (attach_coarse_correction):
     # near-null modes that both the bulk cycle and the band solve miss, e.g.
     # the rigid motions of a floating subdomain
@@ -263,7 +225,7 @@ class VCycle:
         # Dirichlet components
         x = {k: torch.where(self.levels[0].active[k], v, b[k]) for k, v in x.items()}
         has_coarse = self.coarse_Z is not None
-        has_band = self.interface_inv is not None or self.schwarz_inv is not None
+        has_band = self.interface_inv is not None or self.band_tables is not None
         if not (has_coarse or has_band):
             return x
         # one residual for both multiplicative corrections: the coarse
@@ -281,23 +243,6 @@ class VCycle:
             rf = rf - self.coarse_AZ.to(rf.dtype).T @ c
         return self._band_correct_flat(xf, rf)
 
-    def _band_ops(self):
-        """``(band_mv, band_ras)`` of the Schwarz branch on flat band vectors
-        in ``TABLE_DTYPE``: the ELL band matvec and the RAS block apply (each
-        band DoF takes its owning block's entry)."""
-        zero = self.band_ell_vals.new_zeros(1)
-
-        def band_mv(v):
-            vpad = torch.cat([v, zero])
-            return (self.band_ell_vals * vpad[self.band_ell_cols]).sum(dim=1)
-
-        def band_ras(v):
-            vpad = torch.cat([v, zero])
-            cb = torch.einsum("bkl,bl->bk", self.schwarz_inv, vpad[self.schwarz_ids])
-            return torch.cat([cb.reshape(-1), zero])[self.schwarz_owner]
-
-        return band_mv, band_ras
-
     def _band_correct_flat(self, xf: torch.Tensor, rf: torch.Tensor) -> Vec:
         """Multiplicative solve on the cut-cell / ghost-facet DoF block, the
         modes pointwise smoothing cannot contract, given the current flat
@@ -305,12 +250,11 @@ class VCycle:
         if self.interface_inv is not None:
             corr = self.interface_inv @ rf[self.interface_ids].to(TABLE_DTYPE)
             xf.index_add_(0, self.interface_ids, corr.to(xf.dtype))
-        elif self.schwarz_inv is not None:
+        elif self.band_tables is not None:
             # inner Krylov solve of A_II e = r_I on the ELL band matrix,
             # preconditioned by the per-entity RAS block inverses: one-level
             # RAS sweeps alone stall on smooth error along the band
-            band_mv, band_ras = self._band_ops()
-            e = _band_bicgstab(band_mv, band_ras, rf[self.band_ids].to(TABLE_DTYPE), self.schwarz_sweeps)
+            e = cuda_band.band_bicgstab(self.band_tables, rf[self.band_ids].to(TABLE_DTYPE), self.schwarz_sweeps)
             xf.index_add_(0, self.band_ids, e.to(xf.dtype))
         return self._unflatten(xf)
 
@@ -550,11 +494,12 @@ def set_schwarz_tables(vc: VCycle, A_csr, ids: np.ndarray, bids: np.ndarray, swe
     """Fill the Schwarz branch of ``vc``'s band solve (float64 tables on
     ``device``): ``A_csr`` is the (m, m) canonical CSR band matrix over the
     global flat ids ``ids``, ``bids`` the (nb, K) overlapping RAS blocks in
-    compact ids padded with m, ``sweeps`` the inner BiCGStab iterations.
+    compact ids padded with m, ``sweeps`` the inner BiCGStab iterations;
+    the tables are stored as the band kernels read them
+    (``vc.band_tables``).
     Shared by :func:`attach_interface_solve` and the 3D lattice schemes."""
     m = ids.shape[0]
     nb, K = bids.shape
-    tab = lambda a, dtype=TABLE_DTYPE: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
     # RAS ownership: each band DoF is corrected from the first block that
     # holds it
     valid = bids < m
@@ -568,18 +513,14 @@ def set_schwarz_tables(vc: VCycle, A_csr, ids: np.ndarray, bids: np.ndarray, swe
     d = np.arange(K)
     dvals = mats[:, d, d]
     mats[:, d, d] = np.where((np.abs(dvals) < 1e-300) | ~valid, 1.0, dvals)
-    vc.schwarz_ids = tab(bids, torch.int64)
-    vc.schwarz_inv = tab(np.linalg.inv(mats))
-    vc.schwarz_owner = tab(ras_owner(bids, own, m), torch.int64)
     vc.schwarz_sweeps = int(sweeps)
     # the band matrix itself, ELL rows 0..m-1; identity on empty rows
     cols, vals = ecols[:m].copy(), evals[:m].copy()
     zr = np.where(nnz_row == 0)[0]
     cols[zr, 0] = zr
     vals[zr, 0] = 1.0
-    vc.band_ids = tab(ids, torch.int64)
-    vc.band_ell_cols = tab(cols, torch.int64)
-    vc.band_ell_vals = tab(vals)
+    vc.band_ids = torch.as_tensor(ids, dtype=torch.int64, device=device)
+    vc.band_tables = cuda_band.band_tables(bids, np.linalg.inv(mats), ras_owner(bids, own, m), cols, vals, device)
     return vc
 
 

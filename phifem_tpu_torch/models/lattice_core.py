@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..mg import TABLE_DTYPE, VCycle, entity_blocks, set_schwarz_tables
+from ..ops import cuda_band
 from ..ops.cuda_hex3 import hex_offsets
 from ..ops.scatter import scatter_plan
 
@@ -564,9 +565,9 @@ def make_interface_apply(
     ``inner="richardson"`` runs ``sweeps`` damped RAS-Richardson steps
     ``z += inner_omega RAS(r - A z)`` from ``inner_omega RAS(r)``, a fixed
     linear operator.  ``corr`` comes back in ``rf``'s dtype; the tables go to
-    ``device``, the card unless the caller asks for the CPU."""
-    from ..mg import _band_bicgstab
-
+    ``device``, the card unless the caller asks for the CPU.  Both inner
+    solves run the band kernels of :mod:`phifem_tpu_torch.ops.cuda_band` on
+    the card."""
     if inner not in ("krylov", "richardson"):
         raise ValueError(f"unknown inner solve {inner!r}: expected 'krylov' or 'richardson'")
     m = ids.shape[0]
@@ -588,17 +589,14 @@ def make_interface_apply(
         ras_blocks = padded
     n_sweeps = sweeps if sweeps is not None else max(10, int(0.3 * m**0.5))
     band = set_schwarz_tables(VCycle([], ()), A_csr, ids, ras_blocks, n_sweeps, device)
-    band_mv, band_ras = band._band_ops()
+    tab = band.band_tables
 
     def apply(rf: torch.Tensor):
         rb = rf[ids_t].to(TABLE_DTYPE)
         if inner == "richardson":
-            om = float(inner_omega)
-            corr = om * band_ras(rb)
-            for _ in range(n_sweeps):
-                corr = corr + om * band_ras(rb - band_mv(corr))
+            corr = cuda_band.band_richardson(tab, rb, n_sweeps, inner_omega)
         else:
-            corr = _band_bicgstab(band_mv, band_ras, rb, n_sweeps)
+            corr = cuda_band.band_bicgstab(tab, rb, n_sweeps)
         return ids_t, corr.to(rf.dtype)
 
     apply.band, apply.m = band, m

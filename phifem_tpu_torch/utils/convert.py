@@ -13,6 +13,7 @@ from ..amg import AMG, AMGLevel, _slot_major
 from ..assembly import Batch, Operator, System
 from ..grid import Grid
 from ..mg import TABLE_DTYPE, VCycle, ras_owner
+from ..ops.cuda_band import band_tables
 from ..ops.lattice import LatticeMG, LatticeVarMG, _Level
 from ..ops.lattice3 import Lattice3BlockMG, Lattice3MG, _Level3
 from ..ops.stencil import StencilCellBatch
@@ -161,15 +162,16 @@ def interface_tables_from_numpy(vc: VCycle, flat_meta, device="cuda", **fields) 
     ``band_ell_cols``, ``band_ell_vals``), on ``device`` (the card unless
     the caller asks for the CPU); ``flat_meta`` is
     ``(names, shapes, sizes)`` of the flat layout.  Float tables are stored
-    in the interface table dtype; the (nb, K) ownership mask becomes the
-    port's per-DoF owner slots."""
+    in the interface table dtype; the Schwarz tables are stored as the band
+    kernels read them (``vc.band_tables``), the (nb, K) ownership mask as
+    the port's per-DoF owner slots."""
     dev = torch.device(device)
     vc._flat_meta = tuple(list(m) for m in flat_meta)
-    if "schwarz_own" in fields:
-        own = np.asarray(fields.pop("schwarz_own"), bool)
-        fields["schwarz_owner"] = ras_owner(
-            np.asarray(fields["schwarz_ids"]), own, len(fields["band_ids"])
-        )
+    if "schwarz_inv" in fields:
+        bids = np.asarray(fields.pop("schwarz_ids"))
+        owner = ras_owner(bids, np.asarray(fields.pop("schwarz_own"), bool), len(fields["band_ids"]))
+        vc.band_tables = band_tables(bids, fields.pop("schwarz_inv"), owner, fields.pop("band_ell_cols"),
+                                     fields.pop("band_ell_vals"), dev)
     for name, val in fields.items():
         if name == "schwarz_sweeps":
             vc.schwarz_sweeps = int(val)

@@ -15,7 +15,7 @@ s.setup(levelset, source_term, detection_levelset=detection_levelset)
 s.assemble()
 vc = s.lattice_preconditioner(min_n=13)
 print("interface dense m:", None if vc.interface_inv is None else vc.interface_inv.shape,
-      "schwarz:", vc.schwarz_inv is not None, flush=True)
+      "schwarz:", vc.band_tables is not None, flush=True)
 
 def timeit(fn, reps=1, label=""):
     out = fn()  # compile

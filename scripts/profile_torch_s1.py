@@ -72,7 +72,7 @@ def main() -> int:
     print(f"[setup] n={N} ndofs={s.system.num_dofs}: tag {t_tag:.3f} s, assemble {t_asm:.3f} s "
           f"(cut cells, ghost facets, Gamma_h facets: {sizes}), warm reassemble {t_reasm:.4f} s, "
           f"preconditioner: bulk lattice cycle {t_bulk:.3f} s + interface tables {t_band:.3f} s "
-          f"(m={vc.band_ids.numel()}, {vc.schwarz_ids.shape[0]} blocks, "
+          f"(m={vc.band_ids.numel()}, {vc.band_tables.nb} blocks, "
           f"{vc.schwarz_sweeps} sweeps)")
 
     def run():

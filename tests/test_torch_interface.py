@@ -62,21 +62,31 @@ def test_data_dependent_selection(s1):
     assert sum(int(v.sum()) for v in selt.values()) > 0
 
 
+def _port_table(vt, name):
+    """The port's copy of the JAX package's table ``name``: the Schwarz
+    tables live in ``vt.band_tables``, the band matrix slot-major there."""
+    tab = vt.band_tables
+    views = {"schwarz_ids": lambda: tab.ids, "schwarz_inv": lambda: tab.inv,
+             "band_ell_cols": lambda: tab.ell_cols.T, "band_ell_vals": lambda: tab.ell_vals.T}
+    return views[name]() if name in views else getattr(vt, name)
+
+
 @pytest.mark.parametrize("kind", ["dense", "schwarz"])
 def test_tables_match(precs, kind):
     vj, vt = precs[kind]
     for name in DENSE if kind == "dense" else SCHWARZ:
-        a, b = np.asarray(getattr(vj, name)), getattr(vt, name).cpu().numpy()
+        t = _port_table(vt, name)
+        a, b = np.asarray(getattr(vj, name)), t.cpu().numpy()
         assert b.shape == a.shape, name
         if b.dtype.kind == "f":
-            assert getattr(vt, name).dtype == torch.float64
+            assert t.dtype == torch.float64
             assert rel(b, a) <= 1e-12, name
         else:
             np.testing.assert_array_equal(b, a, err_msg=name)
     if kind == "schwarz":
         assert vt.schwarz_sweeps == vj.schwarz_sweeps
         owner = tmg.ras_owner(np.asarray(vj.schwarz_ids), np.asarray(vj.schwarz_own), vt.band_ids.numel())
-        np.testing.assert_array_equal(vt.schwarz_owner.numpy(), owner)
+        np.testing.assert_array_equal(vt.band_tables.owner.numpy(), owner)
 
 
 def test_ras_gather_equals_masked_scatter(precs):
@@ -89,9 +99,9 @@ def test_ras_gather_equals_masked_scatter(precs):
     cb = np.random.default_rng(2).standard_normal(bids.shape)
     scattered = np.zeros(m + 1)
     np.add.at(scattered, bids, np.where(own, cb, 0.0))
-    gathered = np.concatenate([cb.reshape(-1), [0.0]])[vt.schwarz_owner.numpy()]
+    gathered = np.concatenate([cb.reshape(-1), [0.0]])[vt.band_tables.owner.numpy()]
     np.testing.assert_array_equal(gathered, scattered[:m])
-    assert (vt.schwarz_owner.numpy() < cb.size).all()  # every band DoF has an owner
+    assert (vt.band_tables.owner.numpy() < cb.size).all()  # every band DoF has an owner
 
 
 @pytest.mark.parametrize("kind", ["dense", "schwarz"])
@@ -106,12 +116,14 @@ def test_application_matches(s1, precs, kind, monkeypatch):
 
 
 def test_band_bicgstab_matches(precs, monkeypatch):
-    """The port's fixed-sweep band BiCGStab on the JAX tables carried
-    across, against the JAX one with float64 dots: 1e-10; with the JAX
+    """The port's fixed-sweep band BiCGStab (``ops.cuda_band.band_bicgstab``,
+    RAS-preconditioned) on the JAX tables carried across, against the JAX
+    one on JAX's own band operators with float64 dots: 1e-10; with the JAX
     package's own float32 dots the two differ only at float32 level."""
-    vj, _ = precs["schwarz"]
     from phifem_tpu_torch.mg import VCycle
+    from phifem_tpu_torch.ops import cuda_band
 
+    vj, _ = precs["schwarz"]
     vt = VCycle([], ())
     interface_tables_from_numpy(
         vt, vj._flat_meta, **{n: np.asarray(getattr(vj, n)) for n in SCHWARZ + ("schwarz_own",)},
@@ -119,25 +131,19 @@ def test_band_bicgstab_matches(precs, monkeypatch):
     )
     m = vt.band_ids.shape[0]
     rb = np.random.default_rng(9).standard_normal(m)
-    ident = lambda v: v
+    # JAX's band_mv / band_ras: the closures its band correction hands to
+    # _band_bicgstab
+    ops = {}
+    monkeypatch.setattr(jmg, "_band_bicgstab", lambda mv, M, b, it: ops.update(mv=mv, M=M) or jnp.zeros_like(b))
+    n_flat = sum(vj._flat_meta[2])
+    vj._band_correct_flat(jnp.zeros(n_flat), jnp.zeros(n_flat))
+    monkeypatch.undo()
 
     def jax_band(dots64):
-        if dots64:
-            monkeypatch.setattr(jmg, "jnp", _F64Dots())
-        else:
-            monkeypatch.setattr(jmg, "jnp", jnp)
-        vals, cols = jnp.asarray(vj.band_ell_vals), jnp.asarray(vj.band_ell_cols)
-        mv = lambda v: (vals * jnp.concatenate([v, jnp.zeros(1)])[cols]).sum(axis=1)
-        return np.asarray(jmg._band_bicgstab(mv, ident, jnp.asarray(rb), vj.schwarz_sweeps))
+        monkeypatch.setattr(jmg, "jnp", _F64Dots() if dots64 else jnp)
+        return np.asarray(jmg._band_bicgstab(ops["mv"], ops["M"], jnp.asarray(rb), vj.schwarz_sweeps))
 
-    def port_band():
-        def mv(v):
-            vpad = torch.cat([v, v.new_zeros(1)])
-            return (vt.band_ell_vals * vpad[vt.band_ell_cols]).sum(dim=1)
-
-        return tmg._band_bicgstab(mv, ident, torch.as_tensor(rb), vt.schwarz_sweeps).numpy()
-
-    et = port_band()
+    et = cuda_band.band_bicgstab(vt.band_tables, torch.as_tensor(rb), vt.schwarz_sweeps).numpy()
     assert rel(et, jax_band(True)) <= 1e-10
     assert rel(et, jax_band(False)) <= 1e-4
     # and the full band correction on the carried-across tables

@@ -110,7 +110,7 @@ def test_mg_schwarz_interface_s1(s1_32, s1_32_dense):
     converge where plain Jacobi stalls and match the dense solve."""
     s = s1_32
     vc = s.mg_preconditioner(min_n=8, interface_dense_max=0)
-    assert vc.schwarz_inv is not None and vc.interface_inv is None
+    assert vc.band_tables is not None and vc.interface_inv is None
     res = solve(s.op, s.b, method="bicgstab", tol=1e-10, maxiter=240, precond=vc)
     assert res.converged, res.residual
     res_dense = s1_32_dense
@@ -160,7 +160,7 @@ def test_interface_solve_knobs(s4_16):
     _, _, active = masked_operator(st.op)
     base = tmg.VCycle([], ())
     vc = tmg.attach_interface_solve(base, st.op, active, dense_max=0, sweeps=7)
-    assert vc.schwarz_inv is not None and vc.interface_inv is None
+    assert vc.band_tables is not None and vc.interface_inv is None
     assert vc.schwarz_sweeps == 7
     m = vc.band_ids.numel()
     vc2 = tmg.attach_interface_solve(tmg.VCycle([], ()), st.op, active, dense_max=0, sweeps_coef=3.0)
@@ -172,7 +172,7 @@ def test_interface_solve_knobs(s4_16):
 def test_lattice_preconditioner_routes_interface_keywords(s4_16):
     _, st = s4_16
     vc = st.lattice_preconditioner(dense_max=0, sweeps=5)
-    assert vc.schwarz_inv is not None and vc.schwarz_sweeps == 5
+    assert vc.band_tables is not None and vc.schwarz_sweeps == 5
     assert st.lattice_preconditioner(dense_max=0, sweeps=5) is vc
     assert st.lattice_preconditioner(dense_max=0, sweeps=5, refresh=True) is not vc
 
