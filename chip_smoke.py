@@ -1022,8 +1022,8 @@ BAND_KERNELS = (
      "phifem_tpu/mg.py:85-139 (the dots of _band_bicgstab; XLA-fused, not a Pallas kernel)"),
     ("band_update", "band_update_kernel", "phifem_tpu_torch/csrc/band_solve.cu",
      "phifem_tpu/mg.py:85-139 (the vector updates of _band_bicgstab; XLA-fused, not a Pallas kernel)"),
-    ("band_ell", "amg_ell_kernel", "phifem_tpu_torch/csrc/amg_ell.cu",
-     "phifem_tpu/mg.py:383-387 (band_mv; XLA-fused, not a Pallas kernel): the AMG ELL kernel, reused"),
+    ("band_ell", "band_ell_kernel", "phifem_tpu_torch/csrc/band_solve.cu",
+     "phifem_tpu/mg.py:383-387 (band_mv; XLA-fused, not a Pallas kernel)"),
 )
 # what the band phase measures of each kernel, by band (the label of the
 # path that built it)
@@ -1076,13 +1076,16 @@ def _hold_band(label: str, tab, sweeps: int, timed: bool = False) -> None:
     own = tab.owner < nb * K
     n_own = int(own.sum())
     n_blk = int(torch.unique(torch.div(tab.owner[own].long(), K, rounding_mode="floor")).numel())
-    w = tab.ell_cols.shape[0]
-    nnz = int((tab.ell_cols < m).sum())
+    w = tab.width
+    nnz = int(tab.row_len.sum())
+    stored, slices = tab.sell_cols.numel(), tab.sell_off.numel() - 1
     ras_bytes = n_own * K * 8 + n_blk * K * 4 + m * (4 + 8 + 8)
-    print(f"[{label} band] m={m}, nb={nb} blocks of K={K} ({n_own} owned DoFs in {n_blk} blocks), ELL width {w} "
-          f"({nnz} nonzeros, {tab.lanes} lanes a row), {sweeps} inner sweeps; the RAS apply reads "
-          f"{ras_bytes / 1e6:.3f} MB (one row of K a DoF; x, owner, y), the whole block table "
-          f"{nb * K * K * 8 / 1e6:.3f} MB")
+    print(f"[{label} band] m={m}, nb={nb} blocks of K={K} ({n_own} owned DoFs in {n_blk} blocks), {sweeps} inner "
+          f"sweeps; the RAS apply reads {ras_bytes / 1e6:.3f} MB (one row of K a DoF; x, owner, y), the whole block "
+          f"table {nb * K * K * 8 / 1e6:.3f} MB; ELL: host width {w}, {nnz} nonzeros, {slices} slices of "
+          f"{cb.SLICE} rows holding {stored} slots ({1 - nnz / max(stored, 1):.1%} of them padding, never read; the "
+          f"padded (m, w) table {m * w} slots, {1 - nnz / (m * w):.1%} padding), {stored * 12 / 1e6:.1f} MB on "
+          f"the card")
 
     # agreement, every kernel and mode
     t0 = time.perf_counter()
@@ -1111,16 +1114,16 @@ def _hold_band(label: str, tab, sweeps: int, timed: bool = False) -> None:
     e = cb.band_bicgstab(tab, rb, sweeps)
     torch.cuda.synchronize()
     launches = cb.launches - n0
-    per_sweep = (launches - cb.dot_stages(m) - 1) / sweeps
+    per_sweep = (launches - 2) / sweeps  # the first dots and the last select
     if not torch.equal(e, cb.band_bicgstab_ref(tab, rb, sweeps)):
         raise AssertionError(f"{label}: the inner solve on the kernels differs from its plain version")
     if not torch.equal(cb.band_richardson(tab, rb, 4, 0.8), cb.band_richardson_ref(tab, rb, 4, 0.8)):
         raise AssertionError(f"{label}: the Richardson inner solve on the kernels differs from its plain version")
     print(f"[{label} band] every kernel, mode and the whole inner solve ({sweeps} sweeps, |e| max "
           f"{float(e.abs().max()):.3e}) torch.equal to their plain versions ({time.perf_counter() - t0:.1f} s); "
-          f"{launches} launches a solve, {per_sweep:g} an inner sweep (at most 16)")
-    if not per_sweep <= 16:
-        raise AssertionError(f"{label}: {per_sweep} launches an inner sweep")
+          f"{launches} launches a solve, {per_sweep:g} an inner sweep (10: 2 RAS, 2 ELL, 3 dots, 3 updates)")
+    if per_sweep != 10:
+        raise AssertionError(f"{label}: {per_sweep} launches an inner sweep, not 10")
     # how far the fixed sweeps take the inner solve: the true relative
     # residual of its best iterate, at the default sweeps and twice and
     # four times as many (reported: a solve stopped far from convergence
@@ -1137,11 +1140,15 @@ def _hold_band(label: str, tab, sweeps: int, timed: bool = False) -> None:
     # times
     zero = x.new_zeros(1)
     ids64, owner64 = tab.ids.long(), tab.owner.long()
-    A = _ell_csr(tab.ell_cols, tab.ell_vals, m)
+    # the band matrix padded and slot-major, the AMG kernel's layout: the
+    # former route's input, and CSR for torch.mv
+    pc, pv = (t.T.contiguous().to(DEVICE) for t in tab.ell_rows())
+    pc = pc.to(torch.int32)
+    A = _ell_csr(pc, pv, m)
     t, s_ = vec(), vec()
     sc = _band_update_state(m, rng)
     xr = {k: sc[k] for k in cb.MODE_VECS[cb.XR]}
-    work = torch.empty(max(1, cb.dot_work(m, 2)), dtype=f64, device=DEVICE)
+    work = cb.dot_scratch(m, 2, DEVICE)
     out = torch.empty(2, dtype=f64, device=DEVICE)
     y = torch.empty(m, dtype=f64, device=DEVICE)
     cases = {
@@ -1166,10 +1173,25 @@ def _hold_band(label: str, tab, sweeps: int, timed: bool = False) -> None:
               "bound_by": by, "library_ms": None if lib is None else _event_ms(lib, BAND_REPS)}
         times[name] = tt
         print(f"[{label} band] {name}: {tt['ms']:.4f} ms a call (events), device {tt['device_ms']:.4f} ms a launch"
-              + (f" ({cb.dot_stages(m)} launches a call)" if name == "band_dots" else "")
+              + (f" ({cb.dot_stages(m)} launch a call)" if name == "band_dots" else "")
               + f", host {tt['host_ms']:.4f} ms a call; plain {tt['plain_ms']:.4f} ms; bound {bound:.4f} ms by {by} "
               f"({bound / tt['device_ms']:.1%} of it by device time)"
               + ("" if lib is None else f"; {lib_name} {tt['library_ms']:.4f} ms"))
+    # the former route: the AMG kernel (its lanes_for group size) on the padded
+    # slot-major table; its launches here are not the V-cycle's
+    ca = _amg()
+    n_amg, lanes = ca.launches, ca.lanes_for(m, w)
+    former = lambda: ca.amg_ell_sweep(ca.APPLY, pc, pv, x, lanes=lanes)
+    if not torch.equal(former(), cb.band_ell(tab, x)):
+        raise AssertionError(f"{label}: the AMG kernel on the padded table differs from the band's ELL kernel")
+    te = times["band_ell"]
+    te.update(former_ms=_event_ms(former, BAND_REPS), former_device_ms=_device_ms(former, BAND_REPS, "amg_ell_kernel"),
+              former_lanes=lanes, slices=slices, stored=stored, nnz=nnz, padding=1 - nnz / max(stored, 1))
+    ca.launches = n_amg
+    print(f"[{label} band] band_ell beside the former route, the AMG kernel on the padded (w, m) table ({lanes} lanes "
+          f"a row): {te['device_ms']:.4f} against {te['former_device_ms']:.4f} ms a launch (device), "
+          f"{te['ms']:.4f} against {te['former_ms']:.4f} ms a call (events); CSR torch.mv {te['library_ms']:.4f} ms")
+    del pc, pv, A
     solve = lambda: cb.band_bicgstab(tab, rb, sweeps)
     times["solve"] = {"ms": _event_ms(solve, 3), "host_ms": _host_ms(solve, 3),
                       "plain_ms": _event_ms(lambda: cb.band_bicgstab_ref(tab, rb, sweeps), 1), "launches": launches,
@@ -1177,7 +1199,8 @@ def _hold_band(label: str, tab, sweeps: int, timed: bool = False) -> None:
     ts = times["solve"]
     print(f"[{label} band] one inner solve ({sweeps} sweeps): {ts['ms']:.3f} ms (events), host {ts['host_ms']:.3f} ms "
           f"to issue its {launches} launches; plain {ts['plain_ms']:.3f} ms")
-    times["shape"] = f"m={m}, nb={nb}, K={K}, ELL width {w}, {nnz} nonzeros"
+    times["shape"] = (f"m={m}, nb={nb}, K={K}, ELL width {w}, {nnz} nonzeros in {slices} slices of {cb.SLICE} rows "
+                      f"({stored} slots)")
     BAND_TIMES[label] = times
 
 
@@ -1507,10 +1530,9 @@ def phase_gmres(pt, cs, s, vc, r_bicg) -> dict:
     return counts
 
 
-# the band solve's kernels in a trace; off the AMG paths every ELL launch is
-# the band's product
+# the band solve's kernels in a trace
 KERNELS_BAND = {"band RAS": "band_ras_kernel", "band dots": "band_dots_kernel", "band updates": "band_update_kernel",
-                "band ELL (amg_ell)": "amg_ell_kernel"}
+                "band ELL": "band_ell_kernel"}
 KERNELS_2D = {"stencil": "stencil_matvec_kernel", "tap": "tap_matvec_kernel", **KERNELS_BAND}
 # the device-to-device copies include hex3 block's copy of K, one per launch
 KERNELS_3D = {"hex3": "hex1_stencil3", "hex3 block": "hexblock_stencil3", "lattice3": "lattice3_sweep_kernel",
@@ -2819,11 +2841,8 @@ AMG_IT = {40: 14, 80: 15, 160: 17, N_AMG_LARGE: 48}
 # (residual, R, P with the prolongation's add, the post sweep; the first
 # sweep from zero needs no launch)
 AMG_LAUNCHES = {40: 112, 80: 240, 160: 272, N_AMG_LARGE: 1536}
-# the AMG cycle runs the ELL kernel in float32, the band's product in
-# float64 (a name demangled or not)
-KERNELS_G1A = {"amg_ell": ("amg_ell_kernel<float", "amg_ell_kernelIf"),
-               "band ELL (amg_ell f64)": ("amg_ell_kernel<double", "amg_ell_kernelId"),
-               **{k: v for k, v in KERNELS_BAND.items() if "ELL" not in k}}
+# the AMG cycle's ELL kernel and the band solve's kernels
+KERNELS_G1A = {"amg_ell": ("amg_ell_kernel",), **KERNELS_BAND}
 
 
 def _u_mesh(pt, n: int, device: str, amp: float = 0.25, seed: int = 0, quad: bool = False):
@@ -4364,6 +4383,10 @@ def _band_lines(counts: dict) -> list:
                 "shape": f"{main} band: {BAND_TIMES[main]['shape']}"}
         if name == "band_update":
             line["inner_solve"] = BAND_TIMES[main]["solve"]
+        if name == "band_ell":
+            line["former_route"] = {"kernel": "amg_ell_kernel (csrc/amg_ell.cu) on the padded slot-major table",
+                                    **{k: t[k] for k in ("former_ms", "former_device_ms", "former_lanes")}}
+            line["layout"] = {k: t[k] for k in ("slices", "stored", "nnz", "padding")}
         lines.append(line)
     return lines
 

@@ -1,22 +1,24 @@
 // The interface band solve's loops, for Hopper: the restricted additive
-// Schwarz (RAS) block apply, ordered dot products and the fused updates of
-// the fixed-sweep BiCGStab on the cut band.
+// Schwarz (RAS) block apply, the band matrix's sliced-ELL product, ordered
+// dot products and the fused updates of the fixed-sweep BiCGStab on the cut
+// band.
 //
 // Replaces the XLA-fused loops of phifem_tpu/mg.py (not a Pallas kernel):
 // band_ras (:389-398), the block apply of VCycle._band_correct_flat (:359),
-// and the body of _band_bicgstab (:85-139): its dots and its vector updates.
-// The band's ELL product (band_mv, :383-387) runs the AMG cycle's ELL kernel
-// (csrc/amg_ell.cu) on a slot-major copy of the band matrix.  Used by
-// phifem_tpu_torch/ops/cuda_band.py for every Schwarz band: 2D lattice,
-// mg_preconditioner, AMG, p-MG's high-degree band, and the 3D schemes'
-// lattice_core.make_interface_apply.
+// band_mv (:383-387, (vals * vpad[cols]).sum(axis=1) over the row-major
+// padded ELL table), and the body of _band_bicgstab (:85-139): its dots and
+// its vector updates.  Used by phifem_tpu_torch/ops/cuda_band.py for every
+// Schwarz band: 2D lattice, mg_preconditioner, AMG, p-MG's high-degree band,
+// and the 3D schemes' lattice_core.make_interface_apply.
 //
 // All values are float64 (the band tables are, whatever the cycle's dtype),
 // and every product, quotient and sum is rounded on its own (__dmul_rn,
 // __ddiv_rn, __dadd_rn, __dsub_rn: no FMA contraction), in the order the
 // plain versions in cuda_band.py take, so each kernel equals its plain
-// version bit for bit.  No atomics and no state kept between launches but
-// the solve's scalar slots, which the caller owns.
+// version bit for bit.  The only atomic is the dot kernel's arrival counter,
+// which elects the CTA that runs the second stage and never orders a sum;
+// no state is kept between launches but the solve's scalar slots and that
+// counter (back to 0 at the end of every launch), which the caller owns.
 //
 // 1. band_ras_kernel: one thread per band DoF i.  Its owner slot s = owner[i]
 //    names the block b = s / K and the row k = s % K of the one block entry
@@ -26,14 +28,45 @@
 //    values per DoF, not the (nb, K, K) table of every block entry.  Modes:
 //    y = acc, y = om acc, y = c + om acc (the RAS-Richardson inner solve).
 //    Bound: device memory, K (8 + 4) bytes per DoF plus x, owner and y.
-// 2. band_dots_kernel: up to three dot products in one pass.  The sum is a
+// 2. band_ell_kernel: y = A x or b - A x on the band matrix as a sliced ELL
+//    table: the rows sorted by length (longest first) within windows of a
+//    few slices, stored row p being row perm[p], then slices of kSlice = 32
+//    stored rows, each padded only to its own longest row and stored
+//    slot-major inside the slice (slot k of stored row 32 s + r at off[s] +
+//    32 k + r), with each stored row's length len[p] (its nonzeros, the host
+//    table's trailing pads dropped).  Bound: device memory, each nonzero's
+//    value and int32 column once (12 bytes), x (the L2 holds it), y and b.
+//    Design: one thread a row, so lane r of a warp reads row r of its slice
+//    and a warp's loads of one slot are 32 consecutive values (a 256-byte
+//    and a 128-byte run); a thread stops at its own length, so no padded
+//    slot is read, and the sort leaves a slice's lanes little to wait for on
+//    its longest row.  A thread takes a chunk of slots a step (8, or 16 on
+//    tables wider than kWideRow): their columns and values are loaded, then
+//    their gathers of x, and the next step's columns and values are issued
+//    before this step's products are summed, so two steps' loads are in
+//    flight.  The table is read once a launch, evict-first, which leaves the
+//    caches to x.  The sum is the plain version's: acc = -0, then acc = acc +
+//    v x in ascending slot order, each product and add rounded on its own;
+//    the padded host table's trailing pads each added 0 x 0 = +0, which
+//    changes acc only from -0 to +0, so a row shorter than the host table's
+//    width ends with one acc + 0 and the result is the padded sum bit for
+//    bit.  No shuffles, no shared memory, no atomics.  (The AMG cycle's ELL
+//    kernel, csrc/amg_ell.cu, reads every padded slot of a slot-major (w, m)
+//    table, the lanes of one row m values apart: 3-5x slower on these rows.)
+// 3. band_dots_kernel: up to three dot products in one launch.  The sum is a
 //    fixed tree: the products are cut into chunks of kChunk = 1024 values
 //    (the last padded with +0), each chunk summed by halving (v[j] + v[j + h]
 //    for h = 512, 256, ..., 1) in one CTA, and the chunk sums summed again
-//    the same way by a further launch until one value is left (two launches
-//    up to 2^20 values).  The tree is part of the function: the plain
-//    version repeats it.  Results go to device memory (no host read).
-// 3. band_update_kernel: the BiCGStab updates, one mode per launch, each
+//    the same way until one value is left.  Every CTA writes its chunk sums
+//    to the caller's scratch, then a __threadfence and an atomic add on the
+//    scratch's arrival counter; the CTA that arrives last sums the chunk
+//    sums by the same tree, in index order, writes the results and sets the
+//    counter back to 0.  Which CTA that is changes nothing in the order of
+//    any sum, so the result repeats from run to run.  The tree is part of
+//    the function: the plain version repeats it.  Results go to device
+//    memory (no host read).  Bound: latency (a band's 2 m values are a few
+//    hundred kB), so the design spends one launch a call.
+// 4. band_update_kernel: the BiCGStab updates, one mode per launch, each
 //    thread computing the step's coefficient from the dot results in the
 //    scalar slots with the same guard |d| > 1e-300 ? d : 1e-300 and the same
 //    order of operations as the plain version:
@@ -48,17 +81,35 @@
 //    the best residual alternates between two slots by sweep.
 //
 // Plain C interface, loaded with ctypes (phifem_tpu_torch/ops/cuda_band.py):
-// each entry point returns cudaGetLastError() after its launches.
+// each entry point returns cudaGetLastError() after its launch.
 
 #include <cuda_runtime.h>
 
 #include <cmath>
+
+// Build constants, overridden by -D defines only in a tuning script's
+// variants (scripts/tune_torch_band.py): the slots one thread of the ELL
+// kernel loads a step on a table of width up to kWideRow (CHUNK) and wider
+// (WIDE_CHUNK), and the ELL kernel's CTA size.
+#ifndef PHIFEM_BAND_ELL_CHUNK
+#define PHIFEM_BAND_ELL_CHUNK 8
+#endif
+#ifndef PHIFEM_BAND_ELL_WIDE_CHUNK
+#define PHIFEM_BAND_ELL_WIDE_CHUNK 16
+#endif
+#ifndef PHIFEM_BAND_ELL_THREADS
+#define PHIFEM_BAND_ELL_THREADS 128
+#endif
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kPerThread = 4;
 constexpr int kChunk = kThreads * kPerThread;  // values summed by one CTA
+constexpr int kSlice = 32;                     // rows of an ELL slice: one warp
+constexpr int kEllThreads = PHIFEM_BAND_ELL_THREADS;  // the ELL kernel's CTA: whole slices
+constexpr int kWideRow = 32;  // host table widths past this take the wide chunk
+static_assert(kEllThreads % kSlice == 0, "an ELL CTA holds whole slices");
 
 // the solve's scalar slots (cuda_band.py: SLOTS)
 enum Slot { RR = 0, RHO_NEW, RV, TS, TT, RHO, ALPHA, OMEGA, RRB0, RRB1, NSLOTS };
@@ -94,36 +145,71 @@ __global__ void __launch_bounds__(kThreads) band_ras_kernel(const double* __rest
   }
 }
 
-// One CTA sums its chunk of kChunk values of each of the NP rows by the
-// halving tree; PRODUCTS: value j of row q is a_q[j] b_q[j], else a_q[j] (a
-// stage over the chunk sums).  CTA k writes row q's sum to out[q stride + k].
-template <int NP, bool PRODUCTS>
-__global__ void __launch_bounds__(kThreads) band_dots_kernel(const double* __restrict__ a0,
-                                                             const double* __restrict__ b0,
-                                                             const double* __restrict__ a1,
-                                                             const double* __restrict__ b1,
-                                                             const double* __restrict__ a2,
-                                                             const double* __restrict__ b2, int n,
-                                                             double* __restrict__ out, int stride) {
-  __shared__ double part[NP][kThreads];
-  const double* a[3] = {a0, a1, a2};
-  const double* b[3] = {b0, b1, b2};
+// Stored row p of the sliced ELL table (see the top of this file), row
+// perm[p] of the matrix, kEllChunk slots a step; RESIDUAL: y = b - A x,
+// else y = A x.  width: the host table's padded width.  The table's
+// columns and values are read once a launch: loaded evict-first (__ldcs),
+// so that they leave the caches to x.
+template <bool RESIDUAL, int kEllChunk>
+__global__ void __launch_bounds__(kEllThreads) band_ell_kernel(const int* __restrict__ cols,
+                                                               const double* __restrict__ vals,
+                                                               const long long* __restrict__ off,
+                                                               const int* __restrict__ len,
+                                                               const int* __restrict__ perm,
+                                                               const double* __restrict__ x,
+                                                               const double* __restrict__ b,
+                                                               double* __restrict__ y, int m, int width) {
+  const int p = blockIdx.x * kEllThreads + threadIdx.x;
+  if (p >= m) return;
+  const int n = __ldg(len + p);
+  const int i = __ldg(perm + p);  // the row written, loaded with the row's length
+  const long long base = __ldg(off + p / kSlice) + p % kSlice;
+  const int* __restrict__ c = cols + base;
+  const double* __restrict__ v = vals + base;
+  int cc[kEllChunk];
+  double vv[kEllChunk];
+#pragma unroll
+  for (int j = 0; j < kEllChunk; ++j) {
+    const bool on = j < n;
+    cc[j] = on ? __ldcs(c + j * kSlice) : m;
+    vv[j] = on ? __ldcs(v + j * kSlice) : 0.0;
+  }
+  double acc = -0.0;
+  for (int k0 = 0; k0 < n; k0 += kEllChunk) {
+    double xv[kEllChunk], pv[kEllChunk];
+#pragma unroll
+    for (int j = 0; j < kEllChunk; ++j) {
+      xv[j] = x_at(x, cc[j], m);
+      pv[j] = vv[j];
+    }
+    // the next step's columns and values fly while this step is summed
+    const int k1 = k0 + kEllChunk;
+#pragma unroll
+    for (int j = 0; j < kEllChunk; ++j) {
+      const bool on = k1 + j < n;
+      cc[j] = on ? __ldcs(c + (k1 + j) * kSlice) : m;
+      vv[j] = on ? __ldcs(v + (k1 + j) * kSlice) : 0.0;
+    }
+    // slots past the row add -0, which changes no value
+#pragma unroll
+    for (int j = 0; j < kEllChunk; ++j) acc = __dadd_rn(acc, k0 + j < n ? __dmul_rn(pv[j], xv[j]) : -0.0);
+  }
+  if (n < width) acc = __dadd_rn(acc, 0.0);  // the host table's trailing pads: 0 x 0 = +0
+  y[i] = RESIDUAL ? __dsub_rn(__ldg(b + i), acc) : acc;
+}
+
+// The halving tree over one chunk: thread t holds positions t + 256 e (e =
+// 0..3) of each of the NP rows in v; the row sums end in thread 0's s.
+// Starts with a barrier, so part may be reused chunk after chunk.
+template <int NP>
+__device__ __forceinline__ void chunk_sum(const double (&v)[NP][kPerThread], double (*part)[kThreads],
+                                          double (&s)[NP]) {
   const int t = threadIdx.x;
-  const long long base = static_cast<long long>(blockIdx.x) * kChunk + t;
+  __syncthreads();
 #pragma unroll
   for (int q = 0; q < NP; ++q) {
-    double v[kPerThread];
-#pragma unroll
-    for (int e = 0; e < kPerThread; ++e) {
-      const long long j = base + e * kThreads;  // chunk position t + 256 e
-      if (j < n) {
-        v[e] = PRODUCTS ? __dmul_rn(__ldg(a[q] + j), __ldg(b[q] + j)) : __ldg(a[q] + j);
-      } else {
-        v[e] = 0.0;
-      }
-    }
     // h = 512: positions t + 256 e and t + 256 (e + 2); h = 256: t and t + 256
-    part[q][t] = __dadd_rn(__dadd_rn(v[0], v[2]), __dadd_rn(v[1], v[3]));
+    part[q][t] = __dadd_rn(__dadd_rn(v[q][0], v[q][2]), __dadd_rn(v[q][1], v[q][3]));
   }
   __syncthreads();
   for (int h = kThreads / 2; h >= 32; h >>= 1) {
@@ -139,35 +225,102 @@ __global__ void __launch_bounds__(kThreads) band_dots_kernel(const double* __res
       double u = part[q][t];
 #pragma unroll
       for (int h = 16; h >= 1; h >>= 1) u = __dadd_rn(u, __shfl_down_sync(0xffffffffu, u, h));
-      if (t == 0) out[static_cast<long long>(q) * stride + blockIdx.x] = u;
+      s[q] = u;
     }
   }
+}
+
+// One launch of nc = ceil(n / kChunk) CTAs.  CTA k sums chunk k of each row
+// of products a_q b_q; with nc > 1 it writes them to work (a counter word,
+// then row q's chunk sums at work[1 + q nc + k]) and the last CTA to arrive
+// sums them by the same tree, chunk after chunk, until one value a row is
+// left (region A: the chunk sums, region B: NP ceil(nc / kChunk) values;
+// further stages go back and forth between them).
+template <int NP>
+__global__ void __launch_bounds__(kThreads) band_dots_kernel(const double* __restrict__ a0,
+                                                             const double* __restrict__ b0,
+                                                             const double* __restrict__ a1,
+                                                             const double* __restrict__ b1,
+                                                             const double* __restrict__ a2,
+                                                             const double* __restrict__ b2, int n,
+                                                             double* work, double* __restrict__ out) {
+  __shared__ double part[NP][kThreads];
+  __shared__ bool last;
+  const double* a[3] = {a0, a1, a2};
+  const double* b[3] = {b0, b1, b2};
+  const int t = threadIdx.x;
+  const int nc = gridDim.x;
+  double v[NP][kPerThread];
+  double s[NP];
+  const long long base = static_cast<long long>(blockIdx.x) * kChunk + t;
+#pragma unroll
+  for (int q = 0; q < NP; ++q) {
+#pragma unroll
+    for (int e = 0; e < kPerThread; ++e) {
+      const long long j = base + e * kThreads;  // chunk position t + 256 e
+      v[q][e] = j < n ? __dmul_rn(__ldg(a[q] + j), __ldg(b[q] + j)) : 0.0;
+    }
+  }
+  chunk_sum<NP>(v, part, s);
+  if (nc == 1) {
+    if (t == 0) {
+#pragma unroll
+      for (int q = 0; q < NP; ++q) out[q] = s[q];
+    }
+    return;
+  }
+  unsigned int* count = reinterpret_cast<unsigned int*>(work);
+  double* src = work + 1;
+  double* dst = src + static_cast<long long>(NP) * nc;
+  if (t == 0) {
+#pragma unroll
+    for (int q = 0; q < NP; ++q) src[static_cast<long long>(q) * nc + blockIdx.x] = s[q];
+    __threadfence();  // the chunk sums reach the L2 before the arrival
+    last = atomicAdd(count, 1u) == static_cast<unsigned int>(nc - 1);
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  int len = nc;
+  while (true) {
+    const int nc2 = (len + kChunk - 1) / kChunk;
+    for (int k = 0; k < nc2; ++k) {
+#pragma unroll
+      for (int q = 0; q < NP; ++q) {
+#pragma unroll
+        for (int e = 0; e < kPerThread; ++e) {
+          const int j = k * kChunk + t + e * kThreads;
+          // L2 reads: other CTAs wrote these values
+          v[q][e] = j < len ? __ldcg(src + static_cast<long long>(q) * len + j) : 0.0;
+        }
+      }
+      chunk_sum<NP>(v, part, s);
+      if (t == 0) {
+#pragma unroll
+        for (int q = 0; q < NP; ++q) {
+          if (nc2 == 1) {
+            out[q] = s[q];
+          } else {
+            dst[static_cast<long long>(q) * nc2 + k] = s[q];
+          }
+        }
+      }
+    }
+    if (nc2 == 1) break;
+    __syncthreads();  // thread 0's sums are visible to the whole CTA
+    double* tmp = src;
+    src = dst;
+    dst = tmp;
+    len = nc2;
+  }
+  if (t == 0) *count = 0u;
 }
 
 template <int NP>
 void launch_dots(const double* const* a, const double* const* b, int n, double* work, double* out,
                  cudaStream_t st) {
-  int nc = (n + kChunk - 1) / kChunk;
-  if (nc == 1) {
-    band_dots_kernel<NP, true><<<1, kThreads, 0, st>>>(a[0], b[0], a[1], b[1], a[2], b[2], n, out, 1);
-    return;
-  }
-  band_dots_kernel<NP, true><<<nc, kThreads, 0, st>>>(a[0], b[0], a[1], b[1], a[2], b[2], n, work, nc);
-  // the chunk sums, row q at src + q nc, go back and forth between the two
-  // regions of work until one value a row is left
-  double* src = work;
-  double* dst = work + static_cast<long long>(NP) * nc;
-  while (nc > 1) {
-    const int nc2 = (nc + kChunk - 1) / kChunk;
-    double* to = nc2 == 1 ? out : dst;
-    const int stride = nc2 == 1 ? 1 : nc2;
-    band_dots_kernel<NP, false><<<nc2, kThreads, 0, st>>>(src, nullptr, src + nc, nullptr, src + 2LL * nc, nullptr,
-                                                           nc, to, stride);
-    double* tmp = src;
-    src = dst;
-    dst = tmp;
-    nc = nc2;
-  }
+  const int nc = (n + kChunk - 1) / kChunk;
+  band_dots_kernel<NP><<<nc, kThreads, 0, st>>>(a[0], b[0], a[1], b[1], a[2], b[2], n, work, out);
 }
 
 __device__ __forceinline__ double safe(double d) { return fabs(d) > 1e-300 ? d : 1e-300; }
@@ -241,9 +394,46 @@ int phifem_band_ras(const void* inv, const void* ids, const void* owner, const v
   return static_cast<int>(cudaGetLastError());
 }
 
+// y = A x (mode 0) or b - A x (mode 1) on the band matrix of m rows as the
+// sliced ELL table (device pointers): cols int32 and vals float64 of the
+// stored slots, off (ceil(m / 32) + 1,) int64 slice offsets, len (m,) int32
+// stored row lengths, perm (m,) int32 the row of each stored row, x, b and
+// y (m,) float64 (b NULL in mode 0); width is the host table's padded
+// width.  Returns cudaGetLastError() (cudaErrorInvalidValue for a bad mode,
+// m or width).
+int phifem_band_ell(const void* cols, const void* vals, const void* off, const void* len, const void* perm,
+                    const void* x, const void* b, void* y, int m, int width, int mode, void* stream) {
+  if (mode < 0 || mode > 1 || m < 1 || width < 1 || (mode == 1 && b == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(static_cast<unsigned>((m + kEllThreads - 1) / kEllThreads));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* c = static_cast<const int*>(cols);
+  const double* v = static_cast<const double*>(vals);
+  const long long* o = static_cast<const long long*>(off);
+  const int* l = static_cast<const int*>(len);
+  const int* pm = static_cast<const int*>(perm);
+  const double* xx = static_cast<const double*>(x);
+  const double* bb = static_cast<const double*>(b);
+  double* yy = static_cast<double*>(y);
+  constexpr int kNarrow = PHIFEM_BAND_ELL_CHUNK, kWide = PHIFEM_BAND_ELL_WIDE_CHUNK;
+  if (mode == 1 && width > kWideRow) {
+    band_ell_kernel<true, kWide><<<grid, kEllThreads, 0, st>>>(c, v, o, l, pm, xx, bb, yy, m, width);
+  } else if (mode == 1) {
+    band_ell_kernel<true, kNarrow><<<grid, kEllThreads, 0, st>>>(c, v, o, l, pm, xx, bb, yy, m, width);
+  } else if (width > kWideRow) {
+    band_ell_kernel<false, kWide><<<grid, kEllThreads, 0, st>>>(c, v, o, l, pm, xx, bb, yy, m, width);
+  } else {
+    band_ell_kernel<false, kNarrow><<<grid, kEllThreads, 0, st>>>(c, v, o, l, pm, xx, bb, yy, m, width);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // out[q] = a_q . b_q for the np (1-3) pairs of float64 vectors of n values,
-// by the fixed tree; work holds np (nc + ceil(nc / kChunk)) values, nc =
-// ceil(n / kChunk) (unused when nc = 1).
+// by the fixed tree, in one launch; work holds 1 + np (nc + ceil(nc /
+// kChunk)) values, nc = ceil(n / kChunk), its first word the arrival
+// counter, 0 when the scratch is made and again after every launch (unused
+// when nc = 1).
 int phifem_band_dots(const void* a0, const void* b0, const void* a1, const void* b1, const void* a2,
                      const void* b2, int np, int n, void* work, void* out, void* stream) {
   if (np < 1 || np > 3 || n < 1 || out == nullptr || (n > kChunk && work == nullptr)) {
@@ -280,10 +470,11 @@ int phifem_band_update(int mode, int sweep, int n, void* sc, const void* r, void
 }
 
 // The build's constants, which the wrapper checks: threads per CTA, values
-// per dot chunk, scalar slots.
+// per dot chunk, scalar slots, rows per ELL slice.
 int phifem_band_threads() { return kThreads; }
 int phifem_band_chunk() { return kChunk; }
 int phifem_band_slots() { return NSLOTS; }
+int phifem_band_slice() { return kSlice; }
 
 const char* phifem_band_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 

@@ -28,9 +28,7 @@ It dispatches on the tensor's device: a CPU tensor goes to
 raises; there is no fallback from the card to the plain version.  Each row
 sums its slots in ascending order with every operation rounded on its own,
 so the kernel equals the plain version bit for bit.  ``launches`` counts
-the kernel launches of :func:`amg_ell_sweep`; the interface band solve's ELL
-products run the same kernel through :func:`launch` and are counted in
-:mod:`phifem_tpu_torch.ops.cuda_band`.
+the kernel launches of :func:`amg_ell_sweep`.
 """
 
 from __future__ import annotations
@@ -154,21 +152,11 @@ def amg_ell_sweep(
     if width * n >= 2**31 or lanes * n >= 2**31 or x.shape[0] >= 2**31:
         raise ValueError("amg_ell_sweep: table too large for 32-bit indexing")
     y = torch.empty(n, dtype=dt, device=dev)
-    launch(mode, cols, vals, x, b, d, y, lanes)
-    launches += 1
-    return y
-
-
-def launch(mode: int, cols, vals, x, b, d, y, lanes: int) -> None:
-    """Launch the kernel into ``y`` on tensors the caller has checked (as
-    :func:`amg_ell_sweep` does), without counting the launch: the band
-    solve's product (``ops.cuda_band.band_ell``) counts its own."""
-    dev = x.device
     fn, raw_stream, current = _LAUNCH.get("fn") or _bind()
     idx = dev.index
     args = (cols.data_ptr(), vals.data_ptr(), x.data_ptr(), None if b is None else b.data_ptr(),
-            None if d is None else d.data_ptr(), y.data_ptr(), cols.shape[1], cols.shape[0], x.shape[0], mode,
-            lanes, x.dtype is torch.float64, raw_stream(idx))
+            None if d is None else d.data_ptr(), y.data_ptr(), n, width, x.shape[0], mode, lanes,
+            dt is torch.float64, raw_stream(idx))
     if idx == current():
         err = fn(*args)
     else:
@@ -177,6 +165,8 @@ def launch(mode: int, cols, vals, x, b, d, y, lanes: int) -> None:
     if err:
         msg = _library().phifem_amg_error_string(err).decode()
         raise RuntimeError(f"amg_ell_sweep kernel launch failed: CUDA error {err} ({msg})")
+    launches += 1
+    return y
 
 
 #: the entry point, the current raw stream of a device and the current

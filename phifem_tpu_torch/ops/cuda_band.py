@@ -13,14 +13,17 @@ through :func:`band_bicgstab` and :func:`band_richardson`.  The kernels
   DoF taking the one row of its owning block's inverse
   (``y[i] = sum_l inv[b, k, l] x[ids[b, l]]``, ascending l), optionally
   scaled and added to a vector;
-* :func:`band_dots`: up to three dot products in one pass, summed by a fixed
-  tree (:func:`band_dots_ref` defines it), the results left on the device;
+* :func:`band_ell`: the band's ELL product ``A x`` (or ``b - A x``), one
+  thread a row on the band matrix stored as a sliced ELL table (rows
+  sorted by length within windows of ``WINDOW`` rows, then slices of
+  ``SLICE`` rows, each padded only to its own longest row, slot-major
+  inside the slice; :func:`band_tables` builds it);
+* :func:`band_dots`: up to three dot products in one launch, summed by a
+  fixed tree (:func:`band_dots_ref` defines it), the results left on the
+  device;
 * :func:`band_update`: the BiCGStab vector updates, one mode per launch,
   their coefficients computed from the dot results in the solve's scalar
-  slots;
-* :func:`band_ell`: the band's ELL product ``A x`` (or ``b - A x``), run by
-  the AMG cycle's ELL kernel (:mod:`phifem_tpu_torch.ops.cuda_amg`) on the
-  band matrix stored slot-major; counted here, not in ``cuda_amg.launches``.
+  slots.
 
 Everything is float64 (:data:`phifem_tpu_torch.mg.TABLE_DTYPE`).  Each
 wrapper dispatches on the tensor's device: a CPU tensor goes to the plain
@@ -43,7 +46,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import cuda_amg, nvcc_build
+from . import nvcc_build
 
 __all__ = [
     "BandTables",
@@ -62,6 +65,7 @@ __all__ = [
     "band_richardson_ref",
     "dot_stages",
     "dot_work",
+    "dot_scratch",
     "build",
 ]
 
@@ -75,9 +79,14 @@ update_launches = 0
 tables_built = 0
 
 SOURCE = nvcc_build.PKG / "csrc" / "band_solve.cu"
-#: the kernels' CTA size and the values one CTA of the dot kernel sums
+#: the kernels' CTA size, the values one CTA of the dot kernel sums and
+#: the rows of an ELL slice
 THREADS = 256
 CHUNK = 1024
+SLICE = 32
+#: rows sorted by length (longest first) within each window of this many
+#: before slicing, so that a slice's rows are alike and its padding small
+WINDOW = 256
 F64 = torch.float64
 
 #: RAS modes: y = acc, y = om acc, y = c + om acc
@@ -96,16 +105,23 @@ TINY = 1e-300
 class BandTables:
     """The Schwarz branch's tables as the kernels read them: ``inv`` (nb, K,
     K) block inverses, ``ids`` (nb, K) int32 compact ids padded with m,
-    ``owner`` (m,) int32 owner slots (nb K: none), the band matrix
-    slot-major as ``ell_cols`` (w, m) int32 (pad column m) and ``ell_vals``
-    (w, m), and the ELL kernel's group size ``lanes``."""
+    ``owner`` (m,) int32 owner slots (nb K: none), and the band matrix as a
+    sliced ELL table: stored row p is row ``row_perm[p]`` (int32), its slot
+    k at ``sell_off[p // SLICE] + SLICE k + p % SLICE`` of ``sell_cols``
+    (int32) and ``sell_vals``, ``row_len`` (m,) int32 the slots of each
+    stored row (its host row with the trailing pads dropped), ``sell_off``
+    (ceil(m / SLICE) + 1,) int64, each slice as wide as its longest row;
+    ``width`` the host table's padded width."""
 
     inv: torch.Tensor
     ids: torch.Tensor
     owner: torch.Tensor
-    ell_cols: torch.Tensor
-    ell_vals: torch.Tensor
-    lanes: int
+    sell_cols: torch.Tensor
+    sell_vals: torch.Tensor
+    sell_off: torch.Tensor
+    row_len: torch.Tensor
+    row_perm: torch.Tensor
+    width: int
 
     @property
     def m(self) -> int:
@@ -119,12 +135,57 @@ class BandTables:
     def K(self) -> int:
         return self.ids.shape[1]
 
+    def tensors(self) -> tuple:
+        return (self.inv, self.ids, self.owner, self.sell_cols, self.sell_vals, self.sell_off, self.row_len,
+                self.row_perm)
+
+    def ell_rows(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The band matrix row-major on the host, as :func:`band_tables`
+        was given it: (m, width) int64 columns (pad column m) and float64
+        values (pad 0)."""
+        m, w = self.m, self.width
+        n, off, perm = self.row_len.cpu().long(), self.sell_off.cpu(), self.row_perm.cpu().long()
+        p, k = (torch.arange(w)[None, :] < n[:, None]).nonzero(as_tuple=True)
+        pos = off[p // SLICE] + SLICE * k + p % SLICE
+        cols = torch.full((m, w), m, dtype=torch.int64)
+        vals = torch.zeros((m, w), dtype=F64)
+        cols[perm[p], k] = self.sell_cols.cpu()[pos].long()
+        vals[perm[p], k] = self.sell_vals.cpu()[pos]
+        return cols, vals
+
+
+def sliced_ell(cols: np.ndarray, vals: np.ndarray, m: int, window: int):
+    """The sliced ELL table of a row-major (m, w) ELL table: (stored
+    columns, values, slice offsets, stored row lengths, the row each stored
+    row is).  A row's trailing slots of column m and value +0 are dropped;
+    every other slot, a pad inside a row included, is kept in place.  The
+    rows are sorted by length, longest first, within each ``window`` rows
+    (stable; 1: not at all)."""
+    w = cols.shape[1]
+    real = ~((cols == m) & (vals == 0.0) & ~np.signbit(vals))
+    n = np.where(real.any(axis=1), w - np.argmax(real[:, ::-1], axis=1), 0)
+    perm = np.lexsort((-n, np.arange(m) // max(1, window)))
+    ns = -(-m // SLICE)
+    lens = np.zeros(ns * SLICE, np.int64)  # stored rows' lengths, the last slice's spare rows 0
+    lens[:m] = n[perm]
+    off = np.zeros(ns + 1, np.int64)
+    np.cumsum(SLICE * lens.reshape(ns, SLICE).max(axis=1), out=off[1:])
+    p, k = np.nonzero(np.arange(w)[None, :] < lens[:m, None])
+    pos = off[p // SLICE] + SLICE * k + p % SLICE
+    scols = np.full(int(off[-1]), m, np.int64)
+    svals = np.zeros(int(off[-1]))
+    scols[pos] = cols[perm[p], k]
+    svals[pos] = vals[perm[p], k]
+    return scols, svals, off, lens[:m], perm
+
 
 def band_tables(ids, inv, owner, ell_cols, ell_vals, device) -> BandTables:
     """:class:`BandTables` on ``device`` from host arrays (numpy, or CPU
     tensors): ``ids`` (nb, K) compact block ids padded with m, ``inv`` (nb,
     K, K) block inverses, ``owner`` (m,) owner slots, the band matrix
-    row-major as ``ell_cols`` / ``ell_vals`` (m, w).  Adds one to
+    row-major as ``ell_cols`` / ``ell_vals`` (m, w), pads trailing each row
+    (column m, value 0), stored as its sliced ELL table, rows sorted by
+    length within each ``WINDOW`` rows (:func:`sliced_ell`).  Adds one to
     ``tables_built``."""
     global tables_built
     ids, inv, owner, ell_cols, ell_vals = (np.asarray(a) for a in (ids, inv, owner, ell_cols, ell_vals))
@@ -132,14 +193,15 @@ def band_tables(ids, inv, owner, ell_cols, ell_vals, device) -> BandTables:
     nb, K = ids.shape
     if inv.shape != (nb, K, K) or owner.shape != (m,) or ell_vals.shape != (m, w):
         raise ValueError("band_tables: inconsistent Schwarz table shapes")
-    if m < 1 or m >= 2**31 or nb * K * K >= 2**31 or m * w >= 2**31:
+    if m < 1 or m >= 2**31 or nb * K * K >= 2**31 or w >= 2**26:
         raise ValueError("band_tables: tables too large for 32-bit indexing")
+    scols, svals, off, n, perm = sliced_ell(ell_cols, ell_vals, m, WINDOW)
     dev = torch.device(device)
     t = lambda a, dtype: torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)  # a copy: never a view of a
     tables_built += 1
     return BandTables(inv=t(inv, F64), ids=t(ids, torch.int32), owner=t(owner, torch.int32),
-                      ell_cols=t(ell_cols.T, torch.int32), ell_vals=t(ell_vals.T, F64),
-                      lanes=cuda_amg.lanes_for(m, w))
+                      sell_cols=t(scols, torch.int32), sell_vals=t(svals, F64), sell_off=t(off, torch.int64),
+                      row_len=t(n, torch.int32), row_perm=t(perm, torch.int32), width=int(w))
 
 
 # ------------------------------------------------------------ plain versions
@@ -169,10 +231,29 @@ def band_ras_ref(tab: BandTables, x: torch.Tensor, out: Optional[torch.Tensor] =
 
 def band_ell_ref(tab: BandTables, x: torch.Tensor, out: Optional[torch.Tensor] = None, *,
                  b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain band product ``A x`` (or ``b - A x``): the AMG ELL kernel's plain
-    version on the slot-major band matrix."""
-    mode = cuda_amg.APPLY if b is None else cuda_amg.RESIDUAL
-    y = cuda_amg.amg_ell_sweep_ref(mode, tab.ell_cols, tab.ell_vals, x, b)
+    """Plain band product ``A x`` (or ``b - A x``) on the sliced table: from
+    ``acc = -0``, ``acc = acc + v x`` over each row's slots in ascending
+    order, then ``acc + 0`` for a row shorter than the host table's width
+    (the trailing pads' ``0 x 0``): the padded row's ascending sum bit for
+    bit.  The slices are summed slot by slot side by side, each padded with
+    +0 products to the widest (the stored pads hold 0 x 0 = +0 too): a row
+    that meets such a +0 is shorter than the host table, so ends with ``acc
+    + 0`` anyway, and ``acc + 0 + 0 = acc + 0``."""
+    m, off = tab.m, tab.sell_off
+    first = off[:-1] // SLICE  # a slice's first block of SLICE stored slots: its slot 0
+    widths = off[1:] // SLICE - first
+    prod = tab.sell_vals * torch.cat([x, x.new_zeros(1)])[tab.sell_cols.long()]
+    blocks = torch.cat([prod.view(-1, SLICE), prod.new_zeros(1, SLICE)])  # and a block of +0 last
+    k = torch.arange(int(widths.max()), device=off.device)[:, None]
+    P = blocks[torch.where(k < widths, first + k, blocks.shape[0] - 1)]  # (slot, slice, lane)
+    acc = x.new_zeros(P.shape[1] * SLICE).neg_()
+    for row in P.view(P.shape[0], -1):
+        acc += row
+    acc = acc[:m]
+    acc = torch.where(tab.row_len < tab.width, acc + 0.0, acc)
+    y = torch.empty_like(acc).index_copy_(0, tab.row_perm.long(), acc)
+    if b is not None:
+        y = b - y
     return y if out is None else out.copy_(y)
 
 
@@ -265,7 +346,7 @@ def _vec(t: torch.Tensor, n: int, dev: torch.device, name: str) -> int:
 
 
 def _on(tab: BandTables, dev: torch.device, name: str) -> None:
-    if any(t.device != dev for t in (tab.inv, tab.ids, tab.owner, tab.ell_cols, tab.ell_vals)):
+    if any(t.device != dev for t in tab.tensors()):
         raise ValueError(f"{name}: the band tables are not on {dev}")
 
 
@@ -307,8 +388,8 @@ def band_ras(tab: BandTables, x: torch.Tensor, out: Optional[torch.Tensor] = Non
 
 def band_ell(tab: BandTables, x: torch.Tensor, out: Optional[torch.Tensor] = None, *,
              b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The band product ``A x``, or ``b - A x``, by the AMG ELL kernel
-    (:func:`band_ell_ref` on the CPU)."""
+    """The band product ``A x``, or ``b - A x``, into ``out`` (a new vector
+    when None; not ``x`` or ``b``): see :func:`band_ell_ref`."""
     global launches, ell_launches
     if not _device(x, "band_ell"):
         return band_ell_ref(tab, x, out, b=b)
@@ -317,39 +398,43 @@ def band_ell(tab: BandTables, x: torch.Tensor, out: Optional[torch.Tensor] = Non
     y = torch.empty(m, dtype=F64, device=dev) if out is None else out
     if y is x or y is b:
         raise ValueError("band_ell: out must be another vector than x and b")
-    _vec(x, m, dev, "band_ell")
-    _vec(y, m, dev, "band_ell")
-    if b is not None:
-        _vec(b, m, dev, "band_ell")
-    mode = cuda_amg.APPLY if b is None else cuda_amg.RESIDUAL
-    cuda_amg.launch(mode, tab.ell_cols, tab.ell_vals, x, b, None, y, tab.lanes)
+    args = (tab.sell_cols.data_ptr(), tab.sell_vals.data_ptr(), tab.sell_off.data_ptr(), tab.row_len.data_ptr(),
+            tab.row_perm.data_ptr(), _vec(x, m, dev, "band_ell"), None if b is None else _vec(b, m, dev, "band_ell"),
+            _vec(y, m, dev, "band_ell"), m, tab.width, 0 if b is None else 1)
+    _call(dev, _library().phifem_band_ell, *args)
     launches += 1
     ell_launches += 1
     return y
 
 
 def dot_stages(n: int) -> int:
-    """Launches of one :func:`band_dots` call over ``n`` values."""
-    stages, nc = 1, -(-n // CHUNK)
-    while nc > 1:
-        nc = -(-nc // CHUNK)
-        stages += 1
-    return stages
+    """Launches of one :func:`band_dots` call over ``n`` values: one, the
+    chunk sums summed by the CTA that finishes last."""
+    return 1
 
 
 def dot_work(n: int, np_: int) -> int:
     """Values of scratch one :func:`band_dots` call of ``np_`` pairs over
-    ``n`` values needs."""
+    ``n`` values needs: the arrival counter and the chunk sums (none up to
+    CHUNK values)."""
     nc = -(-n // CHUNK)
-    return 0 if nc == 1 else np_ * (nc + -(-nc // CHUNK))
+    return 0 if nc == 1 else 1 + np_ * (nc + -(-nc // CHUNK))
+
+
+def dot_scratch(n: int, np_: int, device) -> torch.Tensor:
+    """Zeroed scratch for :func:`band_dots` calls of up to ``np_`` pairs
+    over ``n`` values: its first word is the kernel's arrival counter,
+    which must start at 0 (every launch leaves it at 0)."""
+    return torch.zeros(max(1, dot_work(n, np_)), dtype=F64, device=device)
 
 
 def band_dots(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]], out: Optional[torch.Tensor] = None,
               work: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Up to three ordered dots (see :func:`band_dots_ref`) into ``out`` (a
     contiguous float64 vector of ``len(pairs)`` values on the device, e.g. a
-    slice of the solve's scalar slots; new when None).  ``work``: scratch of
-    at least :func:`dot_work` values (allocated when None)."""
+    slice of the solve's scalar slots; new when None), in one launch.
+    ``work``: scratch from :func:`dot_scratch` of at least :func:`dot_work`
+    values (made when None)."""
     global launches, dot_launches
     q = len(pairs)
     if not 1 <= q <= 3:
@@ -364,14 +449,14 @@ def band_dots(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]], out: Optional[
     y = torch.empty(q, dtype=F64, device=dev) if out is None else out
     _vec(y, q, dev, "band_dots")
     need = dot_work(n, q)
-    if need and (work is None or work.numel() < need):
-        work = torch.empty(need, dtype=F64, device=dev)
-    if need and (work.dtype is not F64 or work.device != dev or not work.is_contiguous()):
-        raise ValueError("band_dots: work must be a contiguous float64 tensor on the vectors' device")
+    if need and work is None:
+        work = dot_scratch(n, q, dev)
+    if need and (work.dtype is not F64 or work.device != dev or not work.is_contiguous() or work.numel() < need):
+        raise ValueError(f"band_dots: work must be a contiguous float64 tensor of {need} values on the vectors' "
+                         "device")
     _call(dev, _library().phifem_band_dots, *ptrs, q, n, work.data_ptr() if need else None, y.data_ptr())
-    k = dot_stages(n)
-    launches += k
-    dot_launches += k
+    launches += 1
+    dot_launches += 1
     return y
 
 
@@ -418,7 +503,7 @@ def _bicgstab(ops, tab: BandTables, rb: torch.Tensor, sweeps: int) -> torch.Tens
         return xb
     p, v, s, t, ph, sh, rbuf = (torch.empty_like(rb) for _ in range(7))
     sc = rb.new_zeros(SLOTS)
-    work = rb.new_empty(max(1, dot_work(m, 2)))
+    work = dot_scratch(m, 2, rb.device)
     r = rb
     dots([(r, r), (rb, r)], sc[RR : RHO_NEW + 1], work)
     for i in range(int(sweeps)):
@@ -443,8 +528,8 @@ def band_bicgstab(tab: BandTables, rb: torch.Tensor, sweeps: int) -> torch.Tenso
     no host read; divisions guarded (``|d| > 1e-300``), the BEST iterate (the
     smallest finite ``||r||^2`` seen, ``rb`` itself to start) returned.  The
     JAX package's ``_band_bicgstab`` with float64 dots summed by a fixed
-    tree.  Per sweep: 2 RAS, 2 ELL, 3 dots (one launch each up to CHUNK
-    values, two up to CHUNK^2) and 3 updates; one select after the last."""
+    tree.  Per sweep: 2 RAS, 2 ELL, 3 dots and 3 updates, one launch each
+    (10); one select after the last."""
     return _bicgstab((band_ras, band_ell, band_dots, band_update), tab, rb, sweeps)
 
 
@@ -477,8 +562,8 @@ def band_richardson_ref(tab: BandTables, rb: torch.Tensor, sweeps: int, omega: f
 
 
 # ------------------------------------------------------------ the library
-#: the library's three entry points, the current raw stream of a device and
-#: the current device, bound at the first launch
+#: the library, the current raw stream of a device and the current device,
+#: bound at the first launch
 _LAUNCH = {}
 
 
@@ -499,16 +584,17 @@ def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build()["path"])
     vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib.phifem_band_ras.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, cd, ci, vp]
+    lib.phifem_band_ell.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
     lib.phifem_band_dots.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, vp, vp, vp]
     lib.phifem_band_update.argtypes = [ci, ci, ci, vp] + [vp] * 10 + [vp]
-    for fn in (lib.phifem_band_ras, lib.phifem_band_dots, lib.phifem_band_update):
+    for fn in (lib.phifem_band_ras, lib.phifem_band_ell, lib.phifem_band_dots, lib.phifem_band_update):
         fn.restype = ci
     lib.phifem_band_error_string.argtypes = [ci]
     lib.phifem_band_error_string.restype = ctypes.c_char_p
-    for name in ("phifem_band_threads", "phifem_band_chunk", "phifem_band_slots"):
+    for name in ("phifem_band_threads", "phifem_band_chunk", "phifem_band_slots", "phifem_band_slice"):
         getattr(lib, name).restype = ci
-    got = (lib.phifem_band_threads(), lib.phifem_band_chunk(), lib.phifem_band_slots())
-    if got != (THREADS, CHUNK, SLOTS):
-        raise RuntimeError(f"cuda_band: the library's CTA size, chunk and slots {got} are not "
-                           f"{(THREADS, CHUNK, SLOTS)}")
+    got = (lib.phifem_band_threads(), lib.phifem_band_chunk(), lib.phifem_band_slots(), lib.phifem_band_slice())
+    if got != (THREADS, CHUNK, SLOTS, SLICE):
+        raise RuntimeError(f"cuda_band: the library's CTA size, chunk, slots and slice {got} are not "
+                           f"{(THREADS, CHUNK, SLOTS, SLICE)}")
     return lib

@@ -19,12 +19,16 @@ summation order only; the plain inner solve against JAX's
 float64 inside ``phifem_tpu.mg``) 1e-12 at 1 and 3 sweeps and 1e-10 at the
 band's default count (the fixed-sweep Krylov solve amplifies rounding),
 and against the former form 1e-13 / 1e-12 (all measured at least 15x
-inside).  On the card (marker ``cuda``) each kernel, the ELL product and
-whole inner solves are ``torch.equal`` to their plain versions at K = 6, 8
-and 27.
+inside).  The band matrix's sliced table holds each of JAX's ELL rows in its
+order, and its plain product equals the former padded ascending sum bit for
+bit (``tests/test_torch_band_ell.py`` does the same on synthetic bands).  On
+the card (marker ``cuda``) each kernel, the ELL product and whole inner
+solves (10 launches a sweep) are ``torch.equal`` to their plain versions at
+K = 6, 8 and 27.
 """
 
 import contextlib
+import dataclasses
 
 import numpy as np
 import pytest
@@ -34,6 +38,7 @@ import phifem_tpu_torch as pt
 from phifem_tpu_torch.mg import VCycle, attach_interface_solve
 from phifem_tpu_torch.ops import cuda_band as cb
 from phifem_tpu_torch.solvers import masked_operator
+from test_torch_band_ell import assert_same_bits, check_layout, padded_product
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 SEED = 0
@@ -53,8 +58,9 @@ def tables_np(tab: cb.BandTables) -> dict:
     m = owner.shape[0]
     slot = np.arange(nb * K).reshape(nb, K)
     own = (ids < m) & (np.concatenate([owner, [-1]])[np.minimum(ids, m)] == slot)
+    cols, vals = tab.ell_rows()
     return dict(schwarz_ids=ids, schwarz_inv=tab.inv.numpy(), schwarz_own=own, band_ids=np.arange(m),
-                band_ell_cols=tab.ell_cols.T.long().numpy(), band_ell_vals=tab.ell_vals.T.numpy())
+                band_ell_cols=cols.numpy(), band_ell_vals=vals.numpy())
 
 
 def synthetic(m: int, nb: int, K: int, w: int, seed: int = SEED, device="cpu") -> cb.BandTables:
@@ -97,7 +103,7 @@ def old_ops(tab: cb.BandTables):
     """The port's former band product (``.sum`` over the (m, nnz) rows) and
     RAS apply (``einsum`` over every block entry, then the owner gather), on
     the row-major tables they read."""
-    vals, cols = tab.ell_vals.T.contiguous(), tab.ell_cols.T.long().contiguous()
+    cols, vals = (t.to(tab.inv.device) for t in tab.ell_rows())
     inv, ids, owner = tab.inv, tab.ids.long(), tab.owner.long()
 
     def mv(v):
@@ -212,7 +218,7 @@ def _s1_band():
                                      **{k: np.asarray(getattr(vj, k)) for k in names})
     n_flat = sum(vj._flat_meta[2])
     ops = jax_ops(lambda: vj._band_correct_flat(jnp.zeros(n_flat), jnp.zeros(n_flat)))
-    return vt.band_tables, ops, int(vj.schwarz_sweeps)
+    return vt.band_tables, ops, int(vj.schwarz_sweeps), (np.asarray(vj.band_ell_cols), np.asarray(vj.band_ell_vals))
 
 
 def _neumann3_band():
@@ -241,7 +247,8 @@ def _neumann3_band():
         VCycle([], ()), (["u"], [(len(ids),)], [len(ids)]), device="cpu", schwarz_ids=np.asarray(cm["bids"]),
         schwarz_inv=np.asarray(cm["binv"]), schwarz_own=np.asarray(cm["own"]), band_ids=np.arange(len(ids)),
         band_ell_cols=np.asarray(cv["ecols"]), band_ell_vals=np.asarray(cv["evals"]))
-    return vt.band_tables, (mv, M), max(10, int(0.3 * len(ids) ** 0.5))
+    host = (np.asarray(cv["ecols"]), np.asarray(cv["evals"]))
+    return vt.band_tables, (mv, M), max(10, int(0.3 * len(ids) ** 0.5)), host
 
 
 def _tet_band():
@@ -250,12 +257,12 @@ def _tet_band():
     s = pt.WeakDirichletPoissonU(m, mode="bg").setup(lambda x: (x**2).sum(-1) - 0.61**2, lambda x: 3 * u(x), u_D=u)
     s.assemble()
     vc = attach_interface_solve(VCycle([], ()), s.op, masked_operator(s.op)[2], kind="schwarz")
-    return vc.band_tables, jax_vcycle_ops(tables_np(vc.band_tables)), vc.schwarz_sweeps
+    return vc.band_tables, jax_vcycle_ops(tables_np(vc.band_tables)), vc.schwarz_sweeps, None
 
 
 def _synthetic_band():
     tab = synthetic(1500, 700, 6, 9, seed=SEED + 1)
-    return tab, jax_vcycle_ops(tables_np(tab)), 12
+    return tab, jax_vcycle_ops(tables_np(tab)), 12, None
 
 
 BANDS = {"s1_flower_n40": _s1_band, "neumann3_n8": _neumann3_band, "tet_n6": _tet_band,
@@ -281,11 +288,39 @@ def _vec(m: int, seed: int) -> np.ndarray:
 
 # ------------------------------------------------- the operations
 def test_tables(band):
-    tab, _, sweeps = band
-    assert tab.ell_cols.dtype == tab.ids.dtype == tab.owner.dtype == torch.int32
-    assert tab.ell_cols.shape == tab.ell_vals.shape and tab.ell_cols.shape[1] == tab.m
+    tab, _, sweeps, _ = band
+    assert tab.sell_cols.dtype == tab.row_len.dtype == tab.ids.dtype == tab.owner.dtype == torch.int32
+    assert tab.sell_cols.shape == tab.sell_vals.shape and tab.row_len.shape == (tab.m,)
     assert tab.inv.shape == (tab.nb, tab.K, tab.K) and tab.m > 0 and sweeps >= 10
-    assert int(tab.ell_cols.max()) <= tab.m and int(tab.ids.max()) <= tab.m
+    assert int(tab.sell_cols.max()) <= tab.m and int(tab.ids.max()) <= tab.m
+    assert 1 <= int(tab.row_len.max()) <= tab.width
+
+
+def test_sliced_table_holds_the_rows(band):
+    """The sliced table holds each row of the host table the band was built
+    from (JAX's for the S1 and Neumann bands, carried across; the port's,
+    read back, for the others) in its order, each slice as wide as its
+    longest row; the host table comes back from it."""
+    tab, _, _, host = band
+    cols, vals = (t.numpy() for t in tab.ell_rows())
+    if host is not None:
+        np.testing.assert_array_equal(cols, host[0])
+        np.testing.assert_array_equal(vals, host[1])
+    check_layout(tab, cols, vals)
+    again = cb.band_tables(tab.ids, tab.inv, tab.owner, cols, vals, "cpu")
+    for name in ("sell_cols", "sell_vals", "sell_off", "row_len", "row_perm"):
+        assert torch.equal(getattr(again, name), getattr(tab, name)), name
+
+
+def test_plain_product_equals_the_padded_sum(band):
+    """The plain product on the sliced table against the former plain
+    version on the padded slot-major table, bit for bit (sign of zero
+    included), both modes."""
+    tab = band[0]
+    cols, vals = tab.ell_rows()
+    x, b = torch.as_tensor(_vec(tab.m, 14)), torch.as_tensor(_vec(tab.m, 15))
+    assert_same_bits(cb.band_ell_ref(tab, x), padded_product(cols, vals, x))
+    assert_same_bits(cb.band_ell_ref(tab, x, b=b), padded_product(cols, vals, x, b))
 
 
 def test_ras_and_ell_match_jax(band):
@@ -293,7 +328,7 @@ def test_ras_and_ell_match_jax(band):
     tables: 1e-13; against the former plain forms: 1e-13."""
     import jax.numpy as jnp
 
-    tab, (mv_j, ras_j), _ = band
+    tab, (mv_j, ras_j), _, _ = band
     x = _vec(tab.m, 1)
     xt = torch.as_tensor(x)
     mv_o, ras_o = old_ops(tab)
@@ -331,7 +366,7 @@ def test_inner_solve_matches_jax(band, sweeps):
     band's default count; against the former port form 1e-13 / 1e-12."""
     import jax.numpy as jnp
 
-    tab, (mv_j, ras_j), default = band
+    tab, (mv_j, ras_j), default, _ = band
     n = default if sweeps is None else sweeps
     rb = _vec(tab.m, 5)
     e = cb.band_bicgstab(tab, torch.as_tensor(rb), n)
@@ -372,13 +407,12 @@ def test_edge_cases_of_the_tables():
     # a pad id contributes nothing: zeroing that column of the inverse
     inv = tab.inv.clone()
     inv[0, :, -1] = 0.0
-    assert torch.equal(cb.band_ras_ref(tab, x), cb.band_ras_ref(
-        cb.BandTables(inv, tab.ids, tab.owner, tab.ell_cols, tab.ell_vals, tab.lanes), x))
+    assert torch.equal(cb.band_ras_ref(tab, x), cb.band_ras_ref(dataclasses.replace(tab, inv=inv), x))
     for n in (1, 255, 1023, 1024, 1025, 3 * cb.CHUNK + 17):
         a, b = _vec(n, n), _vec(n, n + 1)
         got = float(cb.band_dots_ref([(torch.as_tensor(a), torch.as_tensor(b))])[0])
         assert abs(got - float(a @ b)) <= 1e-13 * float(np.abs(a * b).sum()), n
-        assert cb.dot_stages(n) == (1 if n <= cb.CHUNK else 2)
+        assert cb.dot_stages(n) == 1
 
 
 def test_dot_tree_is_the_halving_tree():
@@ -420,20 +454,21 @@ def test_band_tables_are_counted_and_checked():
     """Every band built adds one to ``tables_built``, through
     ``band_tables`` or the carried-across tables of
     ``interface_tables_from_numpy``; the tables are int32 and float64 on the
-    device asked for, the band matrix slot-major; bad shapes raise."""
+    device asked for, the band matrix a sliced table; bad shapes raise."""
     from phifem_tpu_torch.utils.convert import interface_tables_from_numpy
 
     built = cb.tables_built
     tab = synthetic(300, 120, 8, 6)
     assert cb.tables_built == built + 1
-    assert (tab.ids.dtype, tab.owner.dtype, tab.ell_cols.dtype) == (torch.int32,) * 3
-    assert tab.inv.dtype == tab.ell_vals.dtype == torch.float64 and tab.ell_cols.shape == (6, 300)
+    assert (tab.ids.dtype, tab.owner.dtype, tab.sell_cols.dtype, tab.row_len.dtype) == (torch.int32,) * 4
+    assert tab.inv.dtype == tab.sell_vals.dtype == torch.float64 and tab.sell_off.dtype == torch.int64
+    assert tab.width == 6 and tab.sell_off.shape == (-(-300 // cb.SLICE) + 1,)
     vt = interface_tables_from_numpy(VCycle([], ()), (["u"], [(300,)], [300]), device="cpu", **tables_np(tab))
     assert cb.tables_built == built + 2
-    for name in ("inv", "ids", "owner", "ell_cols", "ell_vals"):
+    for name in ("inv", "ids", "owner", "sell_cols", "sell_vals", "sell_off", "row_len", "row_perm"):
         assert torch.equal(getattr(vt.band_tables, name), getattr(tab, name)), name
     with pytest.raises(ValueError, match="inconsistent"):
-        cb.band_tables(tab.ids, tab.inv[:, :4], tab.owner, tab.ell_cols.T, tab.ell_vals.T, "cpu")
+        cb.band_tables(tab.ids, tab.inv[:, :4], tab.owner, *tab.ell_rows(), "cpu")
 
 
 def test_wrappers_dispatch_on_the_device():
@@ -514,7 +549,7 @@ def test_kernels_equal_plain_versions(cuda, case):
         before = cb.dot_launches
         y = cb.band_dots(pairs)
         torch.cuda.synchronize()
-        assert cb.dot_launches == before + cb.dot_stages(m)
+        assert cb.dot_launches == before + 1
         assert torch.equal(y, cb.band_dots_ref(pairs)), q
 
 
@@ -528,7 +563,6 @@ def test_inner_solves_equal_plain_versions(cuda, case):
         before = cb.launches
         e = cb.band_bicgstab(tab, rb, sweeps)
         torch.cuda.synchronize()
-        per_sweep = 7 + 3 * cb.dot_stages(m)
-        assert cb.launches - before == cb.dot_stages(m) + sweeps * per_sweep + 1
+        assert cb.launches - before == 1 + sweeps * 10 + 1  # the first dots, 10 a sweep, the select
         assert torch.equal(e, cb.band_bicgstab_ref(tab, rb, sweeps)), sweeps
     assert torch.equal(cb.band_richardson(tab, rb, 6, 0.8), cb.band_richardson_ref(tab, rb, 6, 0.8))

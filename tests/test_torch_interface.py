@@ -64,10 +64,11 @@ def test_data_dependent_selection(s1):
 
 def _port_table(vt, name):
     """The port's copy of the JAX package's table ``name``: the Schwarz
-    tables live in ``vt.band_tables``, the band matrix slot-major there."""
+    tables live in ``vt.band_tables``, the band matrix a sliced table there,
+    read back row-major."""
     tab = vt.band_tables
     views = {"schwarz_ids": lambda: tab.ids, "schwarz_inv": lambda: tab.inv,
-             "band_ell_cols": lambda: tab.ell_cols.T, "band_ell_vals": lambda: tab.ell_vals.T}
+             "band_ell_cols": lambda: tab.ell_rows()[0], "band_ell_vals": lambda: tab.ell_rows()[1]}
     return views[name]() if name in views else getattr(vt, name)
 
 
