@@ -137,13 +137,13 @@ assemble -> solve:
   bytes moved between shards per iteration printed;
 * the interface band solve (``ops.cuda_band``, every Schwarz band of every
   path above): on the bands the S1 n=3200, Q1 n=128, S5-3D n=24 and S1-U
-  n=800 paths build, the RAS kernel (three modes), the band's ELL product
-  on the AMG kernel (apply and residual), the dot kernel (one to three
-  pairs), every update mode and one whole inner solve ``torch.equal`` to
-  their plain versions, the launches per inner sweep (at most 16), each
-  kernel timed beside its bound, its plain version and the PyTorch call
-  for the same function; every path that builds a Schwarz band launches
-  all four, every other path none.
+  n=800 paths build, the RAS kernel (three modes, and RAS+P / RAS+S with a
+  BiCGStab step folded in), the band's sliced-ELL product (apply and
+  residual), the dot kernel (one to three pairs), the XR and SEL updates
+  and one whole inner solve ``torch.equal`` to their plain versions, 8
+  launches an inner sweep, each kernel timed beside its bound, its plain
+  version and the PyTorch call for the same function; every path that
+  builds a Schwarz band launches all four, every other path none.
 
 Every check raises; the script exits non-zero without a result when there
 is no card or no checkout.  The line before the last is a JSON record of
@@ -1017,11 +1017,13 @@ BAND_U = {}
 # profiler name, source, the JAX loop it replaces)
 BAND_KERNELS = (
     ("band_ras", "band_ras_kernel", "phifem_tpu_torch/csrc/band_solve.cu",
-     "phifem_tpu/mg.py:389-398 (band_ras in VCycle._band_correct_flat; XLA-fused, not a Pallas kernel)"),
+     "phifem_tpu/mg.py:389-398 (band_ras in VCycle._band_correct_flat, with the P and S updates of "
+     "_band_bicgstab :85-139 folded in; XLA-fused, not a Pallas kernel)"),
     ("band_dots", "band_dots_kernel", "phifem_tpu_torch/csrc/band_solve.cu",
      "phifem_tpu/mg.py:85-139 (the dots of _band_bicgstab; XLA-fused, not a Pallas kernel)"),
     ("band_update", "band_update_kernel", "phifem_tpu_torch/csrc/band_solve.cu",
-     "phifem_tpu/mg.py:85-139 (the vector updates of _band_bicgstab; XLA-fused, not a Pallas kernel)"),
+     "phifem_tpu/mg.py:85-139 (the vector updates of _band_bicgstab: XR and the last select here, P and S folded "
+     "into the RAS launches; XLA-fused, not a Pallas kernel)"),
     ("band_ell", "band_ell_kernel", "phifem_tpu_torch/csrc/band_solve.cu",
      "phifem_tpu/mg.py:383-387 (band_mv; XLA-fused, not a Pallas kernel)"),
 )
@@ -1044,29 +1046,64 @@ def _band_read() -> dict:
 
 
 def _band_update_state(m: int, rng) -> dict:
-    """Vectors and scalar slots for one call of each update mode: rr below
-    the best residual of slot 0 and above that of slot 1, so that the
-    select takes x at sweep 0 and keeps xb at sweep 1."""
+    """Vectors and scalar slots for one call of each fused step and update
+    mode: rr below the best residual of slot 0 and above that of slot 1,
+    so that the select takes x after sweep 0 and keeps xb after sweep 1."""
     cb = _band_mod()
     st = {k: torch.as_tensor(rng.standard_normal(m), device=DEVICE)
-          for k in ("r", "p", "v", "s", "t", "x", "ph", "sh", "xb", "rout")}
+          for k in ("r", "p", "v", "s", "t", "x", "ph", "sh", "xb", "rout", "pout")}
     sc = torch.as_tensor(0.5 + rng.random(cb.SLOTS), device=DEVICE)
     sc[cb.RR], sc[cb.RRB0], sc[cb.RRB1] = 0.5, 1.0, 0.25
     return {"sc": sc, **st}
 
 
+# the fused steps' arguments after the band tables, and how many launches
+# an inner sweep takes: RAS+P, ELL, dots, RAS+S, ELL, dots, XR, dots
+RAS_P_ARGS = ("sc", "r", "p", "v", "x", "xb", "pout", "ph")
+RAS_S_ARGS = ("sc", "r", "v", "s", "sh")
+BAND_SWEEP_LAUNCHES = 8
+
+
+def _hold_band_steps(label: str, tab, rng) -> None:
+    """The fused RAS+P (sweeps 0-2) and RAS+S launches and the XR / SEL
+    updates, each ``torch.equal`` to its plain version (the plain update,
+    then the plain RAS apply) on every vector and scalar slot."""
+    cb = _band_mod()
+    m = tab.m
+    steps = [(f"RAS+P sweep {j}", lambda st, j=j: cb.band_ras_p(tab, j, *(st[k] for k in RAS_P_ARGS)),
+              lambda st, j=j: cb.band_ras_p_ref(tab, j, *(st[k] for k in RAS_P_ARGS))) for j in (0, 1, 2)]
+    steps.append(("RAS+S", lambda st: cb.band_ras_s(tab, *(st[k] for k in RAS_S_ARGS)),
+                  lambda st: cb.band_ras_s_ref(tab, *(st[k] for k in RAS_S_ARGS))))
+    for mode, sweep in ((cb.XR, 1), (cb.SEL, 0), (cb.SEL, 1)):
+        names = cb.MODE_VECS[mode]
+        steps.append((f"update {'XR' if mode == cb.XR else 'SEL'} sweep {sweep}",
+                      lambda st, mode=mode, sweep=sweep, names=names: cb.band_update(
+                          mode, sweep, st["sc"], **{k: st[k] for k in names}),
+                      lambda st, mode=mode, sweep=sweep, names=names: cb.band_update_ref(
+                          mode, sweep, st["sc"], **{k: st[k] for k in names})))
+    for name, kernel, plain in steps:
+        st = _band_update_state(m, rng)
+        ref = {k: v.clone() for k, v in st.items()}
+        kernel(st)
+        plain(ref)
+        bad = [k for k in st if not torch.equal(st[k], ref[k])]
+        if bad:
+            raise AssertionError(f"{label}: the {name} kernel differs from its plain version in {bad}")
+
+
 def _hold_band(label: str, tab, sweeps: int, timed: bool = False) -> None:
     """The band solve's kernels on a band the path built (after the path's
-    counts are read): the RAS apply in its three modes, the ELL product
-    (apply and residual), the dots of one to three pairs, every update mode
-    and one whole inner solve (and 4 Richardson sweeps), each ``torch.equal``
-    to its plain version; launches per inner sweep.  With ``timed``, each
-    kernel timed per call by CUDA events, its device ms per launch, the
-    wrapper's host ms per call, the plain version, the bound (each input
-    once, each output once over the memory rate) and the one PyTorch call
-    where there is one, and one inner solve, kept in BAND_TIMES[label]
-    (the main path's band here; ``scripts/tune_torch_band.py`` times every
-    band)."""
+    counts are read): the RAS apply in its three modes, the fused RAS+P and
+    RAS+S launches, the ELL product (apply and residual), the dots of one
+    to three pairs, the XR and SEL updates and one whole inner solve (and 4
+    Richardson sweeps), each ``torch.equal`` to its plain version; launches
+    per inner sweep (8).  With ``timed``, each kernel timed per call by
+    CUDA events, its device ms per launch, the wrapper's host ms per call,
+    the plain version, the bound (each input once, each output once over
+    the memory rate) and the one PyTorch call where there is one, the fused
+    launches beside the RAS apply alone, and one inner solve, kept in
+    BAND_TIMES[label] (the main path's band here;
+    ``scripts/tune_torch_band.py`` times every band)."""
     cb = _band_mod()
     f64 = torch.float64
     m, nb, K = tab.m, tab.nb, tab.K
@@ -1080,10 +1117,12 @@ def _hold_band(label: str, tab, sweeps: int, timed: bool = False) -> None:
     nnz = int(tab.row_len.sum())
     stored, slices = tab.sell_cols.numel(), tab.sell_off.numel() - 1
     ras_bytes = n_own * K * 8 + n_blk * K * 4 + m * (4 + 8 + 8)
+    layout_bytes = m * K * 12 + m * (8 + 8)
     print(f"[{label} band] m={m}, nb={nb} blocks of K={K} ({n_own} owned DoFs in {n_blk} blocks), {sweeps} inner "
-          f"sweeps; the RAS apply reads {ras_bytes / 1e6:.3f} MB (one row of K a DoF; x, owner, y), the whole block "
-          f"table {nb * K * K * 8 / 1e6:.3f} MB; ELL: host width {w}, {nnz} nonzeros, {slices} slices of "
-          f"{cb.SLICE} rows holding {stored} slots ({1 - nnz / max(stored, 1):.1%} of them padding, never read; the "
+          f"sweeps; the RAS apply must read {ras_bytes / 1e6:.3f} MB (one row of K a DoF, its block's ids once; x, "
+          f"owner, y), its slot-major table layout reads {layout_bytes / 1e6:.3f} MB (K values and ids a DoF; x, y), "
+          f"the whole block table {nb * K * K * 8 / 1e6:.3f} MB; ELL: host width {w}, {nnz} nonzeros, {slices} slices "
+          f"of {cb.SLICE} rows holding {stored} slots ({1 - nnz / max(stored, 1):.1%} of them padding, never read; the "
           f"padded (m, w) table {m * w} slots, {1 - nnz / (m * w):.1%} padding), {stored * 12 / 1e6:.1f} MB on "
           f"the card")
 
@@ -1099,16 +1138,7 @@ def _hold_band(label: str, tab, sweeps: int, timed: bool = False) -> None:
         pairs = [(x, c), (c, c), (x, x)][:q]
         if not torch.equal(cb.band_dots(pairs), cb.band_dots_ref(pairs)):
             raise AssertionError(f"{label}: the dot kernel ({q} pairs) differs from its plain version")
-    for mode, sweep in ((cb.P, 0), (cb.P, 1), (cb.P, 2), (cb.S, 1), (cb.XR, 1), (cb.SEL, 3)):
-        st = _band_update_state(m, rng)
-        ref = {k: v.clone() for k, v in st.items()}
-        vecs = {k: st[k] for k in cb.MODE_VECS[mode]}
-        cb.band_update(mode, sweep, st["sc"], **vecs)
-        cb.band_update_ref(mode, sweep, ref["sc"], **{k: ref[k] for k in cb.MODE_VECS[mode]})
-        bad = [k for k in st if not torch.equal(st[k], ref[k])]
-        if bad:
-            raise AssertionError(f"{label}: the update kernel (mode {mode}, sweep {sweep}) differs from its plain "
-                                 f"version in {bad}")
+    _hold_band_steps(label, tab, rng)
     rb = vec()
     n0 = cb.launches
     e = cb.band_bicgstab(tab, rb, sweeps)
@@ -1119,11 +1149,12 @@ def _hold_band(label: str, tab, sweeps: int, timed: bool = False) -> None:
         raise AssertionError(f"{label}: the inner solve on the kernels differs from its plain version")
     if not torch.equal(cb.band_richardson(tab, rb, 4, 0.8), cb.band_richardson_ref(tab, rb, 4, 0.8)):
         raise AssertionError(f"{label}: the Richardson inner solve on the kernels differs from its plain version")
-    print(f"[{label} band] every kernel, mode and the whole inner solve ({sweeps} sweeps, |e| max "
+    print(f"[{label} band] every kernel, mode, fused step and the whole inner solve ({sweeps} sweeps, |e| max "
           f"{float(e.abs().max()):.3e}) torch.equal to their plain versions ({time.perf_counter() - t0:.1f} s); "
-          f"{launches} launches a solve, {per_sweep:g} an inner sweep (10: 2 RAS, 2 ELL, 3 dots, 3 updates)")
-    if per_sweep != 10:
-        raise AssertionError(f"{label}: {per_sweep} launches an inner sweep, not 10")
+          f"{launches} launches a solve, {per_sweep:g} an inner sweep ({BAND_SWEEP_LAUNCHES}: RAS+P, ELL, dots, "
+          "RAS+S, ELL, dots, XR, dots)")
+    if per_sweep != BAND_SWEEP_LAUNCHES:
+        raise AssertionError(f"{label}: {per_sweep} launches an inner sweep, not {BAND_SWEEP_LAUNCHES}")
     # how far the fixed sweeps take the inner solve: the true relative
     # residual of its best iterate, at the default sweeps and twice and
     # four times as many (reported: a solve stopped far from convergence
@@ -1139,7 +1170,8 @@ def _hold_band(label: str, tab, sweeps: int, timed: bool = False) -> None:
 
     # times
     zero = x.new_zeros(1)
-    ids64, owner64 = tab.ids.long(), tab.owner.long()
+    # the block table on the card for the einsum (no kernel reads it)
+    inv, ids64, owner64 = tab.inv.to(DEVICE), tab.ids.to(DEVICE).long(), tab.owner.to(DEVICE).long()
     # the band matrix padded and slot-major, the AMG kernel's layout: the
     # former route's input, and CSR for torch.mv
     pc, pv = (t.T.contiguous().to(DEVICE) for t in tab.ell_rows())
@@ -1151,11 +1183,19 @@ def _hold_band(label: str, tab, sweeps: int, timed: bool = False) -> None:
     work = cb.dot_scratch(m, 2, DEVICE)
     out = torch.empty(2, dtype=f64, device=DEVICE)
     y = torch.empty(m, dtype=f64, device=DEVICE)
+    ras_p = lambda: cb.band_ras_p(tab, 1, *(sc[k] for k in RAS_P_ARGS))
+    ras_s = lambda: cb.band_ras_s(tab, *(sc[k] for k in RAS_S_ARGS))
     cases = {
         "band_ras": (lambda: cb.band_ras(tab, x, y), lambda: cb.band_ras_ref(tab, x, y),
-                     lambda: torch.cat([torch.einsum("bkl,bl->bk", tab.inv, torch.cat([x, zero])[ids64]).reshape(-1),
+                     lambda: torch.cat([torch.einsum("bkl,bl->bk", inv, torch.cat([x, zero])[ids64]).reshape(-1),
                                         zero])[owner64],
                      _bound(ras_bytes, 2 * K * n_own, f64), "einsum over every block entry + the owner gather"),
+        # RAS+P: the RAS apply's bytes and p, v read, the new p written
+        # (the select at sweep 1 keeps xb here); RAS+S: v read, s written
+        "band_ras_p": (ras_p, lambda: cb.band_ras_p_ref(tab, 1, *(sc[k] for k in RAS_P_ARGS)), None,
+                       _bound(ras_bytes + 3 * m * 8, 2 * K * n_own + 4 * m, f64), None),
+        "band_ras_s": (ras_s, lambda: cb.band_ras_s_ref(tab, *(sc[k] for k in RAS_S_ARGS)), None,
+                       _bound(ras_bytes + 2 * m * 8, 2 * K * n_own + 2 * m, f64), None),
         "band_ell": (lambda: cb.band_ell(tab, x, y), lambda: cb.band_ell_ref(tab, x, y), lambda: torch.mv(A, x),
                      _ell_bound(_amg().APPLY, nnz, m, m, f64)[:2], "torch.mv of the band matrix as CUDA CSR"),
         "band_dots": (lambda: cb.band_dots([(t, s_), (t, t)], out, work), lambda: cb.band_dots_ref([(t, s_), (t, t)]),
@@ -1165,9 +1205,10 @@ def _hold_band(label: str, tab, sweeps: int, timed: bool = False) -> None:
                         lambda: cb.band_update_ref(cb.XR, 1, sc["sc"], **xr), None,
                         _bound(7 * m * 8, 6 * m, f64), None),
     }
+    kernel_of = {**{n: k for n, k, _, _ in BAND_KERNELS}, "band_ras_p": "band_ras_kernel", "band_ras_s": "band_ras_kernel"}
     times = {}
     for name, (fn, plain, lib, (bound, by), lib_name) in cases.items():
-        kname = next(k for n, k, _, _ in BAND_KERNELS if n == name)
+        kname = kernel_of[name]
         tt = {"ms": _event_ms(fn, BAND_REPS), "device_ms": _device_ms(fn, BAND_REPS, kname),
               "host_ms": _host_ms(fn, BAND_REPS), "plain_ms": _event_ms(plain, BAND_REPS), "bound_ms": bound,
               "bound_by": by, "library_ms": None if lib is None else _event_ms(lib, BAND_REPS)}
@@ -1177,6 +1218,15 @@ def _hold_band(label: str, tab, sweeps: int, timed: bool = False) -> None:
               + f", host {tt['host_ms']:.4f} ms a call; plain {tt['plain_ms']:.4f} ms; bound {bound:.4f} ms by {by} "
               f"({bound / tt['device_ms']:.1%} of it by device time)"
               + ("" if lib is None else f"; {lib_name} {tt['library_ms']:.4f} ms"))
+    tr = times["band_ras"]
+    tr["layout_bound_ms"] = _bound(layout_bytes, 2 * K * m, f64)[0]
+    tr["fused"] = {k: {q: times[k][q] for q in ("ms", "device_ms", "host_ms", "bound_ms")}
+                   for k in ("band_ras_p", "band_ras_s")}
+    print(f"[{label} band] the RAS table's own bytes bound {tr['layout_bound_ms']:.4f} ms "
+          f"({tr['layout_bound_ms'] / tr['device_ms']:.1%} of it by device time); the fused launches beside the RAS "
+          f"apply alone, device ms a launch: RAS+P {times['band_ras_p']['device_ms']:.4f}, RAS+S "
+          f"{times['band_ras_s']['device_ms']:.4f}, RAS {tr['device_ms']:.4f}, and the XR update "
+          f"{times['band_update']['device_ms']:.4f}")
     # the former route: the AMG kernel (its lanes_for group size) on the padded
     # slot-major table; its launches here are not the V-cycle's
     ca = _amg()
@@ -1191,7 +1241,7 @@ def _hold_band(label: str, tab, sweeps: int, timed: bool = False) -> None:
     print(f"[{label} band] band_ell beside the former route, the AMG kernel on the padded (w, m) table ({lanes} lanes "
           f"a row): {te['device_ms']:.4f} against {te['former_device_ms']:.4f} ms a launch (device), "
           f"{te['ms']:.4f} against {te['former_ms']:.4f} ms a call (events); CSR torch.mv {te['library_ms']:.4f} ms")
-    del pc, pv, A
+    del pc, pv, A, inv, ids64, owner64
     solve = lambda: cb.band_bicgstab(tab, rb, sweeps)
     times["solve"] = {"ms": _event_ms(solve, 3), "host_ms": _host_ms(solve, 3),
                       "plain_ms": _event_ms(lambda: cb.band_bicgstab_ref(tab, rb, sweeps), 1), "launches": launches,
@@ -4383,6 +4433,8 @@ def _band_lines(counts: dict) -> list:
                 "shape": f"{main} band: {BAND_TIMES[main]['shape']}"}
         if name == "band_update":
             line["inner_solve"] = BAND_TIMES[main]["solve"]
+        if name == "band_ras":
+            line["layout_bound_ms"], line["fused"] = t["layout_bound_ms"], t["fused"]
         if name == "band_ell":
             line["former_route"] = {"kernel": "amg_ell_kernel (csrc/amg_ell.cu) on the padded slot-major table",
                                     **{k: t[k] for k in ("former_ms", "former_device_ms", "former_lanes")}}

@@ -20,14 +20,38 @@
 // no state is kept between launches but the solve's scalar slots and that
 // counter (back to 0 at the end of every launch), which the caller owns.
 //
-// 1. band_ras_kernel: one thread per band DoF i.  Its owner slot s = owner[i]
-//    names the block b = s / K and the row k = s % K of the one block entry
-//    that corrects it (s = nb K: none, y = 0), and
-//        acc = sum over l = 0..K-1 of inv[b, k, l] x[ids[b, l]]
-//    in ascending l (a pad id m reads 0).  So the kernel reads one row of K
-//    values per DoF, not the (nb, K, K) table of every block entry.  Modes:
-//    y = acc, y = om acc, y = c + om acc (the RAS-Richardson inner solve).
-//    Bound: device memory, K (8 + 4) bytes per DoF plus x, owner and y.
+// 1. band_ras_kernel<mode, chunk>: the RAS apply as an ELL product of width
+//    K over the m band DoFs.  Row i of the table (cuda_band.ras_table) is
+//    the one row of a block inverse that corrects DoF i, its slot l the
+//    value inv[b, k, l] and the column ids[b, l] (block b = s / K, row k =
+//    s % K of its owner slot s), stored slot-major (slot l of DoF i at l m +
+//    i), so the owner / ids indirection is resolved once on the host and
+//    a warp's loads of one slot are 32 consecutive values.  A pad id m
+//    inside a block stays a slot that reads 0; a DoF with no owner has K
+//    slots of value 0 and column m.  The sum is the plain one: acc = -0,
+//    then acc = acc + v x in ascending l, each product and add rounded on
+//    its own (-0 + p0 = p0 bit for bit, and an unowned DoF ends at +0).
+//    Modes: y = acc, y = om acc, y = c + om acc (the RAS-Richardson inner
+//    solve), and the two BiCGStab steps folded into the launch that reads
+//    their vector:
+//      P: the value gathered at a column c is the new p[c] = r[c] + beta
+//         (p[c] - omega v[c]) (sweep 0: r[c]), computed from r, the old p
+//         and v, which the launch only reads; each thread writes its own
+//         row's new p to the other of two p buffers, and y = ph; before it,
+//         the best-iterate select of the previous sweep (sweep 0: the best
+//         residual set to r.r);
+//      S: the value gathered is s[c] = r[c] - alpha v[c], alpha = rho_new /
+//         (rhat.v); each thread writes s[i] and y = sh, thread 0 alpha.
+//    Bound: device memory; chip_smoke.py counts the owned rows, their
+//    blocks' ids once a block, x, owner and y.  This layout reads m K (8 + 4)
+//    bytes of table, an int32 column per slot.  Design: one thread a row,
+//    like band_ell_kernel: a chunk of 8 slots' columns and values loaded,
+//    then their gathers, and the next chunk's loads issued before this
+//    chunk is summed, so the loads are in flight together and not one
+//    latency after another; the chunk is a template argument, so the loops
+//    over a chunk unroll.  (Chunks of 16 on K > 8 took more registers, 149
+//    in RAS+P, and were slower on the K = 16 and 27 bands on an H100:
+//    RAS+P 0.029 / 0.020-0.024 ms a launch against 0.022 / 0.013.)
 // 2. band_ell_kernel: y = A x or b - A x on the band matrix as a sliced ELL
 //    table: the rows sorted by length (longest first) within windows of a
 //    few slices, stored row p being row perm[p], then slices of kSlice = 32
@@ -66,19 +90,20 @@
 //    the function: the plain version repeats it.  Results go to device
 //    memory (no host read).  Bound: latency (a band's 2 m values are a few
 //    hundred kB), so the design spends one launch a call.
-// 4. band_update_kernel: the BiCGStab updates, one mode per launch, each
-//    thread computing the step's coefficient from the dot results in the
-//    scalar slots with the same guard |d| > 1e-300 ? d : 1e-300 and the same
-//    order of operations as the plain version:
-//      P:   p = r + beta (p - omega v), beta = (rho_new / rho)(alpha / omega),
-//           after the best-iterate select of the previous sweep (sweep 0:
-//           p = r and the best residual set to r.r);
-//      S:   alpha = rho_new / (rhat.v), s = r - alpha v;
+// 4. band_update_kernel<mode>: the BiCGStab steps no RAS launch takes, each
+//    CTA computing the step's coefficient once from the dot results in the
+//    scalar slots (thread 0, through shared memory), with the same guard
+//    |d| > 1e-300 ? d : 1e-300 and order of operations as the plain version:
 //      XR:  omega = (t.s) / (t.t), x = (x + alpha ph) + omega sh,
 //           r' = s - omega t, rho = rho_new;
 //      SEL: xb = x where rr is finite and below the best so far.
-//    The scalar a launch writes (thread 0) is never one that launch reads;
-//    the best residual alternates between two slots by sweep.
+//    A thread takes two values by 16-byte loads and stores (the vectors
+//    are 16-byte aligned: the wrapper checks).  Bound: device memory.
+//    The scalar a launch writes (CTA 0) is never one that launch reads; the
+//    best residual alternates between two slots by sweep.
+//
+// An inner BiCGStab sweep is 8 launches: RAS+P, ELL, dots, RAS+S, ELL,
+// dots, XR, dots; one SEL after the last sweep.
 //
 // Plain C interface, loaded with ctypes (phifem_tpu_torch/ops/cuda_band.py):
 // each entry point returns cudaGetLastError() after its launch.
@@ -86,11 +111,19 @@
 #include <cuda_runtime.h>
 
 #include <cmath>
+#include <cstdint>
 
 // Build constants, overridden by -D defines only in a tuning script's
 // variants (scripts/tune_torch_band.py): the slots one thread of the ELL
 // kernel loads a step on a table of width up to kWideRow (CHUNK) and wider
-// (WIDE_CHUNK), and the ELL kernel's CTA size.
+// (WIDE_CHUNK), and the ELL kernel's CTA size; the same for the RAS kernel
+// (one chunk whatever K).
+#ifndef PHIFEM_BAND_RAS_CHUNK
+#define PHIFEM_BAND_RAS_CHUNK 8
+#endif
+#ifndef PHIFEM_BAND_RAS_THREADS
+#define PHIFEM_BAND_RAS_THREADS 128
+#endif
 #ifndef PHIFEM_BAND_ELL_CHUNK
 #define PHIFEM_BAND_ELL_CHUNK 8
 #endif
@@ -104,6 +137,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kRasThreads = PHIFEM_BAND_RAS_THREADS;  // the RAS kernel's CTA
 constexpr int kPerThread = 4;
 constexpr int kChunk = kThreads * kPerThread;  // values summed by one CTA
 constexpr int kSlice = 32;                     // rows of an ELL slice: one warp
@@ -113,35 +147,125 @@ static_assert(kEllThreads % kSlice == 0, "an ELL CTA holds whole slices");
 
 // the solve's scalar slots (cuda_band.py: SLOTS)
 enum Slot { RR = 0, RHO_NEW, RV, TS, TT, RHO, ALPHA, OMEGA, RRB0, RRB1, NSLOTS };
-enum UpdateMode { MODE_P = 0, MODE_S = 1, MODE_XR = 2, MODE_SEL = 3 };
+// RAS modes (cuda_band.py: RAS_*) and update modes (cuda_band.py: XR, SEL)
+enum RasMode { RAS_APPLY = 0, RAS_SCALE = 1, RAS_ADD = 2, RAS_P = 3, RAS_S = 4 };
+enum UpdateMode { MODE_XR = 2, MODE_SEL = 3 };
 
 __device__ __forceinline__ double x_at(const double* __restrict__ x, int c, int n_x) {
   // the pad id n_x (and anything outside [0, n_x)) reads as zero
   return static_cast<unsigned>(c) < static_cast<unsigned>(n_x) ? __ldg(x + c) : 0.0;
 }
 
-__global__ void __launch_bounds__(kThreads) band_ras_kernel(const double* __restrict__ inv,
-                                                             const int* __restrict__ ids,
-                                                             const int* __restrict__ owner,
-                                                             const double* __restrict__ x, const double* c,
-                                                             double* y, int m, int K, int nslots, double om,
-                                                             int mode) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= m) return;
-  const int s = __ldg(owner + i);
-  double acc = 0.0;
-  if (static_cast<unsigned>(s) < static_cast<unsigned>(nslots)) {
-    const double* row = inv + static_cast<long long>(s) * K;
-    const int* blk = ids + static_cast<long long>(s / K) * K;
-    acc = __dmul_rn(__ldg(row), x_at(x, __ldg(blk), m));
-    for (int l = 1; l < K; ++l) acc = __dadd_rn(acc, __dmul_rn(__ldg(row + l), x_at(x, __ldg(blk + l), m)));
-  }
-  if (mode == 0) {
-    y[i] = acc;
-  } else if (mode == 1) {
-    y[i] = __dmul_rn(om, acc);
+__device__ __forceinline__ double safe(double d) { return fabs(d) > 1e-300 ? d : 1e-300; }
+
+// the best-iterate select after sweep j: reads the best residual of slot
+// RRB0 + j % 2, writes the new one to the other slot (thread 0 of CTA 0)
+__device__ __forceinline__ bool select_best(double* sc, int j, bool writer) {
+  const double rr = sc[RR];
+  const double rrb = sc[RRB0 + (j & 1)];
+  const bool better = isfinite(rr) && rr < rrb;
+  if (writer) sc[RRB0 + ((j + 1) & 1)] = better ? rr : rrb;
+  return better;
+}
+
+// The RAS launch's arguments (see phifem_band_ras).
+struct RasArgs {
+  const int* cols;     // (K, m) slot-major
+  const double* vals;  // (K, m)
+  const double* x;     // the vector applied; r in modes P and S
+  const double* p;     // P: the old p
+  const double* v;     // P, S
+  const double* c;     // ADD (may be y)
+  double* y;           // the RAS result
+  double* w;           // P: the new p; S: s
+  double* sc;          // P, S: the solve's scalar slots
+  const double* xit;   // P: the iterate x (select)
+  double* xb;          // P: the best iterate (select)
+  int m, K, sweep;
+  double om;
+};
+
+// The vector the RAS apply gathers, at column col (the pad id m, or
+// anything outside [0, m), reads 0): x itself, or in modes P and S the
+// step's new p or s, from vectors the launch only reads.  c0, c1: beta
+// and omega (P, past sweep 0), alpha (S).
+template <int MODE>
+__device__ __forceinline__ double ras_in(const RasArgs& a, int col, double c0, double c1, bool first) {
+  if (static_cast<unsigned>(col) >= static_cast<unsigned>(a.m)) return 0.0;
+  if constexpr (MODE == RAS_P) {
+    const double r = __ldg(a.x + col);
+    return first ? r : __dadd_rn(r, __dmul_rn(c0, __dsub_rn(__ldg(a.p + col), __dmul_rn(c1, __ldg(a.v + col)))));
+  } else if constexpr (MODE == RAS_S) {
+    return __dsub_rn(__ldg(a.x + col), __dmul_rn(c0, __ldg(a.v + col)));
   } else {
-    y[i] = __dadd_rn(c[i], __dmul_rn(om, acc));  // c may be y: read before the write
+    return __ldg(a.x + col);
+  }
+}
+
+template <int MODE, int CH>
+__global__ void __launch_bounds__(kRasThreads) band_ras_kernel(const RasArgs a) {
+  const int i = blockIdx.x * kRasThreads + threadIdx.x;
+  const int m = a.m, K = a.K;
+  if (i >= m) return;
+  const int* __restrict__ col = a.cols + i;
+  const double* __restrict__ val = a.vals + i;
+  int cc[CH];
+  double vv[CH];
+#pragma unroll
+  for (int j = 0; j < CH; ++j) {
+    const bool on = j < K;
+    cc[j] = on ? __ldg(col + static_cast<long long>(j) * m) : m;
+    vv[j] = on ? __ldg(val + static_cast<long long>(j) * m) : 0.0;
+  }
+  // the step's coefficients, as the plain update computes them
+  double c0 = 0.0, c1 = 0.0;
+  const bool first = MODE == RAS_P && a.sweep == 0;
+  if constexpr (MODE == RAS_P) {
+    if (!first) {
+      c1 = a.sc[OMEGA];
+      c0 = __dmul_rn(__ddiv_rn(a.sc[RHO_NEW], safe(a.sc[RHO])), __ddiv_rn(a.sc[ALPHA], safe(c1)));
+    }
+  } else if constexpr (MODE == RAS_S) {
+    c0 = __ddiv_rn(a.sc[RHO_NEW], safe(a.sc[RV]));
+  }
+  double acc = -0.0;
+  for (int k0 = 0; k0 < K; k0 += CH) {
+    double xv[CH], pv[CH];
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      xv[j] = ras_in<MODE>(a, cc[j], c0, c1, first);
+      pv[j] = vv[j];
+    }
+    // the next chunk's columns and values fly while this one is summed
+    const int k1 = k0 + CH;
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      const bool on = k1 + j < K;
+      cc[j] = on ? __ldg(col + static_cast<long long>(k1 + j) * m) : m;
+      vv[j] = on ? __ldg(val + static_cast<long long>(k1 + j) * m) : 0.0;
+    }
+    // slots past K add -0, which changes no value
+#pragma unroll
+    for (int j = 0; j < CH; ++j) acc = __dadd_rn(acc, k0 + j < K ? __dmul_rn(pv[j], xv[j]) : -0.0);
+  }
+  if constexpr (MODE == RAS_APPLY) {
+    a.y[i] = acc;
+  } else if constexpr (MODE == RAS_SCALE) {
+    a.y[i] = __dmul_rn(a.om, acc);
+  } else if constexpr (MODE == RAS_ADD) {
+    a.y[i] = __dadd_rn(a.c[i], __dmul_rn(a.om, acc));  // c may be y: read before the write
+  } else {
+    a.y[i] = acc;
+    a.w[i] = ras_in<MODE>(a, i, c0, c1, first);  // this row's new p, or s
+    if constexpr (MODE == RAS_P) {
+      if (first) {
+        if (i == 0) a.sc[RRB0] = a.sc[RR];
+      } else if (select_best(a.sc, a.sweep - 1, i == 0)) {
+        a.xb[i] = a.xit[i];
+      }
+    } else if (i == 0) {
+      a.sc[ALPHA] = c0;
+    }
   }
 }
 
@@ -323,74 +447,101 @@ void launch_dots(const double* const* a, const double* const* b, int n, double* 
   band_dots_kernel<NP><<<nc, kThreads, 0, st>>>(a[0], b[0], a[1], b[1], a[2], b[2], n, work, out);
 }
 
-__device__ __forceinline__ double safe(double d) { return fabs(d) > 1e-300 ? d : 1e-300; }
-
-// the best-iterate select after sweep j: reads the best residual of slot
-// RRB0 + j % 2, writes the new one to the other slot
-__device__ __forceinline__ void select_best(double* sc, int j, int i, int n, const double* x, double* xb) {
-  const double rr = sc[RR];
-  const double rrb = sc[RRB0 + (j & 1)];
-  const bool better = isfinite(rr) && rr < rrb;
-  if (i == 0) sc[RRB0 + ((j + 1) & 1)] = better ? rr : rrb;
-  if (better && i < n) xb[i] = x[i];
-}
-
-__global__ void __launch_bounds__(kThreads) band_update_kernel(int mode, int sweep, int n, double* sc,
-                                                               const double* r, double* p, const double* v,
-                                                               double* s, const double* t, double* x,
-                                                               const double* ph, const double* sh, double* xb,
-                                                               double* rout) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (mode == MODE_P) {
-    if (sweep == 0) {
-      if (i == 0) sc[RRB0] = sc[RR];
-      if (i < n) p[i] = r[i];
-      return;
+// XR or SEL over n values, two a thread by 16-byte loads and stores (the
+// last thread of an odd n takes one); the coefficients once a CTA.
+template <int MODE>
+__global__ void __launch_bounds__(kThreads) band_update_kernel(int sweep, int n, double* sc, double* x,
+                                                               const double* ph, const double* sh,
+                                                               const double* s, const double* t,
+                                                               double* rout, double* xb) {
+  __shared__ double coef[2];
+  __shared__ bool better;
+  if (threadIdx.x == 0) {
+    const bool writer = blockIdx.x == 0;
+    if constexpr (MODE == MODE_XR) {
+      const double omega = __ddiv_rn(sc[TS], safe(sc[TT]));
+      coef[0] = sc[ALPHA];
+      coef[1] = omega;
+      if (writer) {
+        sc[OMEGA] = omega;
+        sc[RHO] = sc[RHO_NEW];
+      }
+    } else {
+      better = select_best(sc, sweep, writer);
     }
-    select_best(sc, sweep - 1, i, n, x, xb);
-    const double omega = sc[OMEGA];
-    const double beta = __dmul_rn(__ddiv_rn(sc[RHO_NEW], safe(sc[RHO])), __ddiv_rn(sc[ALPHA], safe(omega)));
-    if (i < n) p[i] = __dadd_rn(r[i], __dmul_rn(beta, __dsub_rn(p[i], __dmul_rn(omega, v[i]))));
-  } else if (mode == MODE_S) {
-    const double alpha = __ddiv_rn(sc[RHO_NEW], safe(sc[RV]));
-    if (i == 0) sc[ALPHA] = alpha;
-    if (i < n) s[i] = __dsub_rn(r[i], __dmul_rn(alpha, v[i]));
-  } else if (mode == MODE_XR) {
-    const double alpha = sc[ALPHA];
-    const double omega = __ddiv_rn(sc[TS], safe(sc[TT]));
-    if (i == 0) {
-      sc[OMEGA] = omega;
-      sc[RHO] = sc[RHO_NEW];
-    }
-    if (i < n) {
+  }
+  __syncthreads();
+  const long long i = 2LL * (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x);
+  if (i >= n) return;
+  const bool pair = i + 1 < n;
+  if constexpr (MODE == MODE_XR) {
+    const double alpha = coef[0], omega = coef[1];
+    if (pair) {
+      double2 xv = *reinterpret_cast<const double2*>(x + i);
+      const double2 pv = *reinterpret_cast<const double2*>(ph + i);
+      const double2 hv = *reinterpret_cast<const double2*>(sh + i);
+      const double2 sv = *reinterpret_cast<const double2*>(s + i);
+      const double2 tv = *reinterpret_cast<const double2*>(t + i);
+      xv.x = __dadd_rn(__dadd_rn(xv.x, __dmul_rn(alpha, pv.x)), __dmul_rn(omega, hv.x));
+      xv.y = __dadd_rn(__dadd_rn(xv.y, __dmul_rn(alpha, pv.y)), __dmul_rn(omega, hv.y));
+      *reinterpret_cast<double2*>(x + i) = xv;
+      *reinterpret_cast<double2*>(rout + i) =
+          make_double2(__dsub_rn(sv.x, __dmul_rn(omega, tv.x)), __dsub_rn(sv.y, __dmul_rn(omega, tv.y)));
+    } else {
       x[i] = __dadd_rn(__dadd_rn(x[i], __dmul_rn(alpha, ph[i])), __dmul_rn(omega, sh[i]));
       rout[i] = __dsub_rn(s[i], __dmul_rn(omega, t[i]));
     }
-  } else {
-    select_best(sc, sweep, i, n, x, xb);
+  } else if (better) {
+    if (pair) {
+      *reinterpret_cast<double2*>(xb + i) = *reinterpret_cast<const double2*>(x + i);
+    } else {
+      xb[i] = x[i];
+    }
   }
 }
 
-dim3 grid_of(int n) { return dim3(static_cast<unsigned>((n + kThreads - 1) / kThreads)); }
+dim3 grid_of(long long n, int per_cta) { return dim3(static_cast<unsigned>((n + per_cta - 1) / per_cta)); }
+
+template <int MODE>
+void launch_ras(const RasArgs& a, cudaStream_t st) {
+  band_ras_kernel<MODE, PHIFEM_BAND_RAS_CHUNK><<<grid_of(a.m, kRasThreads), kRasThreads, 0, st>>>(a);
+}
 
 }  // namespace
 
 extern "C" {
 
-// y = RAS(x) on m band DoFs (device pointers): inv (nb, K, K) float64, ids
-// (nb, K) int32 padded with m, owner (m,) int32 (nb K: no owner), x and y (m,)
-// float64; mode 0: y = acc, 1: y = om acc, 2: y = c + om acc (c may be y).
-// Returns cudaGetLastError() (cudaErrorInvalidValue for a bad mode, m, nb or
-// K, or nb K K of 2^31 or more).
-int phifem_band_ras(const void* inv, const void* ids, const void* owner, const void* x, const void* c, void* y,
-                    int m, int nb, int K, double om, int mode, void* stream) {
-  if (mode < 0 || mode > 2 || m < 1 || nb < 1 || K < 1 || (mode == 2 && c == nullptr) ||
-      static_cast<long long>(nb) * K * K >= (1LL << 31)) {
+// The RAS apply on m band DoFs (device pointers): cols (K, m) int32 and
+// vals (K, m) float64 the slot-major table (cuda_band.ras_table), x, c, y
+// (m,) float64.  Modes 0-2: y = acc, om acc, c + om acc (c may be y).
+// Mode 3 (P) at sweep: x is r, p the old p, v, w the new p (another buffer
+// than p), y = ph, sc the NSLOTS scalar slots, xit and xb the iterate and
+// the best iterate; mode 4 (S): x is r, v, w = s, y = sh, sc.  Pointers a
+// mode does not use may be NULL.  Returns cudaGetLastError()
+// (cudaErrorInvalidValue for a bad mode, m, K or sweep, a NULL pointer the
+// mode needs, or K m of 2^31 or more).
+int phifem_band_ras(const void* cols, const void* vals, const void* x, const void* p, const void* v, const void* c,
+                    void* y, void* w, void* sc, const void* xit, void* xb, int m, int K, int sweep, double om,
+                    int mode, void* stream) {
+  const bool fused = mode == RAS_P || mode == RAS_S;
+  if (mode < RAS_APPLY || mode > RAS_S || m < 1 || K < 1 || sweep < 0 || static_cast<long long>(K) * m >= (1LL << 31) ||
+      cols == nullptr || vals == nullptr || x == nullptr || y == nullptr || (mode == RAS_ADD && c == nullptr) ||
+      (fused && (v == nullptr || w == nullptr || sc == nullptr)) ||
+      (mode == RAS_P && (p == nullptr || xit == nullptr || xb == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  band_ras_kernel<<<grid_of(m), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const double*>(inv), static_cast<const int*>(ids), static_cast<const int*>(owner),
-      static_cast<const double*>(x), static_cast<const double*>(c), static_cast<double*>(y), m, K, nb * K, om, mode);
+  const RasArgs a{static_cast<const int*>(cols), static_cast<const double*>(vals), static_cast<const double*>(x),
+                  static_cast<const double*>(p), static_cast<const double*>(v), static_cast<const double*>(c),
+                  static_cast<double*>(y), static_cast<double*>(w), static_cast<double*>(sc),
+                  static_cast<const double*>(xit), static_cast<double*>(xb), m, K, sweep, om};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case RAS_APPLY: launch_ras<RAS_APPLY>(a, st); break;
+    case RAS_SCALE: launch_ras<RAS_SCALE>(a, st); break;
+    case RAS_ADD: launch_ras<RAS_ADD>(a, st); break;
+    case RAS_P: launch_ras<RAS_P>(a, st); break;
+    default: launch_ras<RAS_S>(a, st); break;
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -456,16 +607,37 @@ int phifem_band_dots(const void* a0, const void* b0, const void* a1, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
-// One BiCGStab update (mode 0-3, see the top of this file) over n values;
-// sc holds the NSLOTS scalar slots; pointers a mode does not use may be NULL.
-int phifem_band_update(int mode, int sweep, int n, void* sc, const void* r, void* p, const void* v, void* s,
-                       const void* t, void* x, const void* ph, const void* sh, void* xb, void* rout, void* stream) {
-  if (mode < 0 || mode > 3 || n < 1 || sweep < 0 || sc == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  band_update_kernel<<<grid_of(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      mode, sweep, n, static_cast<double*>(sc), static_cast<const double*>(r), static_cast<double*>(p),
-      static_cast<const double*>(v), static_cast<double*>(s), static_cast<const double*>(t),
-      static_cast<double*>(x), static_cast<const double*>(ph), static_cast<const double*>(sh),
-      static_cast<double*>(xb), static_cast<double*>(rout));
+// One BiCGStab step outside the RAS launches over n values (device
+// pointers, 16-byte aligned): mode 2 (XR) x, ph, sh, s, t, rout; mode 3
+// (SEL) at sweep x and xb; sc the NSLOTS scalar slots.  Pointers the mode
+// does not use may be NULL.  Returns cudaGetLastError()
+// (cudaErrorInvalidValue for a bad mode, n or sweep, a NULL pointer the
+// mode needs, or a vector not 16-byte aligned).
+int phifem_band_update(int mode, int sweep, int n, void* sc, void* x, const void* ph, const void* sh, const void* s,
+                       const void* t, void* rout, void* xb, void* stream) {
+  const void* need[6] = {x, ph, sh, s, t, rout};
+  const int nneed = mode == MODE_XR ? 6 : 1;
+  bool bad = (mode != MODE_XR && mode != MODE_SEL) || n < 1 || sweep < 0 || sc == nullptr ||
+             (mode == MODE_SEL && (x == nullptr || xb == nullptr));
+  for (int k = 0; k < nneed && !bad; ++k) bad = need[k] == nullptr || reinterpret_cast<uintptr_t>(need[k]) % 16 != 0;
+  if (bad || (mode == MODE_SEL && reinterpret_cast<uintptr_t>(xb) % 16 != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid = grid_of((static_cast<long long>(n) + 1) / 2, kThreads);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  double* scd = static_cast<double*>(sc);
+  double* xd = static_cast<double*>(x);
+  const double* phd = static_cast<const double*>(ph);
+  const double* shd = static_cast<const double*>(sh);
+  const double* sd = static_cast<const double*>(s);
+  const double* td = static_cast<const double*>(t);
+  double* rd = static_cast<double*>(rout);
+  double* xbd = static_cast<double*>(xb);
+  if (mode == MODE_XR) {
+    band_update_kernel<MODE_XR><<<grid, kThreads, 0, st>>>(sweep, n, scd, xd, phd, shd, sd, td, rd, xbd);
+  } else {
+    band_update_kernel<MODE_SEL><<<grid, kThreads, 0, st>>>(sweep, n, scd, xd, phd, shd, sd, td, rd, xbd);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,10 +9,18 @@ through :func:`band_bicgstab` and :func:`band_richardson`.  The kernels
 (``phifem_tpu_torch/csrc/band_solve.cu``) are built with ``nvcc`` at first use
 (:mod:`phifem_tpu_torch.ops.nvcc_build`) and loaded with ``ctypes``:
 
-* :func:`band_ras`: the restricted additive Schwarz block apply, each band
-  DoF taking the one row of its owning block's inverse
-  (``y[i] = sum_l inv[b, k, l] x[ids[b, l]]``, ascending l), optionally
-  scaled and added to a vector;
+* :func:`band_ras`: the restricted additive Schwarz block apply as an ELL
+  product of width K over the band DoFs: each DoF takes the one row of its
+  owning block's inverse, stored with that row's K column ids slot-major
+  (``BandTables.ras_cols`` / ``ras_vals``, built by :func:`ras_table`), so
+  ``y[i] = sum_l vals[l, i] x[cols[l, i]]`` (ascending l, from -0; the pad
+  id m reads 0, an unowned DoF gives +0), optionally scaled and added to a
+  vector;
+* :func:`band_ras_p` / :func:`band_ras_s`: the same launch with a BiCGStab
+  step folded in: it gathers the new p (or s) computed from r, the old p
+  (or nothing) and v at each column it reads, writes its own row of it (p
+  into the other of two buffers) and the RAS result; P also takes the
+  previous sweep's best-iterate select, S writes alpha;
 * :func:`band_ell`: the band's ELL product ``A x`` (or ``b - A x``), one
   thread a row on the band matrix stored as a sliced ELL table (rows
   sorted by length within windows of ``WINDOW`` rows, then slices of
@@ -21,9 +29,18 @@ through :func:`band_bicgstab` and :func:`band_richardson`.  The kernels
 * :func:`band_dots`: up to three dot products in one launch, summed by a
   fixed tree (:func:`band_dots_ref` defines it), the results left on the
   device;
-* :func:`band_update`: the BiCGStab vector updates, one mode per launch,
-  their coefficients computed from the dot results in the solve's scalar
-  slots.
+* :func:`band_update`: the BiCGStab steps no RAS launch takes (XR: x and r;
+  SEL: the last best-iterate select), two values a thread, the
+  coefficients computed once a CTA from the dot results in the solve's
+  scalar slots.
+
+An inner sweep of :func:`band_bicgstab` is 8 launches: RAS+P, ELL, dots,
+RAS+S, ELL, dots, XR, dots.  On the card the loop checks and packs what is
+fixed per band (table pointers and shapes, kept on the :class:`BandTables`)
+and per solve (its vectors, the stream, the library functions) once, and
+launches without further checks; :func:`band_bicgstab_ref` is the plain
+unfused loop (P update, RAS, ..., 10 steps a sweep), which the fused one
+equals bit for bit.
 
 Everything is float64 (:data:`phifem_tpu_torch.mg.TABLE_DTYPE`).  Each
 wrapper dispatches on the tensor's device: a CPU tensor goes to the plain
@@ -31,9 +48,10 @@ version, a CUDA tensor to the kernel, anything else raises; there is no
 fallback from the card to the plain version.  Every product, quotient and
 sum is rounded on its own in the order the plain versions take, so each
 kernel, and the whole inner solve, equals its plain version bit for bit.
-``launches`` counts every kernel launch made here; ``ras_launches``,
-``ell_launches``, ``dot_launches`` and ``update_launches`` count them by
-kernel, ``tables_built`` the band table sets built.
+``launches`` counts every kernel launch made here; ``ras_launches`` (every
+RAS launch, fused or not), ``ell_launches``, ``dot_launches`` and
+``update_launches`` count them by kernel, ``tables_built`` the band table
+sets built.
 """
 
 from __future__ import annotations
@@ -53,6 +71,10 @@ __all__ = [
     "band_tables",
     "band_ras",
     "band_ras_ref",
+    "band_ras_p",
+    "band_ras_p_ref",
+    "band_ras_s",
+    "band_ras_s_ref",
     "band_ell",
     "band_ell_ref",
     "band_dots",
@@ -66,6 +88,7 @@ __all__ = [
     "dot_stages",
     "dot_work",
     "dot_scratch",
+    "ras_table",
     "build",
 ]
 
@@ -89,9 +112,12 @@ SLICE = 32
 WINDOW = 256
 F64 = torch.float64
 
-#: RAS modes: y = acc, y = om acc, y = c + om acc
-RAS_APPLY, RAS_SCALE, RAS_ADD = 0, 1, 2
-#: update modes (see ``csrc/band_solve.cu``)
+#: RAS modes: y = acc, y = om acc, y = c + om acc, and the two folded
+#: BiCGStab steps (:func:`band_ras_p`, :func:`band_ras_s`)
+RAS_APPLY, RAS_SCALE, RAS_ADD, RAS_P, RAS_S = 0, 1, 2, 3, 4
+#: BiCGStab steps (see ``csrc/band_solve.cu``): P and S run inside the RAS
+#: launches on the card (their plain versions in :func:`band_update_ref`),
+#: XR and SEL in the update kernel
 P, S, XR, SEL = 0, 1, 2, 3
 #: the solve's scalar slots: the dot results r.r, rhat.r (the next rho),
 #: rhat.v, t.s, t.t; rho, alpha, omega; the best residual, in two slots
@@ -101,21 +127,30 @@ SLOTS = 10
 TINY = 1e-300
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(frozen=True)
 class BandTables:
     """The Schwarz branch's tables as the kernels read them: ``inv`` (nb, K,
     K) block inverses, ``ids`` (nb, K) int32 compact ids padded with m,
-    ``owner`` (m,) int32 owner slots (nb K: none), and the band matrix as a
+    ``owner`` (m,) int32 owner slots (nb K: none), and from them the RAS
+    apply's table, slot-major: ``ras_cols`` (K, m) int32 and ``ras_vals``
+    (K, m) float64, column i the ids and the inverse's row of the one block
+    entry that corrects DoF i (:func:`ras_table`); the band matrix as a
     sliced ELL table: stored row p is row ``row_perm[p]`` (int32), its slot
     k at ``sell_off[p // SLICE] + SLICE k + p % SLICE`` of ``sell_cols``
     (int32) and ``sell_vals``, ``row_len`` (m,) int32 the slots of each
     stored row (its host row with the trailing pads dropped), ``sell_off``
     (ceil(m / SLICE) + 1,) int64, each slice as wide as its longest row;
-    ``width`` the host table's padded width."""
+    ``width`` the host table's padded width.  The RAS and ELL tables are on
+    the band's device (:meth:`tensors`); ``inv``, ``ids`` and ``owner``,
+    which no kernel reads, stay on the host, for tables carried back and
+    for the PyTorch call that measures the RAS apply (``einsum`` over every
+    block)."""
 
     inv: torch.Tensor
     ids: torch.Tensor
     owner: torch.Tensor
+    ras_cols: torch.Tensor
+    ras_vals: torch.Tensor
     sell_cols: torch.Tensor
     sell_vals: torch.Tensor
     sell_off: torch.Tensor
@@ -136,8 +171,40 @@ class BandTables:
         return self.ids.shape[1]
 
     def tensors(self) -> tuple:
-        return (self.inv, self.ids, self.owner, self.sell_cols, self.sell_vals, self.sell_off, self.row_len,
+        """The tables the kernels read, all on the band's device."""
+        return (self.ras_cols, self.ras_vals, self.sell_cols, self.sell_vals, self.sell_off, self.row_len,
                 self.row_perm)
+
+    @functools.cached_property
+    def packed(self) -> tuple:
+        """(device, RAS table pointers, ELL table pointers), checked once
+        per band: every table the kernels read on one device."""
+        dev = self.ras_cols.device
+        if any(t.device != dev for t in self.tensors()):
+            raise ValueError("cuda_band: the band tables are not on one device")
+        return (dev, (self.ras_cols.data_ptr(), self.ras_vals.data_ptr()),
+                tuple(t.data_ptr() for t in (self.sell_cols, self.sell_vals, self.sell_off, self.row_len,
+                                             self.row_perm)))
+
+    @functools.cached_property
+    def plain_ell(self) -> tuple:
+        """The sliced table's nonzeros regrouped for :func:`band_ell_ref`,
+        once per band: the stored rows ordered by length, longest first
+        (stable), then slot-major, slot k holding the rows longer than k.
+        (int32 columns, values, [(start, count)] by slot, the row each
+        position of that order is, whether it is shorter than the host
+        table.)"""
+        n = self.row_len.long()
+        order = torch.argsort(-n, stable=True)
+        ns = n[order]
+        width = int(ns[0]) if ns.numel() else 0
+        counts = torch.searchsorted(-ns, -torch.arange(width, device=n.device), side="left")
+        starts = torch.cumsum(counts, 0) - counts
+        k = torch.repeat_interleave(torch.arange(width, device=n.device), counts)
+        p = order[torch.arange(k.numel(), device=n.device) - starts[k]]
+        pos = self.sell_off[p // SLICE] + SLICE * k + p % SLICE
+        return (self.sell_cols[pos], self.sell_vals[pos], list(zip(starts.tolist(), counts.tolist())),
+                self.row_perm.long()[order], ns < self.width)
 
     def ell_rows(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """The band matrix row-major on the host, as :func:`band_tables`
@@ -152,6 +219,21 @@ class BandTables:
         cols[perm[p], k] = self.sell_cols.cpu()[pos].long()
         vals[perm[p], k] = self.sell_vals.cpu()[pos]
         return cols, vals
+
+
+def ras_table(ids: np.ndarray, inv: np.ndarray, owner: np.ndarray, m: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The RAS apply's slot-major table: (K, m) columns and (K, m) values,
+    column i holding ``ids[b]`` and ``inv[b, k]`` for DoF i's owner slot s
+    = b K + k (a pad id m stays in place); a DoF with no owner (s outside
+    [0, nb K)) K slots of column m and value 0."""
+    nb, K = ids.shape
+    own = (owner >= 0) & (owner < nb * K)
+    s = owner[own]
+    cols = np.full((K, m), m, np.int64)
+    vals = np.zeros((K, m))
+    cols[:, own] = ids[s // K].T
+    vals[:, own] = inv[s // K, s % K].T
+    return cols, vals
 
 
 def sliced_ell(cols: np.ndarray, vals: np.ndarray, m: int, window: int):
@@ -182,44 +264,44 @@ def sliced_ell(cols: np.ndarray, vals: np.ndarray, m: int, window: int):
 def band_tables(ids, inv, owner, ell_cols, ell_vals, device) -> BandTables:
     """:class:`BandTables` on ``device`` from host arrays (numpy, or CPU
     tensors): ``ids`` (nb, K) compact block ids padded with m, ``inv`` (nb,
-    K, K) block inverses, ``owner`` (m,) owner slots, the band matrix
-    row-major as ``ell_cols`` / ``ell_vals`` (m, w), pads trailing each row
-    (column m, value 0), stored as its sliced ELL table, rows sorted by
-    length within each ``WINDOW`` rows (:func:`sliced_ell`).  Adds one to
-    ``tables_built``."""
+    K, K) block inverses, ``owner`` (m,) owner slots, from which the RAS
+    table is built (:func:`ras_table`; the three stay on the host), the
+    band matrix row-major as ``ell_cols`` / ``ell_vals`` (m, w), pads
+    trailing each row (column m, value 0), stored as its sliced ELL table,
+    rows sorted by length within each ``WINDOW`` rows (:func:`sliced_ell`).
+    Adds one to ``tables_built``."""
     global tables_built
     ids, inv, owner, ell_cols, ell_vals = (np.asarray(a) for a in (ids, inv, owner, ell_cols, ell_vals))
     m, w = ell_cols.shape
     nb, K = ids.shape
     if inv.shape != (nb, K, K) or owner.shape != (m,) or ell_vals.shape != (m, w):
         raise ValueError("band_tables: inconsistent Schwarz table shapes")
-    if m < 1 or m >= 2**31 or nb * K * K >= 2**31 or w >= 2**26:
+    if m < 1 or m >= 2**31 or nb * K * K >= 2**31 or K * m >= 2**31 or w >= 2**26:
         raise ValueError("band_tables: tables too large for 32-bit indexing")
+    rcols, rvals = ras_table(ids, inv, owner, m)
     scols, svals, off, n, perm = sliced_ell(ell_cols, ell_vals, m, WINDOW)
     dev = torch.device(device)
-    t = lambda a, dtype: torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)  # a copy: never a view of a
+    t = lambda a, dtype, d=dev: torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=d)  # a copy, never a view
     tables_built += 1
-    return BandTables(inv=t(inv, F64), ids=t(ids, torch.int32), owner=t(owner, torch.int32),
-                      sell_cols=t(scols, torch.int32), sell_vals=t(svals, F64), sell_off=t(off, torch.int64),
-                      row_len=t(n, torch.int32), row_perm=t(perm, torch.int32), width=int(w))
+    host = torch.device("cpu")
+    return BandTables(inv=t(inv, F64, host), ids=t(ids, torch.int32, host), owner=t(owner, torch.int32, host),
+                      ras_cols=t(rcols, torch.int32), ras_vals=t(rvals, F64), sell_cols=t(scols, torch.int32),
+                      sell_vals=t(svals, F64), sell_off=t(off, torch.int64), row_len=t(n, torch.int32),
+                      row_perm=t(perm, torch.int32), width=int(w))
 
 
 # ------------------------------------------------------------ plain versions
 def band_ras_ref(tab: BandTables, x: torch.Tensor, out: Optional[torch.Tensor] = None, *, mode: int = RAS_APPLY,
                  om: float = 1.0, c: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain RAS apply: each DoF's owning row of its block inverse against
-    the block's entries of ``x`` (a pad id reads 0), summed in ascending
-    order; 0 where a DoF has no owner; then ``om acc`` or ``c + om acc`` by
-    ``mode``."""
-    K = tab.K
-    valid = tab.owner < tab.nb * K
-    s = torch.where(valid, tab.owner, 0).long()
-    xv = torch.cat([x, x.new_zeros(1)])[tab.ids.long()[torch.div(s, K, rounding_mode="floor")]]
-    prod = (tab.inv.reshape(-1, K)[s] * xv).T
-    acc = prod[0]
-    for l in range(1, K):
-        acc = acc + prod[l]
-    y = torch.where(valid, acc, 0.0)
+    """Plain RAS apply on the slot-major table: from ``acc = -0``, ``acc =
+    acc + v x`` over each DoF's K slots in ascending order (a pad id reads
+    0; an unowned DoF's slots are 0 x 0, so it ends at +0), then ``om acc``
+    or ``c + om acc`` by ``mode``."""
+    xp = torch.cat([x, x.new_zeros(1)])
+    prod = torch.index_select(xp, 0, tab.ras_cols.view(-1)).view(tab.K, tab.m).mul_(tab.ras_vals)
+    y = x.new_zeros(tab.m).neg_()
+    for row in prod:
+        y = y + row
     if mode == RAS_SCALE:
         y = om * y
     elif mode == RAS_ADD:
@@ -229,29 +311,41 @@ def band_ras_ref(tab: BandTables, x: torch.Tensor, out: Optional[torch.Tensor] =
     return out.copy_(y)
 
 
+def band_ras_p_ref(tab: BandTables, sweep: int, sc: torch.Tensor, r: torch.Tensor, p: torch.Tensor,
+                   v: torch.Tensor, x: torch.Tensor, xb: torch.Tensor, pout: torch.Tensor, ph: torch.Tensor) -> None:
+    """Plain RAS+P: the plain P update of ``sweep`` (the previous sweep's
+    select, then ``pout = r + beta (p - omega v)``, or ``pout = r`` at sweep
+    0), then ``ph = RAS(pout)``."""
+    pout.copy_(p)
+    band_update_ref(P, sweep, sc, r=r, p=pout, v=v, x=x, xb=xb)
+    band_ras_ref(tab, pout, ph)
+
+
+def band_ras_s_ref(tab: BandTables, sc: torch.Tensor, r: torch.Tensor, v: torch.Tensor, s: torch.Tensor,
+                   sh: torch.Tensor) -> None:
+    """Plain RAS+S: the plain S update (``alpha = rho_new / (rhat.v)``, ``s
+    = r - alpha v``), then ``sh = RAS(s)``."""
+    band_update_ref(S, 0, sc, r=r, v=v, s=s)
+    band_ras_ref(tab, s, sh)
+
+
 def band_ell_ref(tab: BandTables, x: torch.Tensor, out: Optional[torch.Tensor] = None, *,
                  b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain band product ``A x`` (or ``b - A x``) on the sliced table: from
     ``acc = -0``, ``acc = acc + v x`` over each row's slots in ascending
     order, then ``acc + 0`` for a row shorter than the host table's width
     (the trailing pads' ``0 x 0``): the padded row's ascending sum bit for
-    bit.  The slices are summed slot by slot side by side, each padded with
-    +0 products to the widest (the stored pads hold 0 x 0 = +0 too): a row
-    that meets such a +0 is shorter than the host table, so ends with ``acc
-    + 0`` anyway, and ``acc + 0 + 0 = acc + 0``."""
-    m, off = tab.m, tab.sell_off
-    first = off[:-1] // SLICE  # a slice's first block of SLICE stored slots: its slot 0
-    widths = off[1:] // SLICE - first
-    prod = tab.sell_vals * torch.cat([x, x.new_zeros(1)])[tab.sell_cols.long()]
-    blocks = torch.cat([prod.view(-1, SLICE), prod.new_zeros(1, SLICE)])  # and a block of +0 last
-    k = torch.arange(int(widths.max()), device=off.device)[:, None]
-    P = blocks[torch.where(k < widths, first + k, blocks.shape[0] - 1)]  # (slot, slice, lane)
-    acc = x.new_zeros(P.shape[1] * SLICE).neg_()
-    for row in P.view(P.shape[0], -1):
-        acc += row
-    acc = acc[:m]
-    acc = torch.where(tab.row_len < tab.width, acc + 0.0, acc)
-    y = torch.empty_like(acc).index_copy_(0, tab.row_perm.long(), acc)
+    bit.  The rows are summed side by side in :attr:`BandTables.plain_ell`'s
+    order, longest first, so that slot k adds to a prefix of them: the rows
+    longer than k (a slice's stored pads, 0 x 0 = +0, only ever turn a -0
+    into the +0 that the row's final ``acc + 0`` gives it anyway)."""
+    cols, vals, spans, rows, short = tab.plain_ell
+    prod = torch.index_select(torch.cat([x, x.new_zeros(1)]), 0, cols).mul_(vals)
+    acc = x.new_zeros(tab.m).neg_()
+    for start, count in spans:
+        acc[:count] += prod[start : start + count]
+    acc = torch.where(short, acc + 0.0, acc)
+    y = torch.empty_like(acc).index_copy_(0, rows, acc)
     if b is not None:
         y = b - y
     return y if out is None else out.copy_(y)
@@ -345,9 +439,13 @@ def _vec(t: torch.Tensor, n: int, dev: torch.device, name: str) -> int:
     return t.data_ptr()
 
 
-def _on(tab: BandTables, dev: torch.device, name: str) -> None:
-    if any(t.device != dev for t in tab.tensors()):
+def _on(tab: BandTables, dev: torch.device, name: str) -> tuple:
+    """The band's packed table pointers (:attr:`BandTables.packed`), which
+    must be on ``dev``."""
+    packed = tab.packed
+    if packed[0] != dev:
         raise ValueError(f"{name}: the band tables are not on {dev}")
+    return packed
 
 
 def _call(dev: torch.device, fn, *args) -> None:
@@ -359,31 +457,78 @@ def _call(dev: torch.device, fn, *args) -> None:
         with torch.cuda.device(dev):
             err = fn(*args, raw_stream(idx))
     if err:
-        msg = _library().phifem_band_error_string(err).decode()
-        raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error {err} ({msg})")
+        _raise(fn, err)
+
+
+def _raise(fn, err: int) -> None:
+    msg = _library().phifem_band_error_string(err).decode()
+    raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error {err} ({msg})")
+
+
+def _count_ras() -> None:
+    global launches, ras_launches
+    launches += 1
+    ras_launches += 1
 
 
 def band_ras(tab: BandTables, x: torch.Tensor, out: Optional[torch.Tensor] = None, *, mode: int = RAS_APPLY,
              om: float = 1.0, c: Optional[torch.Tensor] = None) -> torch.Tensor:
     """RAS apply (see :func:`band_ras_ref`) into ``out`` (a new vector when
     None; ``out`` may be ``c``, not ``x``)."""
-    global launches, ras_launches
     if mode not in (RAS_APPLY, RAS_SCALE, RAS_ADD) or (mode == RAS_ADD and c is None):
         raise ValueError(f"band_ras: bad mode {mode} (RAS_ADD needs c)")
     if not _device(x, "band_ras"):
         return band_ras_ref(tab, x, out, mode=mode, om=om, c=c)
     dev, m = x.device, tab.m
-    _on(tab, dev, "band_ras")
+    _, ras, _ = _on(tab, dev, "band_ras")
     y = torch.empty(m, dtype=F64, device=dev) if out is None else out
     if y is x:
         raise ValueError("band_ras: out must not be x")
-    args = (tab.inv.data_ptr(), tab.ids.data_ptr(), tab.owner.data_ptr(), _vec(x, m, dev, "band_ras"),
-            None if c is None else _vec(c, m, dev, "band_ras"), _vec(y, m, dev, "band_ras"), m, tab.nb, tab.K,
-            float(om), mode)
-    _call(dev, _library().phifem_band_ras, *args)
-    launches += 1
-    ras_launches += 1
+    _call(dev, _library().phifem_band_ras, *ras, _vec(x, m, dev, "band_ras"), None, None,
+          None if c is None else _vec(c, m, dev, "band_ras"), _vec(y, m, dev, "band_ras"), None, None, None, None,
+          m, tab.K, 0, float(om), mode)
+    _count_ras()
     return y
+
+
+def _distinct(name: str, outs: Sequence[torch.Tensor], ins: Sequence[torch.Tensor]) -> None:
+    if len({id(t) for t in (*outs, *ins)}) != len(outs) + len(ins):
+        raise ValueError(f"{name}: every output must be another vector than the inputs and the other outputs")
+
+
+def band_ras_p(tab: BandTables, sweep: int, sc: torch.Tensor, r: torch.Tensor, p: torch.Tensor, v: torch.Tensor,
+               x: torch.Tensor, xb: torch.Tensor, pout: torch.Tensor, ph: torch.Tensor) -> None:
+    """RAS+P in one launch (see :func:`band_ras_p_ref`): the select of
+    sweep - 1 into ``xb`` and the scalar slots ``sc``, the new p into
+    ``pout`` (another buffer than ``p``), ``ph = RAS(pout)``."""
+    if sweep < 0:
+        raise ValueError(f"band_ras_p: sweep {sweep}")
+    _distinct("band_ras_p", (pout, ph, xb), (r, p, v, x))
+    if not _device(sc, "band_ras_p"):
+        return band_ras_p_ref(tab, sweep, sc, r, p, v, x, xb, pout, ph)
+    dev, m = sc.device, tab.m
+    _, ras, _ = _on(tab, dev, "band_ras_p")
+    _vec(sc, SLOTS, dev, "band_ras_p")
+    r_, p_, v_, x_, xb_, po_, ph_ = (_vec(t, m, dev, "band_ras_p") for t in (r, p, v, x, xb, pout, ph))
+    _call(dev, _library().phifem_band_ras, *ras, r_, p_, v_, None, ph_, po_, sc.data_ptr(), x_, xb_, m, tab.K,
+          sweep, 1.0, RAS_P)
+    _count_ras()
+
+
+def band_ras_s(tab: BandTables, sc: torch.Tensor, r: torch.Tensor, v: torch.Tensor, s: torch.Tensor,
+               sh: torch.Tensor) -> None:
+    """RAS+S in one launch (see :func:`band_ras_s_ref`): ``s``, ``sh =
+    RAS(s)`` and alpha into the scalar slots ``sc``."""
+    _distinct("band_ras_s", (s, sh), (r, v))
+    if not _device(sc, "band_ras_s"):
+        return band_ras_s_ref(tab, sc, r, v, s, sh)
+    dev, m = sc.device, tab.m
+    _, ras, _ = _on(tab, dev, "band_ras_s")
+    _vec(sc, SLOTS, dev, "band_ras_s")
+    r_, v_, s_, sh_ = (_vec(t, m, dev, "band_ras_s") for t in (r, v, s, sh))
+    _call(dev, _library().phifem_band_ras, *ras, r_, None, v_, None, sh_, s_, sc.data_ptr(), None, None, m, tab.K,
+          0, 1.0, RAS_S)
+    _count_ras()
 
 
 def band_ell(tab: BandTables, x: torch.Tensor, out: Optional[torch.Tensor] = None, *,
@@ -394,14 +539,13 @@ def band_ell(tab: BandTables, x: torch.Tensor, out: Optional[torch.Tensor] = Non
     if not _device(x, "band_ell"):
         return band_ell_ref(tab, x, out, b=b)
     dev, m = x.device, tab.m
-    _on(tab, dev, "band_ell")
+    _, _, ell = _on(tab, dev, "band_ell")
     y = torch.empty(m, dtype=F64, device=dev) if out is None else out
     if y is x or y is b:
         raise ValueError("band_ell: out must be another vector than x and b")
-    args = (tab.sell_cols.data_ptr(), tab.sell_vals.data_ptr(), tab.sell_off.data_ptr(), tab.row_len.data_ptr(),
-            tab.row_perm.data_ptr(), _vec(x, m, dev, "band_ell"), None if b is None else _vec(b, m, dev, "band_ell"),
-            _vec(y, m, dev, "band_ell"), m, tab.width, 0 if b is None else 1)
-    _call(dev, _library().phifem_band_ell, *args)
+    _call(dev, _library().phifem_band_ell, *ell, _vec(x, m, dev, "band_ell"),
+          None if b is None else _vec(b, m, dev, "band_ell"), _vec(y, m, dev, "band_ell"), m, tab.width,
+          0 if b is None else 1)
     launches += 1
     ell_launches += 1
     return y
@@ -460,21 +604,29 @@ def band_dots(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]], out: Optional[
     return y
 
 
-_UPDATE_VECS = ("r", "p", "v", "s", "t", "x", "ph", "sh", "xb", "rout")
-#: the vectors each update mode takes (P at sweep 0 only r and p)
-MODE_VECS = {P: ("r", "p", "v", "x", "xb"), S: ("r", "v", "s"), XR: ("x", "ph", "sh", "s", "t", "rout"),
-              SEL: ("x", "xb")}
+_UPDATE_VECS = ("x", "ph", "sh", "s", "t", "rout", "xb")
+#: the vectors each update mode of the kernel takes (P and S: inside the
+#: RAS launches)
+MODE_VECS = {XR: ("x", "ph", "sh", "s", "t", "rout"), SEL: ("x", "xb")}
+
+
+def _vec16(t: torch.Tensor, n: int, dev: torch.device, name: str) -> int:
+    ptr = _vec(t, n, dev, name)
+    if ptr % 16:
+        raise ValueError(f"{name}: every vector must be 16-byte aligned")
+    return ptr
 
 
 def band_update(mode: int, sweep: int, sc: torch.Tensor, **vecs) -> None:
-    """One BiCGStab update (``P``, ``S``, ``XR`` or ``SEL``; see
-    :func:`band_update_ref`) on the vectors named in ``vecs`` and the scalar
-    slots ``sc`` (``SLOTS`` float64 values), in place."""
+    """One BiCGStab step outside the RAS launches (``XR`` or ``SEL``; see
+    :func:`band_update_ref`) on the vectors named in ``vecs`` (16-byte
+    aligned on the card) and the scalar slots ``sc`` (``SLOTS`` float64
+    values), in place."""
     global launches, update_launches
     if mode not in MODE_VECS:
-        raise ValueError(f"band_update: unknown mode {mode}")
-    need = MODE_VECS[mode] if not (mode == P and sweep == 0) else ("r", "p")
-    if any(vecs.get(k) is None for k in need) or any(k not in _UPDATE_VECS for k in vecs):
+        raise ValueError(f"band_update: mode {mode} (XR or SEL; P and S run in band_ras_p / band_ras_s)")
+    need = MODE_VECS[mode]
+    if any(vecs.get(k) is None for k in need) or any(k not in need for k in vecs):
         raise ValueError(f"band_update: mode {mode} takes the vectors {need}")
     if sweep < 0:
         raise ValueError(f"band_update: sweep {sweep}")
@@ -483,27 +635,107 @@ def band_update(mode: int, sweep: int, sc: torch.Tensor, **vecs) -> None:
     dev = sc.device
     _vec(sc, SLOTS, dev, "band_update")
     n = vecs[need[0]].shape[0]
-    ptrs = [_vec(vecs[k], n, dev, "band_update") if vecs.get(k) is not None else None for k in _UPDATE_VECS]
+    ptrs = [_vec16(vecs[k], n, dev, "band_update") if k in vecs else None for k in _UPDATE_VECS]
     _call(dev, _library().phifem_band_update, mode, sweep, n, sc.data_ptr(), *ptrs)
     launches += 1
     update_launches += 1
 
 
 # ------------------------------------------------------------ inner solves
-def _bicgstab(ops, tab: BandTables, rb: torch.Tensor, sweeps: int) -> torch.Tensor:
+def _kernel_ops(tab: BandTables, dev: torch.device) -> tuple:
+    """The fused loop's five operations as launches on ``dev``, bound once
+    per solve: the library functions, the current stream, the band's packed
+    tables.  Their vectors are the loop's own (made by it, contiguous,
+    float64, (m,), 16-byte aligned, on ``dev``) and are not checked again;
+    each operation launches its kernel and counts it."""
+    lib, stream = _library(), _raw_stream(dev.index)
+    _, ras, ell = _on(tab, dev, "band_bicgstab")
+    f_ras, f_ell, f_dots, f_up = lib.phifem_band_ras, lib.phifem_band_ell, lib.phifem_band_dots, lib.phifem_band_update
+    m, K, w = tab.m, tab.K, tab.width
+
+    def ras_p(_, sweep, sc, r, p, v, x, xb, pout, ph):
+        err = f_ras(*ras, r.data_ptr(), p.data_ptr(), v.data_ptr(), None, ph.data_ptr(), pout.data_ptr(), sc.data_ptr(),
+                    x.data_ptr(), xb.data_ptr(), m, K, sweep, 1.0, RAS_P, stream)
+        if err:
+            _raise(f_ras, err)
+        _count_ras()
+
+    def ras_s(_, sc, r, v, s, sh):
+        err = f_ras(*ras, r.data_ptr(), None, v.data_ptr(), None, sh.data_ptr(), s.data_ptr(), sc.data_ptr(), None,
+                    None, m, K, 0, 1.0, RAS_S, stream)
+        if err:
+            _raise(f_ras, err)
+        _count_ras()
+
+    def ell_(_, x, y):
+        global launches, ell_launches
+        err = f_ell(*ell, x.data_ptr(), None, y.data_ptr(), m, w, 0, stream)
+        if err:
+            _raise(f_ell, err)
+        launches += 1
+        ell_launches += 1
+
+    def dots(pairs, out, work):
+        global launches, dot_launches
+        ptrs = [t.data_ptr() for pair in pairs for t in pair] + [None] * (6 - 2 * len(pairs))
+        err = f_dots(*ptrs, len(pairs), m, work.data_ptr(), out.data_ptr(), stream)
+        if err:
+            _raise(f_dots, err)
+        launches += 1
+        dot_launches += 1
+
+    def update(mode, sweep, sc, x=None, ph=None, sh=None, s=None, t=None, rout=None, xb=None):
+        global launches, update_launches
+        ptrs = (None if a is None else a.data_ptr() for a in (x, ph, sh, s, t, rout, xb))
+        err = f_up(mode, sweep, m, sc.data_ptr(), *ptrs, stream)
+        if err:
+            _raise(f_up, err)
+        launches += 1
+        update_launches += 1
+
+    return ras_p, ell_, dots, ras_s, update
+
+
+def _fused_bicgstab(ops, tab: BandTables, rb: torch.Tensor, sweeps: int) -> torch.Tensor:
     """The fixed-sweep BiCGStab of :func:`band_bicgstab` on the operations
-    ``ops`` = (ras, ell, dots, update)."""
+    ``ops`` = (ras_p, ell, dots, ras_s, update): 8 a sweep."""
+    ras_p, ell, dots, ras_s, update = ops
+    x = torch.zeros_like(rb)
+    xb = torch.zeros_like(rb)
+    if sweeps <= 0:
+        return xb
+    p = (torch.empty_like(rb), torch.empty_like(rb))
+    v, s, t, ph, sh, rbuf = (torch.empty_like(rb) for _ in range(6))
+    sc = rb.new_zeros(SLOTS)
+    rr, rv, ts = sc[RR : RHO_NEW + 1], sc[RV : RV + 1], sc[TS : TT + 1]
+    work = dot_scratch(tab.m, 2, rb.device)
+    r = rb
+    dots([(r, r), (rb, r)], rr, work)
+    for i in range(int(sweeps)):
+        ras_p(tab, i, sc, r, p[i % 2], v, x, xb, p[(i + 1) % 2], ph)
+        ell(tab, ph, v)
+        dots([(rb, v)], rv, work)
+        ras_s(tab, sc, r, v, s, sh)
+        ell(tab, sh, t)
+        dots([(t, s), (t, t)], ts, work)
+        update(XR, i, sc, x=x, ph=ph, sh=sh, s=s, t=t, rout=rbuf)
+        r = rbuf
+        dots([(r, r), (rb, r)], rr, work)
+    update(SEL, int(sweeps) - 1, sc, x=x, xb=xb)
+    return xb
+
+
+def _bicgstab(ops, tab: BandTables, rb: torch.Tensor, sweeps: int) -> torch.Tensor:
+    """The plain unfused loop of :func:`band_bicgstab_ref` on the operations
+    ``ops`` = (ras, ell, dots, update): 10 steps a sweep."""
     ras, ell, dots, update = ops
-    m = tab.m
-    if rb.shape != (m,) or rb.dtype is not F64:
-        raise ValueError(f"band_bicgstab: rb must be a float64 ({m},) vector")
     x = torch.zeros_like(rb)
     xb = torch.zeros_like(rb)
     if sweeps <= 0:
         return xb
     p, v, s, t, ph, sh, rbuf = (torch.empty_like(rb) for _ in range(7))
     sc = rb.new_zeros(SLOTS)
-    work = dot_scratch(m, 2, rb.device)
+    work = dot_scratch(tab.m, 2, rb.device)
     r = rb
     dots([(r, r), (rb, r)], sc[RR : RHO_NEW + 1], work)
     for i in range(int(sweeps)):
@@ -522,20 +754,34 @@ def _bicgstab(ops, tab: BandTables, rb: torch.Tensor, sweeps: int) -> torch.Tens
     return xb
 
 
+def _check_rb(tab: BandTables, rb: torch.Tensor) -> None:
+    m = tab.m
+    if rb.shape != (m,) or rb.dtype is not F64 or not rb.is_contiguous():
+        raise ValueError(f"band_bicgstab: rb must be a contiguous float64 ({m},) vector")
+
+
 def band_bicgstab(tab: BandTables, rb: torch.Tensor, sweeps: int) -> torch.Tensor:
     """``sweeps`` fixed iterations of BiCGStab on the band system ``A e =
     rb``, preconditioned by the RAS blocks, from ``e = 0``: no exit test and
     no host read; divisions guarded (``|d| > 1e-300``), the BEST iterate (the
     smallest finite ``||r||^2`` seen, ``rb`` itself to start) returned.  The
     JAX package's ``_band_bicgstab`` with float64 dots summed by a fixed
-    tree.  Per sweep: 2 RAS, 2 ELL, 3 dots and 3 updates, one launch each
-    (10); one select after the last."""
-    return _bicgstab((band_ras, band_ell, band_dots, band_update), tab, rb, sweeps)
+    tree.  Per sweep 8 launches: RAS+P, ELL, dots, RAS+S, ELL, dots, XR,
+    dots; one select after the last.  On the card the launches are bound
+    and checked once for the solve (:func:`_kernel_ops`); a CPU ``rb`` takes
+    the same loop through the wrappers' plain versions."""
+    _check_rb(tab, rb)
+    if not _device(rb, "band_bicgstab"):
+        return _fused_bicgstab((band_ras_p, band_ell, band_dots, band_ras_s, band_update), tab, rb, sweeps)
+    with torch.cuda.device(rb.device):
+        return _fused_bicgstab(_kernel_ops(tab, rb.device), tab, rb, sweeps)
 
 
 def band_bicgstab_ref(tab: BandTables, rb: torch.Tensor, sweeps: int) -> torch.Tensor:
-    """Plain :func:`band_bicgstab`: the same loop on the plain versions, on
-    whatever device ``rb`` is (the kernels' reference on the card)."""
+    """Plain :func:`band_bicgstab`: the unfused loop on the plain versions
+    (the P update, RAS, ELL, dots, the S update, RAS, ELL, dots, XR, dots),
+    on whatever device ``rb`` is (the kernels' reference on the card)."""
+    _check_rb(tab, rb)
     return _bicgstab((band_ras_ref, band_ell_ref, band_dots_ref, band_update_ref), tab, rb, sweeps)
 
 
@@ -573,6 +819,11 @@ def _bind():
     return _LAUNCH["bound"]
 
 
+def _raw_stream(idx: int) -> int:
+    """The current raw stream of device ``idx``."""
+    return (_LAUNCH.get("bound") or _bind())[1](idx)
+
+
 def build() -> dict:
     """Compile the kernel library if it is not built yet (see
     :func:`phifem_tpu_torch.ops.nvcc_build.build`)."""
@@ -583,10 +834,10 @@ def build() -> dict:
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build()["path"])
     vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    lib.phifem_band_ras.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, cd, ci, vp]
+    lib.phifem_band_ras.argtypes = [vp] * 11 + [ci, ci, ci, cd, ci, vp]
     lib.phifem_band_ell.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
     lib.phifem_band_dots.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, vp, vp, vp]
-    lib.phifem_band_update.argtypes = [ci, ci, ci, vp] + [vp] * 10 + [vp]
+    lib.phifem_band_update.argtypes = [ci, ci, ci, vp] + [vp] * 7 + [vp]
     for fn in (lib.phifem_band_ras, lib.phifem_band_ell, lib.phifem_band_dots, lib.phifem_band_update):
         fn.restype = ci
     lib.phifem_band_error_string.argtypes = [ci]

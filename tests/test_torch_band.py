@@ -21,14 +21,15 @@ band's default count (the fixed-sweep Krylov solve amplifies rounding),
 and against the former form 1e-13 / 1e-12 (all measured at least 15x
 inside).  The band matrix's sliced table holds each of JAX's ELL rows in its
 order, and its plain product equals the former padded ascending sum bit for
-bit (``tests/test_torch_band_ell.py`` does the same on synthetic bands).  On
-the card (marker ``cuda``) each kernel, the ELL product and whole inner
-solves (10 launches a sweep) are ``torch.equal`` to their plain versions at
-K = 6, 8 and 27.
+bit (``tests/test_torch_band_ell.py`` does the same on synthetic bands; the
+RAS table and the fused steps: ``tests/test_torch_band_ras.py``).  On the
+card (marker ``cuda``) each kernel (the RAS apply in its three modes, RAS+P,
+RAS+S, the ELL product, the dots, XR and SEL), one launch each, and whole
+inner solves (8 launches a sweep) are ``torch.equal`` to their plain
+versions at K = 6, 8 and 27.
 """
 
 import contextlib
-import dataclasses
 
 import numpy as np
 import pytest
@@ -103,8 +104,9 @@ def old_ops(tab: cb.BandTables):
     """The port's former band product (``.sum`` over the (m, nnz) rows) and
     RAS apply (``einsum`` over every block entry, then the owner gather), on
     the row-major tables they read."""
-    cols, vals = (t.to(tab.inv.device) for t in tab.ell_rows())
-    inv, ids, owner = tab.inv, tab.ids.long(), tab.owner.long()
+    dev = tab.ras_cols.device
+    cols, vals = (t.to(dev) for t in tab.ell_rows())
+    inv, ids, owner = tab.inv.to(dev), tab.ids.to(dev).long(), tab.owner.to(dev).long()
 
     def mv(v):
         return (vals * torch.cat([v, v.new_zeros(1)])[cols]).sum(dim=1)
@@ -292,6 +294,8 @@ def test_tables(band):
     assert tab.sell_cols.dtype == tab.row_len.dtype == tab.ids.dtype == tab.owner.dtype == torch.int32
     assert tab.sell_cols.shape == tab.sell_vals.shape and tab.row_len.shape == (tab.m,)
     assert tab.inv.shape == (tab.nb, tab.K, tab.K) and tab.m > 0 and sweeps >= 10
+    assert tab.ras_cols.shape == tab.ras_vals.shape == (tab.K, tab.m) and tab.ras_cols.dtype == torch.int32
+    assert int(tab.ras_cols.max()) <= tab.m
     assert int(tab.sell_cols.max()) <= tab.m and int(tab.ids.max()) <= tab.m
     assert 1 <= int(tab.row_len.max()) <= tab.width
 
@@ -407,7 +411,9 @@ def test_edge_cases_of_the_tables():
     # a pad id contributes nothing: zeroing that column of the inverse
     inv = tab.inv.clone()
     inv[0, :, -1] = 0.0
-    assert torch.equal(cb.band_ras_ref(tab, x), cb.band_ras_ref(dataclasses.replace(tab, inv=inv), x))
+    cols, vals = tab.ell_rows()
+    assert torch.equal(cb.band_ras_ref(tab, x), cb.band_ras_ref(cb.band_tables(tab.ids, inv, tab.owner, cols, vals,
+                                                                              "cpu"), x))
     for n in (1, 255, 1023, 1024, 1025, 3 * cb.CHUNK + 17):
         a, b = _vec(n, n), _vec(n, n + 1)
         got = float(cb.band_dots_ref([(torch.as_tensor(a), torch.as_tensor(b))])[0])
@@ -437,16 +443,17 @@ def test_dot_tree_is_the_halving_tree():
 
 
 def test_zero_sweeps_and_update_modes():
-    """No sweep returns 0; ``band_update`` refuses unknown modes and missing
-    vectors."""
+    """No sweep returns 0; ``band_update`` refuses unknown modes (P and S
+    run inside the RAS launches) and missing vectors."""
     tab = synthetic(300, 120, 8, 6)
     rb = torch.as_tensor(_vec(300, 9))
     assert torch.equal(cb.band_bicgstab(tab, rb, 0), torch.zeros(300, dtype=torch.float64))
     sc = torch.zeros(cb.SLOTS, dtype=torch.float64)
-    with pytest.raises(ValueError, match="mode"):
-        cb.band_update(7, 0, sc, r=rb)
+    for mode in (7, cb.P, cb.S):
+        with pytest.raises(ValueError, match="mode"):
+            cb.band_update(mode, 0, sc, r=rb)
     with pytest.raises(ValueError, match="takes the vectors"):
-        cb.band_update(cb.S, 1, sc, r=rb)
+        cb.band_update(cb.XR, 1, sc, x=rb)
 
 
 # ------------------------------------------------- the wrappers
@@ -465,7 +472,8 @@ def test_band_tables_are_counted_and_checked():
     assert tab.width == 6 and tab.sell_off.shape == (-(-300 // cb.SLICE) + 1,)
     vt = interface_tables_from_numpy(VCycle([], ()), (["u"], [(300,)], [300]), device="cpu", **tables_np(tab))
     assert cb.tables_built == built + 2
-    for name in ("inv", "ids", "owner", "sell_cols", "sell_vals", "sell_off", "row_len", "row_perm"):
+    for name in ("inv", "ids", "owner", "ras_cols", "ras_vals", "sell_cols", "sell_vals", "sell_off", "row_len",
+                 "row_perm"):
         assert torch.equal(getattr(vt.band_tables, name), getattr(tab, name)), name
     with pytest.raises(ValueError, match="inconsistent"):
         cb.band_tables(tab.ids, tab.inv[:, :4], tab.owner, *tab.ell_rows(), "cpu")
@@ -484,8 +492,10 @@ def test_wrappers_dispatch_on_the_device():
     assert torch.equal(cb.band_richardson(tab, x, 3), cb.band_richardson_ref(tab, x, 3))
     assert (cb.launches, cb.ras_launches, cb.ell_launches, cb.dot_launches, cb.update_launches) == before
     meta = x.to("meta")
+    msc = torch.zeros(cb.SLOTS, device="meta")
     for call in (lambda: cb.band_ras(tab, meta), lambda: cb.band_ell(tab, meta), lambda: cb.band_dots([(meta, meta)]),
-                 lambda: cb.band_update(cb.SEL, 0, torch.zeros(cb.SLOTS, device="meta"), x=meta, xb=meta)):
+                 lambda: cb.band_update(cb.SEL, 0, msc, x=meta, xb=meta),
+                 lambda: cb.band_ras_s(tab, msc, meta, meta.clone(), meta.clone(), meta.clone())):
         with pytest.raises(ValueError, match="no kernel for device meta"):
             call()
 
@@ -525,6 +535,25 @@ def cuda():
 CARD_CASES = {"K6": (48_642, 61_782, 6, 13), "K8": (5_000, 3_000, 8, 38), "K27": (20_001, 4_000, 27, 27)}
 
 
+def _update_state(m: int, device, seed: int) -> dict:
+    """Vectors and scalar slots for one call of each fused step and update
+    mode: rr below the best residual of slot 0 and above that of slot 1,
+    so that the select takes x after sweep 0 and keeps xb after sweep 1."""
+    rng = np.random.default_rng(seed)
+    st = {k: torch.as_tensor(rng.standard_normal(m), device=device)
+          for k in ("r", "p", "v", "s", "t", "x", "ph", "sh", "xb", "rout", "pout")}
+    sc = torch.as_tensor(0.5 + rng.random(cb.SLOTS), device=device)
+    sc[cb.RR], sc[cb.RRB0], sc[cb.RRB1] = 0.5, 1.0, 0.25
+    return {"sc": sc, **st}
+
+
+def _one_launch(counter: str, call) -> None:
+    before = getattr(cb, counter)
+    call()
+    torch.cuda.synchronize()
+    assert getattr(cb, counter) == before + 1, counter
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(CARD_CASES))
 def test_kernels_equal_plain_versions(cuda, case):
@@ -533,11 +562,28 @@ def test_kernels_equal_plain_versions(cuda, case):
     x = torch.as_tensor(_vec(m, 11), device=cuda)
     c = torch.as_tensor(_vec(m, 12), device=cuda)
     for mode in (cb.RAS_APPLY, cb.RAS_SCALE, cb.RAS_ADD):
-        before = cb.ras_launches
-        y = cb.band_ras(tab, x, mode=mode, om=0.7, c=c)
-        torch.cuda.synchronize()
-        assert cb.ras_launches == before + 1
-        assert torch.equal(y, cb.band_ras_ref(tab, x, mode=mode, om=0.7, c=c)), mode
+        got = {}
+        _one_launch("ras_launches", lambda: got.update(y=cb.band_ras(tab, x, mode=mode, om=0.7, c=c)))
+        assert torch.equal(got["y"], cb.band_ras_ref(tab, x, mode=mode, om=0.7, c=c)), mode
+    for sweep in (0, 1, 2):
+        st = _update_state(m, cuda, sweep)
+        ref = {k: t.clone() for k, t in st.items()}
+        args = ("sc", "r", "p", "v", "x", "xb", "pout", "ph")
+        _one_launch("ras_launches", lambda: cb.band_ras_p(tab, sweep, *(st[k] for k in args)))
+        cb.band_ras_p_ref(tab, sweep, *(ref[k] for k in args))
+        assert all(torch.equal(st[k], ref[k]) for k in st), sweep
+    st = _update_state(m, cuda, 3)
+    ref = {k: t.clone() for k, t in st.items()}
+    _one_launch("ras_launches", lambda: cb.band_ras_s(tab, *(st[k] for k in ("sc", "r", "v", "s", "sh"))))
+    cb.band_ras_s_ref(tab, *(ref[k] for k in ("sc", "r", "v", "s", "sh")))
+    assert all(torch.equal(st[k], ref[k]) for k in st)
+    for mode, sweep in ((cb.XR, 1), (cb.SEL, 0), (cb.SEL, 1)):
+        st = _update_state(m, cuda, 4 + sweep)
+        ref = {k: t.clone() for k, t in st.items()}
+        names = cb.MODE_VECS[mode]
+        _one_launch("update_launches", lambda: cb.band_update(mode, sweep, st["sc"], **{k: st[k] for k in names}))
+        cb.band_update_ref(mode, sweep, ref["sc"], **{k: ref[k] for k in names})
+        assert all(torch.equal(st[k], ref[k]) for k in st), (mode, sweep)
     for b in (None, c):
         before = cb.ell_launches
         y = cb.band_ell(tab, x, b=b)
@@ -560,9 +606,11 @@ def test_inner_solves_equal_plain_versions(cuda, case):
     tab = synthetic(m, nb, K, w, seed=SEED + K, device=cuda)
     rb = torch.as_tensor(_vec(m, 13), device=cuda)
     for sweeps in (1, 2, 17):
-        before = cb.launches
+        before = (cb.launches, cb.ras_launches, cb.update_launches)
         e = cb.band_bicgstab(tab, rb, sweeps)
         torch.cuda.synchronize()
-        assert cb.launches - before == 1 + sweeps * 10 + 1  # the first dots, 10 a sweep, the select
+        # the first dots, 8 a sweep (2 of them RAS, 1 XR), the select
+        assert (cb.launches - before[0], cb.ras_launches - before[1], cb.update_launches - before[2]) == (
+            2 + sweeps * 8, 2 * sweeps, sweeps + 1)
         assert torch.equal(e, cb.band_bicgstab_ref(tab, rb, sweeps)), sweeps
     assert torch.equal(cb.band_richardson(tab, rb, 6, 0.8), cb.band_richardson_ref(tab, rb, 6, 0.8))

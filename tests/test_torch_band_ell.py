@@ -196,7 +196,7 @@ def cuda():
 
 
 def _on(tab: cb.BandTables, dev) -> cb.BandTables:
-    fields = ("inv", "ids", "owner", "sell_cols", "sell_vals", "sell_off", "row_len", "row_perm")
+    fields = [f.name for f in dataclasses.fields(tab) if isinstance(getattr(tab, f.name), torch.Tensor)]
     return dataclasses.replace(tab, **{f: getattr(tab, f).to(dev) for f in fields})
 
 
